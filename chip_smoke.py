@@ -1,0 +1,418 @@
+#!/usr/bin/env python3
+"""Chip smoke test of madsim_tpu_torch: the port's main path on one NVIDIA GPU.
+
+Builds the CUDA step kernel from ``madsim_tpu_torch/csrc`` and drives the
+batched Raft engine — ``DeviceEngine(RaftActor(..), EngineConfig(..))``,
+``init``, ``run``, ``observe`` — through it. Phases, in order; any failure
+exits non-zero:
+
+1. card: name and power limit; uint32 <-> int64 round trip on CUDA tensors;
+2. build: nvcc, with the ptxas register/spill report;
+3. Threefry on the card: Random123 known answers and bitwise agreement with
+   the plain torch version on 2^20 keys and counters;
+4. kernel vs plain step, whole runs: four configurations at W=4096 and the
+   two main-path deployments at their full W, every leaf compared bitwise
+   after each of the first 64 steps, every 64th step after, and at the end;
+5. held to JAX without JAX: observe() digests of seeds 0..63 equal the
+   JAX-derived constants in ``madsim_tpu_torch/engine/golden.py``;
+6. the main path at full size: the headline deployment at W=524,288 and the
+   bug hunt at W=65,536, init and run timed apart (best of 3), the kernel's
+   launches counted; the kernel's device time per step over the same
+   launches, held against its memory bound, and the run's device idle
+   share.
+
+The last line of standard output is ``{"ok": true, "device": {...}}``; the
+line before it lists each kernel with its launches and times.
+
+Usage: python3 chip_smoke.py   (from the root of the repository)
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+W_COMPARE = 4096
+COMPARE_EVERY_STEP = 64
+TIMED_STEPS = 100
+# A sleep the device runs while the host queues a chunk of timed launches
+# behind it: about 0.1 s at the H100's 1.98 GHz boost clock.
+SLEEP_CYCLES = 200_000_000
+
+
+class PhaseError(RuntimeError):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise PhaseError(msg)
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on a GPU",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, HERE)
+    import numpy as np
+
+    from madsim_tpu_torch import _build
+    from madsim_tpu_torch.engine import (
+        FAULT_CLOG_LINK, FAULT_CLOG_NODE, FAULT_KILL, FAULT_PAUSE,
+        FAULT_RESTART, FAULT_RESUME, FAULT_SET_LATENCY, FAULT_SET_LOSS,
+        FAULT_UNCLOG_LINK, FAULT_UNCLOG_NODE, DeviceEngine, EngineConfig,
+        RaftActor, RaftDeviceConfig, golden, step_kernel)
+    from madsim_tpu_torch.engine.core import tree_leaves, tree_paths
+    from madsim_tpu_torch.ops.threefry import threefry2x32_torch
+
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+
+    # ---- 1. card ----------------------------------------------------------
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(f"[1 card] {card}; torch {torch.__version__} cuda "
+        f"{torch.version.cuda}")
+    x = torch.tensor([0, 1, 2**31 - 1, 2**31, 2**32 - 1], dtype=torch.int64,
+                     device=dev)
+    u = (x & 0xFFFFFFFF).to(torch.uint32)
+    check(u.dtype == torch.uint32 and torch.equal(u.to(torch.int64), x),
+          "uint32 <-> int64 round trip on CUDA changed values")
+    log("[1 card] uint32 <-> int64 round trip on CUDA: ok")
+
+    # ---- 2. build ---------------------------------------------------------
+    took = _build.build("step_kernel")
+    log(f"[2 build] step_kernel.cu: nvcc {took:.1f} s")
+    for line in _build.build_log.get("step_kernel", "").splitlines():
+        if "registers" in line or "spill" in line or "error" in line:
+            log(f"[2 build] step_kernel.cu: {line.strip()}")
+
+    # ---- 3. Threefry on the card ------------------------------------------
+    kat = [((0x00000000, 0x00000000), (0x00000000, 0x00000000),
+            (0x6B200159, 0x99BA4EFE)),
+           ((0xFFFFFFFF, 0xFFFFFFFF), (0xFFFFFFFF, 0xFFFFFFFF),
+            (0x1CB996FC, 0xBB002BE7)),
+           ((0x243F6A88, 0x85A308D3), (0x13198A2E, 0x03707344),
+            (0xC4923A9C, 0x483DF7A0))]
+
+    def u32(vals):
+        return torch.tensor(vals, dtype=torch.int64, device=dev) \
+            .to(torch.uint32)
+
+    o0, o1 = step_kernel.threefry2x32(
+        u32([k[1][0] for k in kat]), u32([k[1][1] for k in kat]),
+        u32([k[0][0] for k in kat]), u32([k[0][1] for k in kat]))
+    got = list(zip(o0.to(torch.int64).tolist(), o1.to(torch.int64).tolist()))
+    check(got == [k[2] for k in kat], f"Threefry known answers: got {got}")
+    g = torch.Generator(device=dev).manual_seed(0)
+    ks = [torch.randint(0, 2**32, (1 << 20,), generator=g, device=dev,
+                        dtype=torch.int64).to(torch.uint32) for _ in range(4)]
+    ks[2][:4] = u32([2**32 - 1, 2**32 - 2, 0, 1])  # counters at the wrap
+    a0, a1 = step_kernel.threefry2x32(*ks)
+    b0, b1 = threefry2x32_torch(*ks)
+    check(torch.equal(a0.to(torch.int64), b0.to(torch.int64))
+          and torch.equal(a1.to(torch.int64), b1.to(torch.int64)),
+          "Threefry kernel differs from the plain torch version")
+    log("[3 threefry] known answers ok; 2^20 random (key, counter) pairs "
+        "bitwise equal to the plain version")
+
+    # ---- 4. kernel vs plain, whole runs -----------------------------------
+    def bits(x):
+        """A leaf as a tensor whose equality is bit equality."""
+        if x.dtype == torch.uint32:
+            return x.to(torch.int64)
+        if x.dtype == torch.float32:
+            return x.view(torch.int32)
+        return x
+
+    def diff(a, b):
+        """(first leaf whose bits differ or None, max abs difference)."""
+        first, err = None, 0.0
+        for name, x, y in zip(tree_paths(a), tree_leaves(a),
+                              tree_leaves(b)):
+            if x.dtype == y.dtype and torch.equal(bits(x), bits(y)):
+                continue
+            first = first or name
+            if x.dtype == y.dtype and x.numel():
+                xv, yv = (v.to(torch.int64) if v.dtype == torch.uint32
+                          else v for v in (x, y))
+                err = max(err, float((xv.to(torch.float64)
+                                      - yv.to(torch.float64)).abs().max()))
+            else:
+                err = float("inf")
+        return first, err
+
+    fault_mix = np.array([
+        [100_000, FAULT_PAUSE, 1, 0], [250_000, FAULT_RESUME, 1, 0],
+        [120_000, FAULT_CLOG_NODE, 2, 0], [400_000, FAULT_UNCLOG_NODE, 2, 0],
+        [150_000, FAULT_CLOG_LINK, 0, 1], [600_000, FAULT_UNCLOG_LINK, 0, 1],
+        [200_000, FAULT_SET_LATENCY, 500, 20_000],
+        [300_000, FAULT_SET_LOSS, 200_000, 0], [800_000, FAULT_SET_LOSS, 0, 0],
+        [500_000, FAULT_KILL, 1, 0], [650_000, FAULT_RESTART, 1, 0],
+    ], np.int32)
+    # The main path: the headline deployment and the bug hunt, at full W.
+    mains = [
+        ("headline", golden.CONFIGS["headline"][:2], None, 524_288, 2_000),
+        ("hunt", (dict(n=3, buggy_double_vote=True),
+                  golden.CONFIGS["hunt_faults"][1]), None, 65_536, 4_000),
+    ]
+    compare_cfgs = [
+        ("headline", golden.CONFIGS["headline"][:2], None, W_COMPARE, 2_000,
+         None),
+        ("hunt_kill_restart", golden.CONFIGS["hunt_faults"][:2],
+         np.asarray(golden.CONFIGS["hunt_faults"][2], np.int32), W_COMPARE,
+         4_000, "bug"),
+        ("overflow_q8", (dict(n=3, n_proposals=2),
+                         dict(n_nodes=3, outbox_cap=4, queue_cap=8,
+                              t_limit_us=2_000_000, stop_on_bug=False)),
+         None, W_COMPARE, 3_000, "overflow"),
+        ("fault_mix", (dict(n=3, n_proposals=3),
+                       dict(n_nodes=3, outbox_cap=4, queue_cap=64,
+                            t_limit_us=1_500_000, stop_on_bug=False)),
+         fault_mix, W_COMPARE, 3_000, None),
+    ] + [("main_" + name, cfgs, faults, w, max_steps,
+          "bug" if name == "hunt" else None)
+         for name, cfgs, faults, w, max_steps in mains]
+    max_abs_err = 0.0
+    for name, (rk, ck), faults, w, max_steps, expect in compare_cfgs:
+        seeds = np.arange(w)
+        t0 = time.perf_counter()
+        eng = DeviceEngine(RaftActor(RaftDeviceConfig(**rk)),
+                           EngineConfig(**ck), device=dev)
+        ks_state = eng.init(seeds, faults=faults)
+        pl_state = eng.init(seeds, faults=faults)
+        first, err = diff(ks_state, pl_state)
+        check(first is None, f"{name}: init not deterministic ({first})")
+        steps = 0
+        while steps < max_steps and (bool(ks_state.active.any())
+                                     or bool(pl_state.active.any())):
+            eng.step(ks_state)
+            pl_state = eng.step_plain(pl_state)
+            steps += 1
+            if steps <= COMPARE_EVERY_STEP or steps % 64 == 0:
+                first, err = diff(ks_state, pl_state)
+                max_abs_err = max(max_abs_err, err)
+                check(first is None, f"{name}: kernel and plain step differ "
+                      f"first on leaf {first} after step {steps} "
+                      f"(max abs err {err})")
+        first, err = diff(ks_state, pl_state)
+        max_abs_err = max(max_abs_err, err)
+        check(first is None, f"{name}: kernel and plain step differ at the "
+              f"end on leaf {first}")
+        obs = eng.observe(ks_state)
+        check(not obs["active"].any(), f"{name}: worlds still active")
+        if expect:
+            check(obs[expect].any(), f"{name}: no world hit {expect}; the "
+                  f"path it exists for went unexercised")
+        log(f"[4 compare] {name}: W={w} {steps} steps bitwise equal "
+            f"(bug {int(obs['bug'].sum())}, overflow "
+            f"{int(obs['overflow'].sum())}, elected "
+            f"{int(obs['leader_elected'].sum())}) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        del ks_state, pl_state
+
+    # ---- 5. held to JAX without JAX ---------------------------------------
+    for name, (rk, ck, faults, max_steps) in golden.CONFIGS.items():
+        eng = DeviceEngine(RaftActor(RaftDeviceConfig(**rk)),
+                           EngineConfig(**ck), device=dev)
+        fa = None if faults is None else np.asarray(faults, np.int32)
+        obs = eng.observe(eng.run(eng.init(golden.SEEDS, faults=fa),
+                                  max_steps))
+        digest = golden.observe_digest(obs)
+        check(digest == golden.GOLDEN[name],
+              f"{name}: observe() digest {digest} != JAX-derived "
+              f"{golden.GOLDEN[name]}")
+        log(f"[5 golden] {name}: observe() digest equals the JAX-derived "
+            f"constant")
+
+    # ---- 6. the main path at full size ------------------------------------
+    engines = {name: DeviceEngine(RaftActor(RaftDeviceConfig(**rk)),
+                                  EngineConfig(**ck), device=dev)
+               for name, (rk, ck), _f, _w, _m in mains}
+    results = {}
+    step_kernel.launches = 0
+    for name, _cfgs, faults, w, max_steps in mains:
+        eng = engines[name]
+        before = step_kernel.launches
+        best_init = best_run = float("inf")
+        for rep in range(4):  # rep 0 warms up
+            seeds = np.arange(w)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = eng.init(seeds, faults=faults)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            n0 = step_kernel.launches
+            state = eng.run(state, max_steps)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if rep:
+                best_init = min(best_init, t1 - t0)
+                best_run = min(best_run, t2 - t1)
+        obs = eng.observe(state)
+        results[name] = dict(
+            w=w, init_s=best_init, run_s=best_run, obs=obs,
+            launches=step_kernel.launches - before,
+            run_launches=step_kernel.launches - n0,
+            seeds=seeds, state_bytes=sum(x.numel() * x.element_size()
+                                         for x in tree_leaves(state)))
+        del state
+    main_launches = step_kernel.launches
+
+    for name, r in results.items():
+        obs = r["obs"]
+        check(r["launches"] > 0, f"{name}: the step kernel never launched")
+        check(not obs["active"].any(), f"{name}: worlds left active")
+    hl, hunt = results["headline"], results["hunt"]
+    check(not hl["obs"]["bug"].any(), "headline: the clean config flagged "
+          "a bug")
+    check(not hl["obs"]["overflow"].any(), "headline: queue overflow")
+    check(hunt["obs"]["bug"].any(), "hunt: no bug found")
+
+    # Outside the counted main path: the kernel's device time over the
+    # run's own launches, the plain step's time, and the bytes each step
+    # must move at the least.
+    def device_ms(eng, w, total):
+        """Device ms of each chunk of TIMED_STEPS launches, over the
+        ``total`` launches a run made from a fresh init. Each chunk is
+        queued behind a sleeping kernel, and the check that the chunk's
+        first event had not run when its last launch was queued proves
+        that its launches ran back to back: the event pair holds the
+        kernels and the gaps between them, not the host's launch cost."""
+        state = eng.init(np.arange(w))
+        leaves = tree_leaves(state)
+        chunks = []
+        while sum(k for k, _ in chunks) < total:
+            k = min(TIMED_STEPS, total - sum(k for k, _ in chunks))
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SLEEP_CYCLES)
+            e0.record()
+            step_kernel.launch(eng, leaves, k)
+            e1.record()
+            check(not e0.query(), "timing: the device reached the timed "
+                  "launches before they were all queued")
+            e1.synchronize()
+            chunks.append((k, e0.elapsed_time(e1)))
+        return chunks
+
+    def plain_ms_per_step(eng, w, n=3):
+        """Event pair over n plain steps; the plain step syncs with the
+        host inside (it skips branches no world takes), so this is its
+        wall time on the device's clock."""
+        state = eng.step_plain(eng.init(np.arange(w)))  # warm-up
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(n):
+            state = eng.step_plain(state)
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / n
+
+    def least_bytes(eng, w, total):
+        """Bytes each of the run's ``total`` steps must move at the least:
+        per active world the queue's time and meta lanes (the pop scans
+        them), the popped payload row, the pause lane, the destination's
+        alive and generation bytes, the RNG cursor and key, the net model,
+        the scalar lanes read and written, and the invariant's commit and
+        log lanes of every node; per frozen world its active flag, depth
+        lanes, bug flag and the invariant's reads. The handler's rows and
+        the inserted events are not counted, so this is a lower bound."""
+        cfg, L = eng.cfg, eng.actor.rcfg.log_cap
+        n, q, p = cfg.n_nodes, cfg.queue_cap, cfg.payload_words
+        inv = 2 * n + 4 * n * L
+        frozen = 1 + 4 + 1 + inv
+        active = (8 * q + 2 * p + n + 2 + 12 + 12 + inv
+                  + 2 * (1 + 4 + 4 + 4 + 4) + 1 + 4 + 4)
+        state = eng.init(np.arange(w))
+        out = []
+        for _ in range(total):
+            a = int(state.active.sum())
+            out.append(a * active + (w - a) * frozen)
+            eng.run_steps(state, 1)
+        return out
+
+    for name, r in results.items():
+        eng = engines[name]
+        steps_run = r["run_launches"]
+        chunks = device_ms(eng, r["w"], steps_run)
+        per_step = least_bytes(eng, r["w"], steps_run)
+        first_k, first_ms = chunks[0]
+        r["first_ms"] = first_ms / first_k
+        r["first_bound_ms"] = (sum(per_step[:first_k]) / first_k
+                               / HBM_BYTES_PER_S * 1e3)
+        r["busy_ms"] = sum(ms for _k, ms in chunks)
+        r["kernel_ms"] = r["busy_ms"] / steps_run
+        r["least_bytes"] = sum(per_step) / steps_run
+        r["bound_ms"] = r["least_bytes"] / HBM_BYTES_PER_S * 1e3
+        r["plain_ms"] = plain_ms_per_step(eng, r["w"])
+        r["full_state_ms"] = 2 * r["state_bytes"] / HBM_BYTES_PER_S * 1e3
+        obs = r["obs"]
+        bugs = np.flatnonzero(obs["bug"])
+        log(f"[6 main] {name}: W={r['w']} init {r['init_s'] * 1e3:.2f} ms, "
+            f"run {r['run_s'] * 1e3:.2f} ms (best of 3); "
+            f"{r['w'] / (r['init_s'] + r['run_s']):.0f} worlds/s incl. "
+            f"init, {r['w'] / r['run_s']:.0f} run only; {steps_run} "
+            f"launches per run (max world steps {int(obs['steps'].max())}, "
+            f"mean {float(obs['steps'].mean()):.1f}), "
+            f"{r['run_s'] * 1e3 / steps_run:.4f} ms/step wall")
+        log(f"[6 main] {name}: kernel device time over the run's "
+            f"{steps_run} launches {r['busy_ms']:.3f} ms = "
+            f"{r['kernel_ms']:.4f} ms/step against a least-traffic bound "
+            f"of {r['bound_ms']:.4f} ms ({r['least_bytes'] / 1e6:.1f} "
+            f"MB/step); device idle share of the run "
+            f"{1 - r['busy_ms'] / (r['run_s'] * 1e3):.3f}")
+        log(f"[6 main] {name}: kernel ms/step by chunk of {TIMED_STEPS} "
+            f"launches: " + ", ".join(f"{ms / k:.4f}" for k, ms in chunks)
+            + f"; first chunk bound {r['first_bound_ms']:.4f} ms; "
+            f"full-state traffic 2 x {r['state_bytes'] / 1e6:.1f} MB = "
+            f"{r['full_state_ms']:.4f} ms ({r['state_bytes'] / r['w']:.0f} "
+            f"B/world); plain step {r['plain_ms']:.3f} ms (no yardstick)")
+        log(f"[6 main] {name}: elected {int(obs['leader_elected'].sum())}/"
+            f"{r['w']}; overflow {int(obs['overflow'].sum())}; bugs "
+            f"{len(bugs)}" + (f", first failing seed {int(r['seeds'][bugs[0]])}"
+                              if len(bugs) else ""))
+    log(f"[6 main] step kernel launches on the main path: {main_launches}")
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+
+    print(card)
+    print(json.dumps({"kernels": [{
+        "name": "step_kernel",
+        "route": "cuda",
+        "source": "madsim_tpu_torch/csrc/step_kernel.cu",
+        "replaces": "madsim_tpu/engine/pallas_step.py:132",
+        "launches": main_launches,
+        "max_abs_err": max_abs_err,
+        "ms": hl["kernel_ms"],
+        "plain_ms": hl["plain_ms"],
+        "bound_ms": hl["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+    }]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except PhaseError as exc:
+        print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
+        sys.exit(1)

@@ -1,0 +1,705 @@
+"""The batched device engine core: world state, the plain step, and the run
+loop.
+
+The PyTorch counterpart of ``madsim_tpu/engine/core.py`` (see its
+docstring for the design). One *world* is one seeded simulation of a whole
+cluster; every leaf of :class:`WorldState` carries a leading world axis
+``W``, and one step advances every world by one event. The JAX package
+writes the step for one world and ``vmap``s it; here the world axis is
+written out.
+
+Two implementations of the step exist and are bitwise equal:
+
+- :meth:`DeviceEngine.step_plain`, plain PyTorch ops on any device — the
+  reference the kernel is held to, and the step the CPU runs;
+- the hand-written CUDA kernel (``csrc/step_kernel.cu``, launched by
+  :mod:`madsim_tpu_torch.engine.step_kernel`), which is always the step
+  on a CUDA device. It replaces the JAX package's one Pallas kernel.
+
+The contract with the JAX package is bitwise equality on every
+``WorldState`` leaf for the same seeds, faults and configs.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..ops.threefry import i64_to_u32, u32_to_i64
+from .lanes import (
+    PACKED,
+    WIDE,
+    Lanes,
+    join_wide,
+    narrow,
+    narrow_wrap,
+    split_wide,
+    take_small,
+    upd,
+    upd2,
+    widen,
+)
+from .queue import (
+    FLAG_FAULT,
+    FLAG_TIMER,
+    GEN_MASK,
+    INF_TIME,
+    Event,
+    EventQueue,
+    depth as queue_depth,
+    eligible_mask,
+    empty_queue,
+    pop_indexed,
+    push_many,
+)
+from .rng import DevRng, _u32_to_range, _u32_to_unit_f32, make_rng, next_u32_vec
+
+# Device-engine RNG stream id (host streams occupy 0..3).
+STREAM_DEVICE = 16
+
+# Fault-injection ops (event kind when FLAG_FAULT is set); see the JAX
+# module for the reference analogs.
+FAULT_KILL = 0
+FAULT_RESTART = 1
+FAULT_CLOG_NODE = 2
+FAULT_UNCLOG_NODE = 3
+FAULT_CLOG_LINK = 4
+FAULT_UNCLOG_LINK = 5
+# FAULT_SET_LATENCY: a = new min µs, b = new max µs.
+# FAULT_SET_LOSS:    a = new loss rate in parts-per-million, b unused.
+FAULT_SET_LATENCY = 6
+FAULT_SET_LOSS = 7
+FAULT_PAUSE = 8
+FAULT_RESUME = 9
+
+#: Worlds per CUDA block when ``EngineConfig.pallas_block`` is None.
+DEFAULT_BLOCK = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Static engine parameters: the JAX ``EngineConfig``'s fields, defaults
+    and validation.
+
+    ``pallas`` and ``pallas_interpret`` are accepted for parity and have no
+    effect: on a CUDA device the step is always the hand-written kernel, on
+    the CPU always the plain step. ``pallas_block`` is the number of worlds
+    per CUDA block (default :data:`DEFAULT_BLOCK`).
+    """
+
+    n_nodes: int
+    queue_cap: int = 128
+    payload_words: int = 8
+    outbox_cap: Optional[int] = None  # default n_nodes + 1
+    latency_min_us: int = 1_000
+    latency_max_us: int = 10_000
+    loss_rate: float = 0.0
+    t_limit_us: int = 10_000_000
+    stop_on_bug: bool = True
+    sequential_insert: bool = False
+    metrics: bool = False
+    blackbox: int = 0
+    packed: bool = True
+    pallas: bool = False
+    pallas_block: Optional[int] = None
+    pallas_interpret: Optional[bool] = None
+
+    def __post_init__(self):
+        if self.packed:
+            if self.n_nodes > 127:
+                raise ValueError(
+                    f"EngineConfig(packed=True) stores node ids in int8: "
+                    f"n_nodes={self.n_nodes} exceeds 127. Use "
+                    f"packed=False (the int32 reference profile) for "
+                    f"wider clusters.")
+            if self.queue_cap > 32767:
+                raise ValueError(
+                    f"EngineConfig(packed=True) carries queue depths in "
+                    f"int16: queue_cap={self.queue_cap} exceeds 32767. "
+                    f"Use packed=False for deeper queues.")
+        if self.pallas_block is not None and self.pallas_block <= 0:
+            raise ValueError("pallas_block must be a positive world count")
+        if self.blackbox < 0:
+            raise ValueError("blackbox must be 0 (off) or a positive ring "
+                             "depth K (events/world)")
+        if self.metrics:
+            raise NotImplementedError(
+                "EngineConfig(metrics=True) is not ported yet "
+                "(ROADMAP Queue A item 5 / Queue B f)")
+        if self.blackbox:
+            raise NotImplementedError(
+                "EngineConfig(blackbox>0) is not ported yet "
+                "(ROADMAP Queue A item 5 / Queue B f)")
+        if self.sequential_insert:
+            raise NotImplementedError(
+                "EngineConfig(sequential_insert=True) is not ported "
+                "(ROADMAP Queue A item 4, remaining)")
+
+    @property
+    def lanes(self) -> Lanes:
+        return PACKED if self.packed else WIDE
+
+    @property
+    def m(self) -> int:
+        return self.outbox_cap if self.outbox_cap is not None else self.n_nodes + 1
+
+    @property
+    def block(self) -> int:
+        """Worlds per CUDA block."""
+        return self.pallas_block or DEFAULT_BLOCK
+
+
+class Outbox(NamedTuple):
+    """Per-world send buffers an actor returns from a handler: (W, M)
+    fields, payload (W, M, P) int32."""
+
+    valid: torch.Tensor     # bool
+    is_timer: torch.Tensor  # bool
+    kind: torch.Tensor      # int32
+    dst: torch.Tensor       # int32
+    delay_us: torch.Tensor  # int32 — timers only
+    payload: torch.Tensor   # int32
+
+    @staticmethod
+    def empty(cfg: EngineConfig, n_worlds: int, device) -> "Outbox":
+        m = cfg.m
+        z = torch.zeros((n_worlds, m), dtype=torch.int32, device=device)
+        f = torch.zeros((n_worlds, m), dtype=torch.bool, device=device)
+        return Outbox(valid=f, is_timer=f, kind=z, dst=z, delay_us=z,
+                      payload=torch.zeros((n_worlds, m, cfg.payload_words),
+                                          dtype=torch.int32, device=device))
+
+
+class WorldState(NamedTuple):
+    """All state of W worlds; field order (and so leaf order) is the JAX
+    package's. ``metrics`` and ``blackbox`` stay None in this slice."""
+
+    now: torch.Tensor          # (W,) int32 µs
+    queue: EventQueue
+    rng: DevRng
+    alive: torch.Tensor        # (W, N) bool
+    gen: torch.Tensor          # (W, N) code lane, compared mod 256
+    paused: torch.Tensor       # (W, N) bool
+    clog_node: torch.Tensor    # (W, N) bool
+    clog_link: torch.Tensor    # (W, N, N) bool, [src, dst]
+    astate: Any                # actor state (NamedTuple of tensors)
+    active: torch.Tensor       # (W,) bool — False ⇒ frozen
+    steps: torch.Tensor        # (W,) int32
+    delivered: torch.Tensor    # (W,) int32
+    dropped: torch.Tensor      # (W,) int32
+    overflow: torch.Tensor     # (W,) bool
+    qdepth: torch.Tensor       # (W,) slot lane — carried queue depth
+    qmax: torch.Tensor         # (W,) slot lane — depth high-water mark
+    bug: torch.Tensor          # (W,) bool
+    bug_time: torch.Tensor     # (W,) int32 µs of first bug, INF if none
+    lat_min: torch.Tensor      # (W,) int32 µs
+    lat_max: torch.Tensor      # (W,) int32 µs
+    loss: torch.Tensor         # (W,) float32
+    metrics: Any = None
+    blackbox: Any = None
+
+
+# ---------------------------------------------------------------------------
+# NamedTuple trees (the port's pytrees): None is an empty subtree.
+# ---------------------------------------------------------------------------
+
+def tree_leaves(tree) -> list:
+    """Leaves in ``jax.tree.leaves`` order (NamedTuple fields in order,
+    None skipped)."""
+    if tree is None:
+        return []
+    if isinstance(tree, tuple):
+        out = []
+        for x in tree:
+            out.extend(tree_leaves(x))
+        return out
+    return [tree]
+
+
+def tree_paths(tree, prefix: str = "") -> list:
+    """Dotted field names of :func:`tree_leaves` (``queue.time``, ...),
+    in the same order."""
+    if tree is None:
+        return []
+    if isinstance(tree, tuple):
+        out = []
+        for name, x in zip(tree._fields, tree):
+            out.extend(tree_paths(x, prefix + name + "."))
+        return out
+    return [prefix[:-1]]
+
+
+def tree_unflatten(template, leaves):
+    """Rebuild ``template``'s structure from ``leaves`` (an iterator or
+    list in :func:`tree_leaves` order)."""
+    it = iter(leaves)
+
+    def build(t):
+        if t is None:
+            return None
+        if isinstance(t, tuple):
+            return type(t)(*[build(x) for x in t])
+        return next(it)
+
+    out = build(template)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the template has")
+    return out
+
+
+def tree_map(fn, *trees):
+    """Apply ``fn`` leaf-wise over identically structured trees."""
+    t0 = trees[0]
+    if t0 is None:
+        return None
+    if isinstance(t0, tuple):
+        return type(t0)(*[tree_map(fn, *xs) for xs in zip(*trees)])
+    return fn(*trees)
+
+
+def where_worlds(pred: torch.Tensor, a: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """Per-world select: ``pred`` is (W,), ``a``/``b`` (W, ...)."""
+    p = pred.reshape(pred.shape + (1,) * (a.dim() - 1))
+    if a.dtype == torch.uint32:
+        return i64_to_u32(torch.where(p, u32_to_i64(a), u32_to_i64(b)))
+    return torch.where(p, a, b)
+
+
+def tree_select(pred, a, b):
+    """Per-world select over two identically batched trees."""
+    return tree_map(lambda x, y: where_worlds(pred, x, y), a, b)
+
+
+#: WorldState leaves (besides astate and rng) that a fault event writes.
+_FAULT_FIELDS = ("alive", "gen", "paused", "clog_node", "clog_link",
+                 "lat_min", "lat_max", "loss")
+
+
+def _resolve_device(device) -> torch.device:
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "DeviceEngine runs on the GPU by default, and no CUDA device "
+                "was found: pass device='cpu' to run the plain PyTorch step "
+                "on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+class DeviceEngine:
+    """Batched simulation of W worlds of one actor under one config.
+
+    Usage::
+
+        eng = DeviceEngine(RaftActor(rcfg), EngineConfig(n_nodes=3))
+        state = eng.init(np.arange(10_000))     # one world per seed
+        state = eng.run(state, max_steps=5_000)  # updated in place
+        out = eng.observe(state)                 # host-side dict
+
+    ``device`` defaults to ``cuda``; pass ``device="cpu"`` to run the plain
+    step on the CPU.
+    """
+
+    def __init__(self, actor, cfg: EngineConfig, device=None):
+        if cfg.n_nodes > 256:
+            raise ValueError("DeviceEngine supports at most 256 nodes/world")
+        num_kinds = getattr(actor, "num_kinds", None)
+        if num_kinds is None:
+            raise ValueError("actor must declare num_kinds (its event-kind "
+                             "count; packed event kinds are 6 bits)")
+        if num_kinds > 64:
+            raise ValueError("actor.num_kinds must be <= 64")
+        self.actor = actor
+        self.cfg = cfg
+        self.device = _resolve_device(device)
+        self._layout = None
+
+    def state_layout(self) -> list:
+        """``(name, dtype, per-world shape)`` of each state leaf, in leaf
+        order, read off a one-world state built on the CPU."""
+        if self._layout is None:
+            one = self._init_batched(
+                torch.zeros((1,), dtype=torch.uint32),
+                torch.zeros((1,), dtype=torch.uint32),
+                torch.zeros((1, 0, 4), dtype=torch.int32),
+                torch.zeros((1,), dtype=torch.int32),
+                torch.ones((1,), dtype=torch.int32),
+                torch.zeros((1,), dtype=torch.float32))
+            self._layout = [(name, x.dtype, tuple(x.shape[1:])) for name, x
+                            in zip(tree_paths(one), tree_leaves(one))]
+        return self._layout
+
+    # ------------------------------------------------------------------
+    # Initialization
+    # ------------------------------------------------------------------
+    def init(self, seeds, faults: Optional[np.ndarray] = None,
+             configs: Optional[np.ndarray] = None) -> WorldState:
+        """Build W worlds from a vector of u64 seeds.
+
+        ``faults``: optional int32 rows ``[time_us, op, a, b]``, shape
+        (F, 4) (every world) or (W, F, 4); rows with time < 0 are
+        disabled. ``configs``: optional ``[latency_min_us, latency_max_us,
+        loss_rate]``, shape (3,) or (W, 3). Validation is the JAX
+        package's.
+        """
+        seeds = np.asarray(seeds, dtype=np.uint64)
+        if seeds.ndim != 1:
+            raise ValueError("seeds must be a 1-D vector (one world per seed)")
+        w = seeds.shape[0]
+        lo = (seeds & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        hi = (seeds >> np.uint64(32)).astype(np.uint32)
+        if faults is None:
+            faults = np.zeros((w, 0, 4), np.int32)
+        else:
+            faults = np.asarray(faults, np.int32)
+            if faults.ndim == 2:
+                faults = np.broadcast_to(faults, (w,) + faults.shape)
+            live = faults[..., 0] >= 0
+            ops = faults[..., 1]
+            a, b = faults[..., 2], faults[..., 3]
+            node_op = (ops <= FAULT_UNCLOG_LINK) | (ops >= FAULT_PAUSE)
+            if np.any(live & ((ops < FAULT_KILL) | (ops > FAULT_RESUME))):
+                raise ValueError("fault op must be one of FAULT_KILL.."
+                                 "FAULT_RESUME")
+            node_params = np.stack([a, b], axis=-1)
+            if np.any((live & node_op)[..., None]
+                      & ((node_params < 0)
+                         | (node_params >= self.cfg.n_nodes))):
+                raise ValueError(
+                    f"fault-row node ids must be in [0, {self.cfg.n_nodes})")
+            set_lat = live & (ops == FAULT_SET_LATENCY)
+            if np.any(set_lat & ((a < 0) | (b <= a))):
+                raise ValueError("FAULT_SET_LATENCY needs 0 <= min < max µs")
+            set_loss = live & (ops == FAULT_SET_LOSS)
+            if np.any(set_loss & ((a < 0) | (a > 1_000_000))):
+                raise ValueError("FAULT_SET_LOSS rate must be 0..1e6 ppm")
+            need_words = 4 if self.cfg.packed else 2
+            if np.any(set_lat | set_loss) and \
+                    self.cfg.payload_words < need_words:
+                raise ValueError("net-config fault rows carry their params "
+                                 f"in the payload: payload_words must be "
+                                 f">= {need_words} (packed={self.cfg.packed})")
+
+        if configs is None:
+            configs = np.array([self.cfg.latency_min_us,
+                                self.cfg.latency_max_us,
+                                self.cfg.loss_rate], np.float64)
+        configs = np.asarray(configs, np.float64)
+        configs = np.broadcast_to(configs, (w, 3))
+        lat_min = configs[:, 0].astype(np.int32)
+        lat_max = configs[:, 1].astype(np.int32)
+        loss = configs[:, 2].astype(np.float32)
+        if np.any(lat_min < 0) or np.any(lat_max <= lat_min):
+            raise ValueError("configs need 0 <= latency_min < latency_max µs")
+        if np.any((loss < 0.0) | (loss > 1.0)):
+            raise ValueError("configs loss_rate must be in [0, 1]")
+
+        def dev(x):
+            return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
+        return self._init_batched(dev(lo), dev(hi), dev(faults), dev(lat_min),
+                                  dev(lat_max), dev(loss))
+
+    def _net_fault_payload_batch(self, rows: torch.Tensor):
+        """(W, F, P) int32 payload table for fault rows (W, F, 4):
+        net-config params ride the payload, split across two int16-range
+        words each in the packed profile."""
+        cfg = self.cfg
+        is_net = (rows[..., 1] == FAULT_SET_LATENCY) \
+            | (rows[..., 1] == FAULT_SET_LOSS)
+        a = torch.where(is_net, rows[..., 2], 0)
+        b = torch.where(is_net, rows[..., 3], 0)
+        pay = torch.zeros(rows.shape[:2] + (cfg.payload_words,),
+                          dtype=torch.int32, device=rows.device)
+        if cfg.packed:
+            a_lo, a_hi = split_wide(a)
+            pay[..., 0] = a_lo
+            if cfg.payload_words >= 2:
+                pay[..., 1] = a_hi
+            if cfg.payload_words >= 4:
+                b_lo, b_hi = split_wide(b)
+                pay[..., 2] = b_lo
+                pay[..., 3] = b_hi
+        else:
+            pay[..., 0] = a
+            if cfg.payload_words >= 2:
+                pay[..., 1] = b
+        return is_net, pay
+
+    def _init_batched(self, seed_lo, seed_hi, fault_rows, lat_min, lat_max,
+                      loss) -> WorldState:
+        """The JAX ``_init_one``, written over the world axis."""
+        cfg = self.cfg
+        dev = seed_lo.device
+        w = seed_lo.shape[0]
+        n_faults = fault_rows.shape[1]
+        rng = make_rng(seed_lo, seed_hi, STREAM_DEVICE)
+        q = empty_queue(w, cfg.queue_cap, cfg.payload_words,
+                        payload_dtype=cfg.lanes.payload, device=dev)
+        astate, events, rng = self.actor.init(cfg, rng)
+        overflow = torch.zeros((w,), dtype=torch.bool, device=dev)
+        if events:
+            evs = Event(*[torch.stack(xs, dim=1) for xs in zip(*events)])
+            q, oks, _ = push_many(q, evs)
+            overflow = overflow | ~oks.all(dim=1)
+        if n_faults:
+            rows = fault_rows
+            is_net, pay = self._net_fault_payload_batch(rows)
+            zeros = torch.zeros_like(rows[..., 0])
+            fevs = Event(time=rows[..., 0], kind=rows[..., 1],
+                         flags=torch.full_like(zeros, FLAG_FAULT),
+                         src=torch.where(is_net, zeros, rows[..., 2]),
+                         dst=torch.where(is_net, zeros, rows[..., 3]),
+                         gen=zeros, payload=pay)
+            q, oks, _ = push_many(q, fevs, enable=rows[..., 0] >= 0)
+            overflow = overflow | ~oks.all(dim=1)
+        n = cfg.n_nodes
+        qd = narrow(queue_depth(q), cfg.lanes.slot)
+
+        def zeros_(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        return WorldState(
+            now=zeros_((w,), torch.int32),
+            queue=q,
+            rng=rng,
+            alive=torch.ones((w, n), dtype=torch.bool, device=dev),
+            gen=zeros_((w, n), cfg.lanes.code),
+            paused=zeros_((w, n), torch.bool),
+            clog_node=zeros_((w, n), torch.bool),
+            clog_link=zeros_((w, n, n), torch.bool),
+            astate=astate,
+            active=torch.ones((w,), dtype=torch.bool, device=dev),
+            steps=zeros_((w,), torch.int32),
+            delivered=zeros_((w,), torch.int32),
+            dropped=zeros_((w,), torch.int32),
+            overflow=overflow,
+            qdepth=qd,
+            qmax=qd.clone(),
+            bug=zeros_((w,), torch.bool),
+            bug_time=torch.full((w,), INF_TIME, dtype=torch.int32, device=dev),
+            lat_min=lat_min,
+            lat_max=lat_max,
+            loss=loss,
+        )
+
+    # ------------------------------------------------------------------
+    # The plain step (JAX _build_step, batched over the world axis)
+    # ------------------------------------------------------------------
+    def _net_params(self, payload: torch.Tensor):
+        """Net-config fault params from (W, P) event payloads."""
+        cfg = self.cfg
+        zero = torch.zeros_like(payload[:, 0])
+        if cfg.packed:
+            if cfg.payload_words >= 4:
+                return (join_wide(payload[:, 0], payload[:, 1]),
+                        join_wide(payload[:, 2], payload[:, 3]))
+            return zero, zero
+        if cfg.payload_words >= 2:
+            return payload[:, 0], payload[:, 1]
+        return payload[:, 0], zero
+
+    def _apply_fault(self, ws: WorldState, ev: Event):
+        cfg, actor = self.cfg, self.actor
+        op, a, b = ev.kind, ev.src, ev.dst
+        is_kill = op == FAULT_KILL
+        is_restart = op == FAULT_RESTART
+        alive = upd(ws.alive, a, ~is_kill & (is_restart
+                                             | take_small(ws.alive, a)))
+        gen = upd(ws.gen, a, narrow_wrap(
+            widen(take_small(ws.gen, a)) + (is_kill | is_restart).to(torch.int32),
+            ws.gen.dtype))
+        paused = upd(ws.paused, a, (op == FAULT_PAUSE) | (
+            ~((op == FAULT_RESUME) | is_kill | is_restart)
+            & take_small(ws.paused, a)))
+        clog_node = upd(ws.clog_node, a, (op == FAULT_CLOG_NODE) | (
+            (op != FAULT_UNCLOG_NODE) & take_small(ws.clog_node, a)))
+        clog_link = upd2(ws.clog_link, a, b, (op == FAULT_CLOG_LINK) | (
+            (op != FAULT_UNCLOG_LINK)
+            & take_small(take_small(ws.clog_link, a), b)))
+        set_lat = op == FAULT_SET_LATENCY
+        set_loss = op == FAULT_SET_LOSS
+        pa, pb = self._net_params(ev.payload)
+        lat_min = torch.where(set_lat, pa, ws.lat_min)
+        lat_max = torch.where(set_lat, pb, ws.lat_max)
+        loss = torch.where(set_loss,
+                           pa.to(torch.float32) * torch.tensor(
+                               1e-6, dtype=torch.float32, device=pa.device),
+                           ws.loss)
+        astate_r, ob_r, rng_r = actor.on_restart(cfg, ws.astate, a, ws.now,
+                                                 ws.rng)
+        w = ws.now.shape[0]
+        astate = tree_select(is_restart, astate_r, ws.astate)
+        rng = tree_select(is_restart, rng_r, ws.rng)
+        ob = tree_select(is_restart, ob_r, Outbox.empty(cfg, w, a.device))
+        return ws._replace(alive=alive, gen=gen, paused=paused,
+                           clog_node=clog_node, clog_link=clog_link,
+                           astate=astate, rng=rng, lat_min=lat_min,
+                           lat_max=lat_max, loss=loss), ob
+
+    def _push_outbox(self, ws: WorldState, src: torch.Tensor, ob: Outbox,
+                     pre_q: EventQueue, clear) -> WorldState:
+        cfg = self.cfg
+        m = cfg.m
+        # 2·M draws per world every step, valid or not: even counters give
+        # latency, odd counters loss.
+        xs, rng = next_u32_vec(ws.rng, 2 * m)
+        lat = _u32_to_range(xs[:, 0::2], ws.lat_min[:, None],
+                            ws.lat_max[:, None])                  # (W, M)
+        u = _u32_to_unit_f32(xs[:, 1::2])                          # (W, M)
+        dst = ob.dst.clamp(0, cfg.n_nodes - 1)                     # (W, M)
+        clogged = take_small(ws.clog_node, src)[:, None] \
+            | take_small(ws.clog_node, dst) \
+            | take_small(take_small(ws.clog_link, src), dst)
+        dropped = ~ob.is_timer & (clogged | (u < ws.loss[:, None]))
+        delay = torch.where(ob.is_timer, ob.delay_us, lat).clamp(min=0)
+        now = ws.now[:, None]
+        t = now + torch.minimum(delay, INF_TIME - now)
+        flags = ob.is_timer.to(torch.int32) * FLAG_TIMER
+        gen_dst = widen(take_small(ws.gen, dst))
+        enable = ob.valid & ~dropped & ws.active[:, None]
+        evs = Event(time=t, kind=ob.kind, flags=flags,
+                    src=src.to(torch.int32)[:, None].expand(-1, m), dst=dst,
+                    gen=gen_dst, payload=ob.payload)
+        q, oks, n_ins = push_many(pre_q, evs, enable, clear=clear)
+        overflow = ws.overflow | ~oks.all(dim=1)
+        qdepth = ws.qdepth + narrow(n_ins, ws.qdepth.dtype)
+        qmax = torch.maximum(ws.qmax, qdepth)
+        return ws._replace(queue=q, rng=rng, overflow=overflow,
+                           qdepth=qdepth, qmax=qmax)
+
+    @torch.no_grad()
+    def step_plain(self, ws: WorldState) -> WorldState:
+        """One engine step of every world in plain PyTorch ops (returns a
+        new state). The plain version of the CUDA step kernel."""
+        cfg, actor = self.cfg, self.actor
+        n = cfg.n_nodes
+        w = ws.now.shape[0]
+        q, ev, found, slot = pop_indexed(
+            ws.queue, eligible_mask(ws.queue, ws.paused) & ws.active[:, None])
+        now = torch.where(found, torch.maximum(ws.now, ev.time), ws.now)
+        in_time = now < cfg.t_limit_us
+        ws1 = ws._replace(queue=q, now=now, steps=ws.steps + 1,
+                          qdepth=ws.qdepth - found.to(ws.qdepth.dtype))
+
+        dst = ev.dst.clamp(0, n - 1)
+        is_fault = (ev.flags & FLAG_FAULT) != 0
+        is_timer = (ev.flags & FLAG_TIMER) != 0
+        stale = is_timer & (ev.gen != (widen(take_small(ws1.gen, dst))
+                                       & GEN_MASK))
+        dead = ~take_small(ws1.alive, dst)
+        deliver = found & in_time & ~is_fault & ~stale & ~dead
+        do_fault = found & in_time & is_fault
+
+        # A branch that no world takes in this step is not computed: the
+        # selects below would discard its result.
+        empty_ob = Outbox.empty(cfg, w, now.device)
+        fault_ws, fault_ob = ws1, empty_ob
+        if bool(do_fault.any()):
+            fault_ws, fault_ob = self._apply_fault(ws1, ev)
+        act_ws, act_ob, hbug = ws1, empty_ob, torch.zeros_like(deliver)
+        if bool(deliver.any()):
+            astate2, act_ob, rng2, hbug = actor.handle(cfg, ws1.astate, ev,
+                                                       now, ws1.rng)
+            act_ws = ws1._replace(astate=astate2, rng=rng2)
+
+        # tree_select(do_fault, fault_ws, tree_select(deliver, act_ws, ws1)),
+        # over only the leaves that fault apply or the handler write.
+        ws2 = ws1._replace(
+            astate=tree_select(do_fault, fault_ws.astate,
+                               tree_select(deliver, act_ws.astate,
+                                           ws1.astate)),
+            rng=tree_select(do_fault, fault_ws.rng,
+                            tree_select(deliver, act_ws.rng, ws1.rng)),
+            **{name: where_worlds(do_fault, getattr(fault_ws, name),
+                                  getattr(ws1, name))
+               for name in _FAULT_FIELDS})
+        ob = tree_select(do_fault, fault_ob,
+                         tree_select(deliver, act_ob, empty_ob))
+        src = torch.where(do_fault, ev.src.clamp(0, n - 1), dst)
+        ws3 = self._push_outbox(ws2, src, ob, ws.queue, (slot, found))
+
+        bug_now = (deliver & hbug) | actor.invariant(cfg, ws3.astate)
+        bug = ws3.bug | bug_now
+        bug_time = torch.where(bug & ~ws3.bug, now, ws3.bug_time)
+        active = found & in_time
+        if cfg.stop_on_bug:
+            active = active & ~bug
+        ws4 = ws3._replace(
+            bug=bug, bug_time=bug_time, active=active,
+            delivered=ws3.delivered + deliver.to(torch.int32),
+            dropped=ws3.dropped
+            + (found & in_time & ~deliver & ~do_fault).to(torch.int32),
+        )
+        # Frozen worlds pass through untouched: every write above is gated
+        # on ws.active except the RNG cursor and the step counter.
+        return ws4._replace(
+            rng=tree_select(ws.active, ws4.rng, ws.rng),
+            steps=torch.where(ws.active, ws4.steps, ws.steps))
+
+    # ------------------------------------------------------------------
+    # Run loops
+    # ------------------------------------------------------------------
+    def step(self, state: WorldState) -> WorldState:
+        """One step of every world, in place (see :meth:`run_steps`)."""
+        return self.run_steps(state, 1)
+
+    def run_steps(self, state: WorldState, k: int) -> WorldState:
+        """Advance every world by exactly ``k`` masked steps.
+
+        On a CUDA device each step is one launch of the hand-written
+        kernel (:mod:`.step_kernel`); on the CPU it is :meth:`step_plain`.
+        ``state`` is updated in place and returned — the port's analogue
+        of the JAX run loops donating their input buffers.
+        """
+        from . import step_kernel
+
+        return step_kernel.run_steps(self, state, k)
+
+    #: The run loop tests ``active.any()`` (a device sync) once per this
+    #: many steps. Extra steps of an all-frozen batch are bit-exact no-ops.
+    check_every = 16
+
+    def run(self, state: WorldState, max_steps: int = 100_000) -> WorldState:
+        """Step until every world is inactive, or ``max_steps`` steps.
+
+        A host loop of step launches that stops at exactly ``max_steps``.
+        It tests ``active.any()`` only every :attr:`check_every` steps;
+        that is safe because a step of a frozen world changes no leaf.
+        ``state`` is updated in place and returned (the analogue of the
+        JAX loop's buffer donation).
+        """
+        i = 0
+        while i < max_steps and bool(state.active.any()):
+            k = min(self.check_every, max_steps - i)
+            state = self.run_steps(state, k)
+            i += k
+        return state
+
+    # ------------------------------------------------------------------
+    # Observation
+    # ------------------------------------------------------------------
+    def observe_device(self, state: WorldState) -> Dict[str, torch.Tensor]:
+        """The observation dict as device tensors."""
+        out = {
+            "now_us": state.now,
+            "active": state.active,
+            "steps": state.steps,
+            "delivered": state.delivered,
+            "dropped": state.dropped,
+            "overflow": state.overflow,
+            "qmax": state.qmax,
+            "bug": state.bug,
+            "bug_time_us": state.bug_time,
+            "queue_depth": state.qdepth,
+        }
+        out.update(self.actor.observe(self.cfg, state.astate))
+        return out
+
+    def observe(self, state: WorldState) -> Dict[str, np.ndarray]:
+        """Engine and actor observations as host numpy arrays."""
+        return {k: v.cpu().numpy()
+                for k, v in self.observe_device(state).items()}

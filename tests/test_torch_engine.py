@@ -1,0 +1,232 @@
+"""The port's batched engine (madsim_tpu_torch.engine) against the JAX
+package's, bitwise, on the CPU: ``init``, ``run``, ``run_steps`` and
+``observe`` on every WorldState leaf, the Pallas kernel itself (interpret
+mode), carrying state across packages, and the JAX-derived golden digests
+that ``chip_smoke.py`` checks on the GPU.
+
+Configurations are those of tests/test_queue_insert.py and
+tests/test_pallas_step.py at small W. Tolerance: none — every operation is
+integer, or an exactly rounded float32 product.
+"""
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import madsim_tpu.engine as J
+import madsim_tpu_torch.engine as T
+from madsim_tpu_torch.engine import golden, step_kernel
+from madsim_tpu_torch.engine.core import tree_leaves, tree_paths
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SEEDS = np.arange(16)
+
+HEADLINE = (dict(n=3, log_cap=4),
+            dict(n_nodes=3, outbox_cap=4, queue_cap=28, t_limit_us=1_000_000))
+BUG = (dict(n=3, n_proposals=2, buggy_double_vote=True),
+       dict(n_nodes=3, outbox_cap=4, queue_cap=64, t_limit_us=1_500_000,
+            stop_on_bug=False))
+KILL_RESTART = np.array([[300_000, J.FAULT_KILL, 0, 0],
+                         [700_000, J.FAULT_RESTART, 0, 0]], np.int32)
+# Every fault op; the last row is disabled (time < 0).
+ALL_OPS = np.array([
+    [100_000, J.FAULT_PAUSE, 1, 0], [250_000, J.FAULT_RESUME, 1, 0],
+    [120_000, J.FAULT_CLOG_NODE, 2, 0], [400_000, J.FAULT_UNCLOG_NODE, 2, 0],
+    [150_000, J.FAULT_CLOG_LINK, 0, 1], [600_000, J.FAULT_UNCLOG_LINK, 0, 1],
+    [200_000, J.FAULT_SET_LATENCY, 500, 20_000],
+    [300_000, J.FAULT_SET_LOSS, 200_000, 0], [800_000, J.FAULT_SET_LOSS, 0, 0],
+    [500_000, J.FAULT_KILL, 1, 0], [650_000, J.FAULT_RESTART, 1, 0],
+    [-1, J.FAULT_KILL, 2, 0],
+], np.int32)
+
+
+def engines(rk, ck, **over):
+    ck = dict(ck, **over)
+    return (J.DeviceEngine(J.RaftActor(J.RaftDeviceConfig(**rk)),
+                           J.EngineConfig(**ck)),
+            T.DeviceEngine(T.RaftActor(T.RaftDeviceConfig(**rk)),
+                           T.EngineConfig(**ck), device="cpu"))
+
+
+def mismatches(jstate, tstate):
+    """Paths of the leaves that differ (value or dtype)."""
+    paths = [jax.tree_util.keystr(p) for p, _ in
+             jax.tree_util.tree_flatten_with_path(jstate)[0]]
+    jl = [np.asarray(x) for x in jax.tree.leaves(jstate)]
+    tl = T.state_to_numpy(tstate)
+    assert len(jl) == len(tl) == 38
+    return [p for p, a, b in zip(paths, jl, tl)
+            if a.dtype != b.dtype or not np.array_equal(a, b)]
+
+
+def assert_observe_equal(jeng, jstate, teng, tstate):
+    jo, to = jeng.observe(jstate), teng.observe(tstate)
+    assert sorted(jo) == sorted(to)
+    for k in jo:
+        assert jo[k].dtype == to[k].dtype, k
+        np.testing.assert_array_equal(to[k], jo[k], err_msg=k)
+    return to
+
+
+@pytest.mark.parametrize("name", ["headline", "bug"])
+def test_init_matches_jax_all_fault_ops_and_configs_grid(name):
+    """Both deployments' init, with fault rows of all ten ops (ragged
+    per-world schedules, disabled rows) and a per-world net-config grid."""
+    rk, ck = HEADLINE if name == "headline" else BUG
+    je, te = engines(rk, ck)
+    w = 12
+    rng = np.random.default_rng(0)
+    configs = np.stack([rng.integers(0, 5_000, w),
+                        rng.integers(5_000, 50_000, w),
+                        rng.choice([0.0, 0.05, 0.3, 1.0], w)], axis=1)
+    per_world = np.broadcast_to(ALL_OPS, (w,) + ALL_OPS.shape).copy()
+    per_world[::3, :, 0] = -1  # ragged schedules: some worlds have none
+    seeds = np.arange(w) + 2**33  # seeds wider than 32 bits
+    js = je.init(seeds, faults=per_world, configs=configs)
+    ts = te.init(seeds, faults=per_world, configs=configs)
+    assert not mismatches(js, ts)
+
+
+# name: (raft kwargs, engine kwargs, seeds, faults, max_steps, expect). The
+# shapes and step limits are those of tests/test_pallas_step.py and
+# tests/test_queue_insert.py, so the JAX programs are shared with them.
+RUNS = {
+    "overflow_q8": (dict(n=3, n_proposals=2),
+                    dict(n_nodes=3, outbox_cap=4, queue_cap=8,
+                         t_limit_us=2_000_000, stop_on_bug=False),
+                    SEEDS, None, 3_000, "overflow"),
+    "all_paused": (dict(n=3), dict(n_nodes=3, outbox_cap=4, queue_cap=64,
+                                   t_limit_us=2_000_000),
+                   np.arange(8),
+                   np.array([[0, J.FAULT_PAUSE, 0, 0], [0, J.FAULT_PAUSE, 1, 0],
+                             [0, J.FAULT_PAUSE, 2, 0]], np.int32), 2_000, None),
+    "fault_mix": (dict(n=3, n_proposals=3),
+                  dict(n_nodes=3, outbox_cap=4, queue_cap=64,
+                       t_limit_us=1_000_000, stop_on_bug=False),
+                  np.arange(8), ALL_OPS, 2_000, "leader_elected"),
+    "wide_profile": (*HEADLINE, np.arange(8), None, 2_000, "leader_elected"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(RUNS))
+def test_run_matches_jax(name):
+    rk, ck, seeds, faults, max_steps, expect = RUNS[name]
+    je, te = engines(rk, ck, **({"packed": False}
+                                if name == "wide_profile" else {}))
+    js = je.run(je.init(seeds, faults=faults), max_steps)
+    ts0 = te.init(seeds, faults=faults)
+    ts = te.run(ts0, max_steps)
+    assert ts is ts0  # run updates the state in place and returns it
+    assert not mismatches(js, ts), name
+    obs = assert_observe_equal(je, js, te, ts)
+    assert not obs["active"].any()
+    assert obs[expect].any() if expect else True, \
+        f"{name}: the path it exists for ({expect}) went unexercised"
+    if name == "all_paused":
+        assert (obs["queue_depth"] > 0).all()  # frozen with buffered events
+
+
+def test_headline_run_matches_jax_and_its_golden_digest():
+    """The headline deployment at W=64: every leaf and observe() equal to
+    JAX, and the JAX observe() digest equal to the constant chip_smoke.py
+    holds the GPU run to."""
+    rk, ck, faults, max_steps = golden.CONFIGS["headline"]
+    je, te = engines(rk, ck)
+    js = je.run(je.init(golden.SEEDS), max_steps)
+    ts = te.run(te.init(golden.SEEDS), max_steps)
+    assert not mismatches(js, ts)
+    obs = assert_observe_equal(je, js, te, ts)
+    assert obs["leader_elected"].all() and not obs["overflow"].any()
+    assert golden.observe_digest(je.observe(js)) == golden.GOLDEN["headline"]
+
+
+def test_hunt_golden_digest_recomputed_from_jax():
+    """The hunt-with-faults constant in golden.py is the JAX package's."""
+    rk, ck, faults, max_steps = golden.CONFIGS["hunt_faults"]
+    je = J.DeviceEngine(J.RaftActor(J.RaftDeviceConfig(**rk)),
+                        J.EngineConfig(**ck))
+    obs = je.observe(je.run(je.init(golden.SEEDS,
+                                    faults=np.asarray(faults, np.int32)),
+                            max_steps))
+    assert obs["bug"].any()
+    assert golden.observe_digest(obs) == golden.GOLDEN["hunt_faults"]
+
+
+def test_default_device_is_the_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rk, ck = HEADLINE
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        T.DeviceEngine(T.RaftActor(T.RaftDeviceConfig(**rk)),
+                       T.EngineConfig(**ck))
+
+
+def test_kernel_wrapper_refuses_what_the_kernel_does_not_take():
+    rk, ck = HEADLINE
+    _, te = engines(rk, ck)
+    state = te.init(np.arange(4))
+    # The wrapper checks leaves against the engine's own state layout.
+    assert te.state_layout() == [
+        (name, x.dtype, tuple(x.shape[1:]))
+        for name, x in zip(tree_paths(state), tree_leaves(state))]
+    # A CPU tensor never reaches the kernel: launch() raises, run_steps()
+    # takes the plain step.
+    with pytest.raises(ValueError, match="CUDA"):
+        step_kernel.launch(te, tree_leaves(state))
+    before = step_kernel.launches
+    te.run_steps(state, 2)
+    assert step_kernel.launches == before
+    for over, err in ((dict(packed=False), NotImplementedError),
+                      (dict(queue_cap=300), ValueError),
+                      (dict(payload_words=17), ValueError),
+                      (dict(pallas_block=2048), ValueError)):
+        _, eng = engines(rk, ck, **over)
+        with pytest.raises(err):
+            step_kernel.kernel_params(eng)
+    _, eng = engines(dict(rk, log_cap=65), ck)
+    with pytest.raises(ValueError, match="log_cap"):
+        step_kernel.kernel_params(eng)
+
+
+def test_config_and_init_validation_match_jax():
+    for bad in (dict(n_nodes=200), dict(n_nodes=3, queue_cap=40_000),
+                dict(n_nodes=3, pallas_block=0), dict(n_nodes=3, blackbox=-1)):
+        with pytest.raises(ValueError):
+            J.EngineConfig(**bad)
+        with pytest.raises(ValueError):
+            T.EngineConfig(**bad)
+    for unported in (dict(metrics=True), dict(blackbox=8),
+                     dict(sequential_insert=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            T.EngineConfig(n_nodes=3, **unported)
+    rk, ck = HEADLINE
+    je, te = engines(rk, ck)
+    bad_rows = [
+        np.array([[0, 10, 0, 0]], np.int32),                      # op
+        np.array([[0, J.FAULT_KILL, 3, 0]], np.int32),            # node id
+        np.array([[0, J.FAULT_SET_LATENCY, 10, 10]], np.int32),   # min < max
+        np.array([[0, J.FAULT_SET_LOSS, 2_000_000, 0]], np.int32),  # ppm
+    ]
+    for rows in bad_rows:
+        for eng in (je, te):
+            with pytest.raises(ValueError):
+                eng.init(np.arange(2), faults=rows)
+    for cfgs in (np.array([10.0, 5.0, 0.0]), np.array([1.0, 10.0, 1.5])):
+        for eng in (je, te):
+            with pytest.raises(ValueError):
+                eng.init(np.arange(2), configs=cfgs)
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    code = ("import sys, madsim_tpu_torch.engine, madsim_tpu_torch._build; "
+            "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'madsim_tpu' or "
+            "m.startswith('madsim_tpu.')]; "
+            "assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
