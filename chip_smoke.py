@@ -7,19 +7,26 @@ batched Raft engine — ``DeviceEngine(RaftActor(..), EngineConfig(..))``,
 exits non-zero:
 
 1. card: name and power limit; uint32 <-> int64 round trip on CUDA tensors;
-2. build: nvcc, with the ptxas register/spill report;
+2. build: nvcc, with the ptxas register/spill report; fails unless every
+   instantiation ``step_kernel<N>`` (N = 1..8) has a 0-byte stack frame
+   and no spills;
 3. Threefry on the card: Random123 known answers and bitwise agreement with
    the plain torch version on 2^20 keys and counters;
-4. kernel vs plain step, whole runs: four configurations at W=4096 and the
-   two main-path deployments at their full W, every leaf compared bitwise
-   after each of the first 64 steps, every 64th step after, and at the end;
+4. kernel vs plain step, whole runs: six configurations at W=4096 (two of
+   them at node counts and widths off the main path) and the two main-path
+   deployments at their full W, every leaf compared bitwise after each of
+   the first 64 steps, every 64th step after, and at the end; then one step
+   from a state whose frozen worlds were never checked by the invariant;
 5. held to JAX without JAX: observe() digests of seeds 0..63 equal the
    JAX-derived constants in ``madsim_tpu_torch/engine/golden.py``;
 6. the main path at full size: the headline deployment at W=524,288 and the
    bug hunt at W=65,536, init and run timed apart (best of 3), the kernel's
    launches counted; the kernel's device time per step over the same
-   launches, held against its memory bound, and the run's device idle
-   share.
+   launches, held against the bytes this run's steps need (and PR 1's
+   least-traffic count beside it), the share of active worlds in each
+   timed chunk, and the run's device idle share; then the same
+   timing at 64, 128 and 256 worlds per block (where the tiles fit), each
+   run's observations held to the main run's.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it lists each kernel with its launches and times.
@@ -30,6 +37,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -42,10 +50,39 @@ TIMED_STEPS = 100
 # A sleep the device runs while the host queues a chunk of timed launches
 # behind it: about 0.1 s at the H100's 1.98 GHz boost clock.
 SLEEP_CYCLES = 200_000_000
+# Worlds per CUDA block timed against each other in phase 6.
+BLOCK_SWEEP = (64, 128, 256)
 
 
 class PhaseError(RuntimeError):
     pass
+
+
+def ptxas_report(text, kernel):
+    """ptxas -v figures (stack frame, spill stores, spill loads, registers)
+    of each function whose mangled name nests the identifier ``kernel`` (one
+    per template instantiation), by mangled name."""
+    tag = f"{len(kernel)}{kernel}"  # Itanium mangling: <length><name>
+    lines = text.splitlines()
+    out = {}
+    for i, line in enumerate(lines):
+        if "Function properties for" not in line:
+            continue
+        name = line.split("Function properties for", 1)[1].strip()
+        if tag + "E" not in name and tag + "I" not in name:
+            continue
+        figs = {}
+        for nxt in lines[i + 1:i + 4]:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", nxt)
+            if m:
+                figs.update(stack=int(m[1]), spill_stores=int(m[2]),
+                            spill_loads=int(m[3]))
+            m = re.search(r"Used (\d+) registers", nxt)
+            if m:
+                figs["registers"] = int(m[1])
+        out[name] = figs
+    return out
 
 
 def check(cond, msg):
@@ -73,7 +110,8 @@ def main() -> int:
         FAULT_RESTART, FAULT_RESUME, FAULT_SET_LATENCY, FAULT_SET_LOSS,
         FAULT_UNCLOG_LINK, FAULT_UNCLOG_NODE, DeviceEngine, EngineConfig,
         RaftActor, RaftDeviceConfig, golden, step_kernel)
-    from madsim_tpu_torch.engine.core import tree_leaves, tree_paths
+    from madsim_tpu_torch.engine.core import (tree_leaves, tree_paths,
+                                              tree_unflatten)
     from madsim_tpu_torch.ops.threefry import threefry2x32_torch
 
     dev = torch.device("cuda")
@@ -96,9 +134,29 @@ def main() -> int:
     # ---- 2. build ---------------------------------------------------------
     took = _build.build("step_kernel")
     log(f"[2 build] step_kernel.cu: nvcc {took:.1f} s")
-    for line in _build.build_log.get("step_kernel", "").splitlines():
+    report = _build.build_log.get("step_kernel", "")
+    for line in report.splitlines():
         if "registers" in line or "spill" in line or "error" in line:
             log(f"[2 build] step_kernel.cu: {line.strip()}")
+    # One instantiation per node count the kernel takes, each without
+    # local memory.
+    ptx = ptxas_report(report, "step_kernel")
+    check(len(ptx) == step_kernel.MAX_N
+          and all(len(f) == 4 for f in ptx.values()),
+          f"ptxas reported {len(ptx)} step_kernel instantiations, expected "
+          f"{step_kernel.MAX_N} with registers, stack frame and spills")
+    for name, f in ptx.items():
+        check(f["stack"] == 0 and f["spill_stores"] == 0
+              and f["spill_loads"] == 0,
+              f"{name} uses local memory: {f['stack']} bytes stack frame, "
+              f"{f['spill_stores']} bytes spill stores, "
+              f"{f['spill_loads']} bytes spill loads")
+    main_regs = [f["registers"] for name, f in ptx.items() if "ILi3E" in name]
+    log(f"[2 build] step_kernel<N> for N=1..{step_kernel.MAX_N}: 0 bytes "
+        f"stack frame and no spills in each; registers "
+        f"{min(f['registers'] for f in ptx.values())}-"
+        f"{max(f['registers'] for f in ptx.values())}, "
+        f"{main_regs[0] if main_regs else '?'} at N=3 (the main path)")
 
     # ---- 3. Threefry on the card ------------------------------------------
     kat = [((0x00000000, 0x00000000), (0x00000000, 0x00000000),
@@ -183,6 +241,19 @@ def main() -> int:
                        dict(n_nodes=3, outbox_cap=4, queue_cap=64,
                             t_limit_us=1_500_000, stop_on_bug=False)),
          fault_mix, W_COMPARE, 3_000, None),
+        # Off the main path's widths: an odd node count with 4-byte queue
+        # accesses (Q % 4 != 0, the padded pop) and element-wise payload
+        # rows (P=12); an even node count whose commit and log rows take
+        # 4-byte accesses.
+        ("n5_q30_p12", (dict(n=5, n_proposals=3),
+                        dict(n_nodes=5, outbox_cap=6, queue_cap=30,
+                             payload_words=12, t_limit_us=1_500_000,
+                             stop_on_bug=False)),
+         fault_mix, W_COMPARE, 3_000, "overflow"),
+        ("n4_l6", (dict(n=4, log_cap=6, n_proposals=3),
+                   dict(n_nodes=4, outbox_cap=5, queue_cap=64,
+                        t_limit_us=1_500_000, stop_on_bug=False)),
+         None, W_COMPARE, 3_000, None),
     ] + [("main_" + name, cfgs, faults, w, max_steps,
           "bug" if name == "hunt" else None)
          for name, cfgs, faults, w, max_steps in mains]
@@ -223,6 +294,48 @@ def main() -> int:
             f"{int(obs['leader_elected'].sum())}) in "
             f"{time.perf_counter() - t0:.1f} s")
         del ks_state, pl_state
+
+    # Frozen worlds that the invariant never checked, as a caller may hand
+    # in: part way through fault_mix, whose proposals commit entries, worlds
+    # are frozen with their bug flag cleared (every world of the first two
+    # blocks, three in four of the next six, one in three after). Each
+    # frozen world gets one committed log entry changed; every second one
+    # also keeps only one committed node. One step of the kernel and of
+    # the plain step must agree on every leaf.
+    _name, (rk, ck), faults, w, _m, _e = next(
+        c for c in compare_cfgs if c[0] == "fault_mix")
+    eng = DeviceEngine(RaftActor(RaftDeviceConfig(**rk)),
+                       EngineConfig(**ck), device=dev)
+    state = eng.run_steps(eng.init(np.arange(w), faults=faults), 150)
+    idx = torch.arange(w, device=dev)
+    frozen = (idx < 256) | ((idx < 1024) & (idx % 4 != 0)) | (idx % 3 == 0)
+    one = frozen & (idx % 2 == 1)
+    a = state.astate
+    a.commit[one, 1:] = 0
+    top = a.commit.to(torch.int32).argmax(1)
+    a.log_term[frozen, top[frozen], 0] += 1
+    state.active[frozen] = False
+    state.bug[frozen] = False
+    n_committed = (a.commit > 0).sum(1)
+    checked = frozen & (n_committed >= 2)
+    check(int(checked.sum()) > 0 and int((frozen & ~checked).sum()) > 0
+          and int((~frozen & state.active).sum()) > 0,
+          "frozen-world step: the state lacks one of its kinds of world")
+    ks_state = tree_unflatten(state, [x.clone() for x in tree_leaves(state)])
+    eng.step(ks_state)
+    pl_state = eng.step_plain(state)
+    first, err = diff(ks_state, pl_state)
+    max_abs_err = max(max_abs_err, err)
+    check(first is None, f"frozen-world step: kernel and plain step differ "
+          f"on leaf {first} (max abs err {err})")
+    flagged = pl_state.bug & frozen
+    check(torch.equal(flagged, checked), "frozen-world step: the changed "
+          "committed entries were not flagged exactly where two nodes "
+          "committed")
+    log(f"[4 compare] frozen worlds never checked: W={w}, "
+        f"{int(frozen.sum())} frozen ({int(checked.sum())} with two "
+        f"committed nodes, all flagged), one step bitwise equal")
+    del state, ks_state, pl_state
 
     # ---- 5. held to JAX without JAX ---------------------------------------
     for name, (rk, ck, faults, max_steps) in golden.CONFIGS.items():
@@ -347,19 +460,66 @@ def main() -> int:
             eng.run_steps(state, 1)
         return out
 
+    def needed_bytes(eng, w, total):
+        """Bytes each of the run's ``total`` steps needs, from this run's
+        state: :func:`least_bytes`'s count, except that the invariant's log
+        entries are counted only over each node pair's committed prefix
+        (and none where the bug flag is already set), and the queue's meta
+        lane whole only for a world with a paused node (else the popped
+        slot's word). A frozen world reads its flags, depth lanes and
+        commit row."""
+        cfg, L = eng.cfg, eng.actor.rcfg.log_cap
+        n, q, p = cfg.n_nodes, cfg.queue_cap, cfg.payload_words
+        frozen = 1 + 4 + 1 + 2 * n
+        active = (4 * q + 4 + 2 * p + n + 2 + 12 + 12 + 2 * n
+                  + 2 * (1 + 4 + 4 + 4 + 4) + 1 + 4 + 4)
+        off_diag = ~torch.eye(n, dtype=torch.bool, device=dev)
+        state = eng.init(np.arange(w))
+        out = []
+        for _ in range(total):
+            c = state.astate.commit.to(torch.int64).clamp(0, L)
+            pair = torch.minimum(c[:, :, None], c[:, None, :]) * off_diag
+            log_b = 4 * pair.amax(2).sum(1) * ~state.bug
+            meta_b = 4 * (q - 1) * state.paused.any(1)
+            out.append((torch.where(state.active, active + meta_b, frozen)
+                        + log_b).sum())
+            eng.run_steps(state, 1)
+        return [int(x) for x in torch.stack(out).cpu()]
+
+    def active_shares(eng, w, total):
+        """Mean share of active worlds over each chunk of TIMED_STEPS of the
+        run's ``total`` steps, replayed from a fresh init."""
+        state = eng.init(np.arange(w))
+        counts = []
+        for _ in range(total):
+            counts.append(state.active.sum())
+            eng.run_steps(state, 1)
+        counts = torch.stack(counts).cpu().numpy() / w
+        return [float(counts[i:i + TIMED_STEPS].mean())
+                for i in range(0, total, TIMED_STEPS)]
+
     for name, r in results.items():
         eng = engines[name]
+        plan = step_kernel.tile_plan(eng.cfg, eng.actor.rcfg.log_cap)
+        log(f"[6 main] {name}: tile plan {plan.block} worlds per block, "
+            f"{plan.smem_bytes} B shared memory, strides q {plan.q_stride} "
+            f"int32, commit {plan.commit_stride} / log {plan.log_stride} "
+            f"int16")
         steps_run = r["run_launches"]
         chunks = device_ms(eng, r["w"], steps_run)
+        r["active_share"] = active_shares(eng, r["w"], steps_run)
         per_step = least_bytes(eng, r["w"], steps_run)
+        needed = needed_bytes(eng, r["w"], steps_run)
         first_k, first_ms = chunks[0]
         r["first_ms"] = first_ms / first_k
-        r["first_bound_ms"] = (sum(per_step[:first_k]) / first_k
+        r["first_bound_ms"] = (sum(needed[:first_k]) / first_k
                                / HBM_BYTES_PER_S * 1e3)
         r["busy_ms"] = sum(ms for _k, ms in chunks)
         r["kernel_ms"] = r["busy_ms"] / steps_run
+        r["needed_bytes"] = sum(needed) / steps_run
+        r["bound_ms"] = r["needed_bytes"] / HBM_BYTES_PER_S * 1e3
         r["least_bytes"] = sum(per_step) / steps_run
-        r["bound_ms"] = r["least_bytes"] / HBM_BYTES_PER_S * 1e3
+        r["least_bound_ms"] = r["least_bytes"] / HBM_BYTES_PER_S * 1e3
         r["plain_ms"] = plain_ms_per_step(eng, r["w"])
         r["full_state_ms"] = 2 * r["state_bytes"] / HBM_BYTES_PER_S * 1e3
         obs = r["obs"]
@@ -373,21 +533,52 @@ def main() -> int:
             f"{r['run_s'] * 1e3 / steps_run:.4f} ms/step wall")
         log(f"[6 main] {name}: kernel device time over the run's "
             f"{steps_run} launches {r['busy_ms']:.3f} ms = "
-            f"{r['kernel_ms']:.4f} ms/step against a least-traffic bound "
-            f"of {r['bound_ms']:.4f} ms ({r['least_bytes'] / 1e6:.1f} "
-            f"MB/step); device idle share of the run "
-            f"{1 - r['busy_ms'] / (r['run_s'] * 1e3):.3f}")
+            f"{r['kernel_ms']:.4f} ms/step against a bound of "
+            f"{r['bound_ms']:.4f} ms for the bytes its steps need "
+            f"({r['needed_bytes'] / 1e6:.1f} MB/step; share "
+            f"{r['bound_ms'] / r['kernel_ms']:.3f}) and PR 1's "
+            f"least-traffic bound of {r['least_bound_ms']:.4f} ms "
+            f"({r['least_bytes'] / 1e6:.1f} MB/step; share "
+            f"{r['least_bound_ms'] / r['kernel_ms']:.3f}); device idle "
+            f"share of the run {1 - r['busy_ms'] / (r['run_s'] * 1e3):.3f}")
         log(f"[6 main] {name}: kernel ms/step by chunk of {TIMED_STEPS} "
             f"launches: " + ", ".join(f"{ms / k:.4f}" for k, ms in chunks)
             + f"; first chunk bound {r['first_bound_ms']:.4f} ms; "
             f"full-state traffic 2 x {r['state_bytes'] / 1e6:.1f} MB = "
             f"{r['full_state_ms']:.4f} ms ({r['state_bytes'] / r['w']:.0f} "
             f"B/world); plain step {r['plain_ms']:.3f} ms (no yardstick)")
+        log(f"[6 main] {name}: active-world share by chunk of {TIMED_STEPS} "
+            f"launches: " + ", ".join(f"{a:.4f}" for a in r["active_share"]))
         log(f"[6 main] {name}: elected {int(obs['leader_elected'].sum())}/"
             f"{r['w']}; overflow {int(obs['overflow'].sum())}; bugs "
             f"{len(bugs)}" + (f", first failing seed {int(r['seeds'][bugs[0]])}"
                               if len(bugs) else ""))
     log(f"[6 main] step kernel launches on the main path: {main_launches}")
+
+    # Worlds per block: the same timing at each size whose tiles fit, each
+    # run's observations held to the main run's.
+    for name, (rk, ck), faults, w, max_steps in mains:
+        r = results[name]
+        times = []
+        for block in BLOCK_SWEEP:
+            eng = DeviceEngine(RaftActor(RaftDeviceConfig(**rk)),
+                               EngineConfig(**ck, pallas_block=block),
+                               device=dev)
+            try:
+                step_kernel.tile_plan(eng.cfg, eng.actor.rcfg.log_cap)
+            except ValueError:
+                times.append(f"B={block} does not fit")
+                continue
+            obs = eng.observe(eng.run(eng.init(r["seeds"], faults=faults),
+                                      max_steps))
+            check(golden.observe_digest(obs)
+                  == golden.observe_digest(r["obs"]),
+                  f"{name}: pallas_block={block} changed the observations")
+            chunks = device_ms(eng, w, r["run_launches"])
+            per_step = sum(ms for _k, ms in chunks) / r["run_launches"]
+            times.append(f"B={block} {per_step:.4f}")
+        log(f"[6 blocks] {name}: kernel ms/step over the run's "
+            f"{r['run_launches']} launches: " + ", ".join(times))
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(card)

@@ -65,9 +65,12 @@ _libs: Dict[str, ctypes.CDLL] = {}
 
 def build(name: str) -> float:
     """Compile ``csrc/<name>.cu`` unless it is built already. Returns the
-    seconds it took (0.0 when already built)."""
+    seconds it took (0.0 when already built). nvcc's output is kept beside
+    the library, so :data:`build_log` holds it either way."""
     out = library_path(name)
     if out.exists():
+        log = out.with_suffix(".log")
+        build_log[name] = log.read_text() if log.exists() else ""
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
@@ -80,6 +83,7 @@ def build(name: str) -> float:
     if proc.returncode != 0:
         raise BuildError(f"nvcc failed on {name}.cu (rc {proc.returncode}):"
                          f"\n{proc.stdout}")
+    out.with_suffix(".log").write_text(proc.stdout)
     os.replace(tmp, out)
     return time.perf_counter() - t0
 

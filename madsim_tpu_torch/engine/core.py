@@ -74,7 +74,11 @@ FAULT_SET_LOSS = 7
 FAULT_PAUSE = 8
 FAULT_RESUME = 9
 
-#: Worlds per CUDA block when ``EngineConfig.pallas_block`` is None.
+#: Worlds per CUDA block when ``EngineConfig.pallas_block`` is None (the
+#: tile plan lowers it where a block's tiles do not fit). Chosen from
+#: ``chip_smoke.py``'s block sweep on an H100: 64, 128 and 256 within 2% of
+#: each other on both main-path deployments; 128 the fastest on the
+#: headline, 64 faster by under 1% on the hunt (PERF.md §5).
 DEFAULT_BLOCK = 128
 
 

@@ -3,30 +3,35 @@
 Replaces ``madsim_tpu/engine/pallas_step.py::make_pallas_step``, the JAX
 package's one Pallas kernel: one whole engine step for every world per
 launch — the eligible first-min pop, fault apply or the Raft merged
-handler, the 2·M Threefry draws for latency and loss, the rank-ordered
-insert with the pop's clear fused in, the invariant and the step's
-bookkeeping. Like the Pallas kernel (``input_output_aliases``), it
-**updates the state tensors in place**: :func:`run_steps` returns the
-state it was given.
+handler, the Threefry draws for latency and loss, the rank-ordered insert
+with the pop's clear fused in, the invariant and the step's bookkeeping.
+Like the Pallas kernel (``input_output_aliases``), it **updates the state
+tensors in place**: :func:`run_steps` returns the state it was given.
 
-Design: one thread per world, ``EngineConfig.block`` worlds per block.
-Each thread reads its world's rows in global memory, runs the whole step
-for that world with Raft compiled in, and writes back in place. Sizes are
-runtime ints under the static maxima below; the wrapper raises beyond them.
+Design: one thread per world, a block of B worlds. The lanes a step reads
+whole — the queue's time and meta lanes (the pop scans every slot) and the
+invariant's commit and log lanes — are staged through shared memory: the
+block copies its contiguous range of each lane in with coalesced
+asynchronous copies (``cp.async``), one padded row per world, while each
+thread reads its world's scalars into registers; each thread then steps
+its world over its rows there, and the block writes back, coalesced, only
+the 16-byte chunks of the queue rows that changed. A block with no active
+world copies no queue tile. The outbox is never built: each send is
+generated, drawn for and inserted in turn, so the kernel uses no local
+memory. :func:`tile_plan` sizes the tiles: B, the padded row strides (the
+queue tiles' rows an odd number of 16-byte chunks, so that the eight
+threads of a quarter warp reading 16 bytes each hit all 32 banks; an int16
+stride of 2 mod 4 for the others, so that 32 threads reading one int16
+each hit 32 banks), the access widths and the shared-memory offsets. It
+raises :class:`ValueError` where no block of :data:`MIN_BLOCK` worlds fits
+in :data:`SMEM_MAX` bytes.
 
-Bound: memory. Reading and writing the whole world state once per step
-would take 2 × state bytes / 3.35 TB/s — for the headline deployment
-(926 B/world, W = 524,288: 486 MB) about 0.29 ms on an H100 — but a step
-touches only part of each world: the queue's time and meta lanes, one
-payload row, the destination's rows and the invariant's log lanes, about
-360 B of a headline world's 926 B. ``chip_smoke.py`` counts those bytes
-for its bound. What one thread per world leaves on the table: a world's
-rows are contiguous, so neighbouring threads read addresses a whole row
-apart (uncoalesced); the per-thread outbox lives in local memory (ptxas
-reports a ~0.8 KB stack frame), zeroed and read back every step; and a
-frozen world still costs a thread every step. A world-minor layout, a warp
-per world, an outbox that never materializes, and many steps per launch
-are the later fixes.
+Bound: memory. A step must read the queue's time lane of every world it
+steps, its meta lane where a node is paused, the commit row and the log
+entries over each node pair's committed prefix, besides one payload row
+and the handler's rows; ``chip_smoke.py`` (``needed_bytes``) counts those
+bytes for its bound. Sizes are runtime ints under the static maxima below;
+the wrapper raises beyond them.
 
 On CPU tensors :func:`run_steps` runs the plain step
 (:meth:`DeviceEngine.step_plain`) instead; on CUDA tensors it always
@@ -35,20 +40,117 @@ launches the kernel, or raises.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from .. import _build
 from ..ops.threefry import threefry2x32_torch
-from .core import tree_leaves
+from .core import DEFAULT_BLOCK, tree_leaves
 from .raft_actor import WON_WORDS, RaftActor
 
 #: Kernel launches so far (the step kernel); a plain integer.
 launches = 0
 
-# Static maxima of the kernel's per-thread arrays (csrc/step_kernel.cu).
+# Static maxima of the kernel (csrc/step_kernel.cu).
 MAX_N, MAX_Q, MAX_L, MAX_P = 8, 256, 64, 16
 MAX_M = MAX_N + 1
+#: Shared memory one block may use on sm_90 (227 KB).
+SMEM_MAX = 232_448
+#: The fewest worlds per block a tile plan accepts: one warp.
+MIN_BLOCK = 32
+
+
+class TilePlan(NamedTuple):
+    """How a block of worlds lays out its shared-memory tiles.
+
+    Strides are per world row, in elements: ``q_stride`` int32 of the
+    q_time and q_meta tiles (an odd number of 16-byte chunks, which the pop
+    reads four slots at a time), ``commit_stride`` int16 of the commit
+    tile, ``log_stride`` int16 of each of the log_term and log_cmd tiles
+    (2 mod 4, an odd number of 4-byte words). The ``*_unit`` fields are
+    the widest global access, in bytes, that a lane's rows allow (the
+    launch narrows them to the tensors' alignment); a ``pay_unit`` of 16
+    moves payload rows as 16-byte vectors. ``off_*`` are byte offsets in
+    dynamic shared memory (the q_time tile is at 0; ``dirty`` holds each
+    world's mask of changed queue chunks).
+    """
+
+    block: int
+    smem_bytes: int
+    q_stride: int
+    commit_stride: int
+    log_stride: int
+    q_unit: int
+    commit_unit: int
+    log_unit: int
+    pay_unit: int
+    off_qm: int
+    off_dirty: int
+    off_commit: int
+    off_lt: int
+    off_lc: int
+
+
+def _i16_stride(row: int) -> int:
+    """The least int16 row stride >= ``row`` that is 2 mod 4: rows start on
+    4-byte words an odd number of words apart."""
+    return row + (2 - row) % 4
+
+
+def _layout(block, q_stride, commit_stride, log_stride):
+    """Byte offsets of the six tiles and the bytes they take, each tile
+    starting on 16 bytes."""
+    sizes = (block * q_stride * 4, block * q_stride * 4, block * 8,
+             block * commit_stride * 2, block * log_stride * 2,
+             block * log_stride * 2)
+    offs, at = [], 0
+    for size in sizes:
+        offs.append(at)
+        at += -(-size // 16) * 16
+    return offs, at
+
+
+def tile_plan(cfg, log_cap: int) -> TilePlan:
+    """The tile plan for an engine config and the Raft log capacity.
+
+    ``cfg.pallas_block`` worlds per block where it is set (raises if they
+    do not fit); else :data:`DEFAULT_BLOCK`, lowered by warps to what fits.
+    """
+    n, q, p, L = cfg.n_nodes, cfg.queue_cap, cfg.payload_words, log_cap
+    q_stride = 4 * (-(-q // 4) | 1)
+    commit_stride = _i16_stride(n)
+    log_stride = _i16_stride(n * L)
+
+    def smem(b):
+        return _layout(b, q_stride, commit_stride, log_stride)[1]
+
+    if cfg.pallas_block is not None:
+        block = cfg.pallas_block
+        if smem(block) > SMEM_MAX:
+            raise ValueError(
+                f"pallas_block={block}: a block's tiles for n_nodes={n}, "
+                f"queue_cap={q}, log_cap={L} take {smem(block)} bytes of "
+                f"shared memory, more than {SMEM_MAX}")
+    else:
+        block = DEFAULT_BLOCK
+        while block > MIN_BLOCK and smem(block) > SMEM_MAX:
+            block = max(MIN_BLOCK, (block - 1) // 32 * 32)
+        if smem(block) > SMEM_MAX:
+            raise ValueError(
+                f"no block of {MIN_BLOCK} worlds fits in {SMEM_MAX} bytes of "
+                f"shared memory for n_nodes={n}, queue_cap={q}, "
+                f"log_cap={L}: it needs {smem(block)}")
+    offs, total = _layout(block, q_stride, commit_stride, log_stride)
+    return TilePlan(
+        block=block, smem_bytes=total, q_stride=q_stride,
+        commit_stride=commit_stride, log_stride=log_stride,
+        q_unit=16 if q % 4 == 0 else 4,
+        commit_unit=4 if n % 2 == 0 else 2,
+        log_unit=4 if (n * L) % 2 == 0 else 2,
+        pay_unit=16 if p % 8 == 0 else 2,
+        off_qm=offs[1], off_dirty=offs[2], off_commit=offs[3],
+        off_lt=offs[4], off_lc=offs[5])
 
 
 def _lib():
@@ -85,11 +187,11 @@ def kernel_params(eng):
             "packed=False on CUDA is ROADMAP Queue B f")
     r = actor.rcfg
     n, q, p, L = cfg.n_nodes, cfg.queue_cap, cfg.payload_words, r.log_cap
-    if not (n <= MAX_N and q <= MAX_Q and p <= MAX_P and L <= MAX_L):
+    if not (n <= MAX_N and q <= MAX_Q and 8 <= p <= MAX_P and L <= MAX_L):
         raise ValueError(
             f"the CUDA step kernel takes n_nodes <= {MAX_N}, queue_cap <= "
-            f"{MAX_Q}, payload_words <= {MAX_P}, log_cap <= {MAX_L}; got "
-            f"{n}, {q}, {p}, {L}")
+            f"{MAX_Q}, 8 <= payload_words <= {MAX_P}, log_cap <= {MAX_L}; "
+            f"got {n}, {q}, {p}, {L}")
     if cfg.m != n + 1 or cfg.m > MAX_M:
         raise ValueError("the CUDA step kernel needs outbox_cap == n + 1")
     if not 0 < cfg.block <= 1024:
@@ -98,6 +200,33 @@ def kernel_params(eng):
     return [n, q, p, L, WON_WORDS, int(cfg.t_limit_us), int(cfg.stop_on_bug),
             r.elect_min_us, r.elect_max_us, r.heartbeat_us,
             int(r.buggy_double_vote)]
+
+
+def _aligned(unit: int, *tensors) -> int:
+    """``unit`` halved until every tensor's address is a multiple of it."""
+    while any(x.data_ptr() % unit for x in tensors):
+        unit //= 2
+    return unit
+
+
+def launch_ints(eng, leaves):
+    """``(block, ints)`` for ``madsim_step``: the plan's worlds per block,
+    and W, :func:`kernel_params`, then the :func:`tile_plan` with its
+    access widths narrowed to the leaves' alignment."""
+    plan = tile_plan(eng.cfg, eng.actor.rcfg.log_cap)
+    params = kernel_params(eng)
+    lane = dict(zip((name for name, _, _ in eng.state_layout()), leaves))
+    pay_unit = 16 if _aligned(plan.pay_unit,
+                              lane["queue.payload"]) == 16 else 2
+    return plan.block, [
+        leaves[0].shape[0], *params, plan.smem_bytes, plan.q_stride,
+        plan.commit_stride, plan.log_stride,
+        _aligned(plan.q_unit, lane["queue.time"], lane["queue.meta"]),
+        _aligned(plan.commit_unit, lane["astate.commit"]),
+        _aligned(plan.log_unit, lane["astate.log_term"],
+                 lane["astate.log_cmd"]),
+        pay_unit, plan.off_qm, plan.off_dirty, plan.off_commit, plan.off_lt,
+        plan.off_lc]
 
 
 def check_leaves(eng, leaves):
@@ -127,18 +256,17 @@ def launch(eng, leaves, k: int = 1):
     """Launch the step kernel ``k`` times over ``leaves`` (checked once),
     in place, on the current stream. Each launch is one step."""
     global launches
-    params = kernel_params(eng)
     check_leaves(eng, leaves)
-    w = leaves[0].shape[0]
-    if w == 0:
+    block, params = launch_ints(eng, leaves)
+    if leaves[0].shape[0] == 0:
         return
     lib = _lib()
     ptrs = (ctypes.c_void_p * len(leaves))(*[x.data_ptr() for x in leaves])
-    ints = (ctypes.c_int * (len(params) + 1))(w, *params)
+    ints = (ctypes.c_int * len(params))(*params)
     stream = torch.cuda.current_stream(leaves[0].device).cuda_stream
     with torch.cuda.device(leaves[0].device):
         for _ in range(k):
-            _check_status(lib.madsim_step(ptrs, ints, eng.cfg.block, stream),
+            _check_status(lib.madsim_step(ptrs, ints, block, stream),
                           "step kernel")
             launches += 1
 
