@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Chip smoke test of madsim_tpu_torch: the port's main path on one NVIDIA GPU.
+"""Chip smoke test of madsim_tpu_torch: the port's paths on one NVIDIA GPU.
 
 Builds the CUDA step kernel from ``madsim_tpu_torch/csrc`` and drives the
 batched Raft engine — ``DeviceEngine(RaftActor(..), EngineConfig(..))``,
-``init``, ``run``, ``observe`` — through it. Phases, in order; any failure
+``init``, ``run``, ``observe`` — and the bug hunt's seed sweep
+(``madsim_tpu_torch.parallel.sweep.sweep``, ``refill``, ``trace``) through
+it. Phases, in order; any failure
 exits non-zero:
 
 1. card: name and power limit; uint32 <-> int64 round trip on CUDA tensors;
@@ -15,10 +17,17 @@ exits non-zero:
 4. kernel vs plain step, whole runs: six configurations at W=4096 (two of
    them at node counts and widths off the main path) and the two main-path
    deployments at their full W, every leaf compared bitwise after each of
-   the first 64 steps, every 64th step after, and at the end; then one step
-   from a state whose frozen worlds were never checked by the invariant;
+   the first 64 steps, every 64th step after, and at the end; four of them
+   again with the metrics block and/or the flight recorder written in the
+   kernel (the hunt with kill/restart, the overflowing queue with a ring of
+   5, sends saturating at INF_TIME, the odd widths) and the full-W hunt
+   with both, each also held to a run with the lanes off on every other
+   leaf; then one step from a state whose frozen worlds were never checked
+   by the invariant, with the lanes off and on;
 5. held to JAX without JAX: observe() digests of seeds 0..63 equal the
-   JAX-derived constants in ``madsim_tpu_torch/engine/golden.py``;
+   JAX-derived constants in ``madsim_tpu_torch/engine/golden.py``, with
+   the lanes off and on, and so does the SweepResult of a small recycled
+   sweep with both on;
 6. the main path at full size: the headline deployment at W=524,288 and the
    bug hunt at W=65,536, init and run timed apart (best of 3), the kernel's
    launches counted; the kernel's device time per step over the same
@@ -26,7 +35,17 @@ exits non-zero:
    least-traffic count beside it), the share of active worlds in each
    timed chunk, and the run's device idle share; then the same
    timing at 64, 128 and 256 worlds per block (where the tiles fit), each
-   run's observations held to the main run's.
+   run's observations held to the main run's;
+7. the bug hunt's sweep at full width (65,536 seeds), ``sweep(...,
+   pipeline=False)`` as bench.py's legs run it: (a) recycled through 8,192
+   slots, stopping at the first bug, timed, with its chunks' kernel device
+   time and the device idle share; (b) every seed swept to retirement with
+   metrics on, each observation equal to a monolithic ``init`` + ``run``
+   and the coverage ledger equal to the fold of its signatures; (c) the
+   monolithic hunt with a 64-deep ring: the bug vector of the off run, a
+   failing seed's decoded ring the suffix of ``trace()`` on the card, and
+   the kernel's time and needed-bytes bound with the ring and the metrics
+   off and on, and the state bytes per world they take.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it lists each kernel with its launches and times.
@@ -112,7 +131,12 @@ def main() -> int:
         RaftActor, RaftDeviceConfig, golden, step_kernel)
     from madsim_tpu_torch.engine.core import (tree_leaves, tree_paths,
                                               tree_unflatten)
+    from madsim_tpu_torch.obs.blackbox import (decode_ring,
+                                               ring_matches_trace,
+                                               rings_from_observations)
+    from madsim_tpu_torch.obs.coverage import fold_retired, ledger_zeros
     from madsim_tpu_torch.ops.threefry import threefry2x32_torch
+    from madsim_tpu_torch.parallel.sweep import sweep
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -257,6 +281,31 @@ def main() -> int:
     ] + [("main_" + name, cfgs, faults, w, max_steps,
           "bug" if name == "hunt" else None)
          for name, cfgs, faults, w, max_steps in mains]
+    # The metrics block and the flight recorder, written inside the kernel:
+    # the hunt with kill/restart and a 64-deep ring, the overflowing queue
+    # with a ring of 5 (not a power of two), sends that saturate at
+    # INF_TIME and drop, the odd widths with both, and the full-W hunt.
+    hunt_rk, hunt_ck = compare_cfgs[1][1]
+    inf_latency = np.array([[0, FAULT_SET_LATENCY, 2_000_000_000,
+                             2_147_483_646]], np.int32)
+    on = dict(metrics=True, blackbox=64)
+    by_name = {c[0]: c for c in compare_cfgs}
+
+    def with_lanes(name, new_name, expect, **over):
+        _n, (rk, ck), faults, w, max_steps, _e = by_name[name]
+        return (new_name, (rk, dict(ck, **over)), faults, w, max_steps,
+                expect)
+
+    compare_cfgs += [
+        with_lanes("hunt_kill_restart", "hunt_kill_restart+obs",
+                   "m_drop_dead", **on),
+        with_lanes("overflow_q8", "overflow_q8+obs", "m_drop_overflow",
+                   metrics=True, blackbox=5),
+        ("inf_latency+metrics", (hunt_rk, dict(hunt_ck, metrics=True)),
+         inf_latency, W_COMPARE, 4_000, "m_drop_inf"),
+        with_lanes("n5_q30_p12", "n5_q30_p12+obs", "m_drop_loss", **on),
+        with_lanes("main_hunt", "main_hunt+obs", "bug", **on),
+    ]
     max_abs_err = 0.0
     for name, (rk, ck), faults, w, max_steps, expect in compare_cfgs:
         seeds = np.arange(w)
@@ -288,12 +337,69 @@ def main() -> int:
         if expect:
             check(obs[expect].any(), f"{name}: no world hit {expect}; the "
                   f"path it exists for went unexercised")
+        if ck.get("metrics") or ck.get("blackbox"):
+            # The lanes are invisible: the same steps with both off leave
+            # every other leaf as the kernel's run with them on.
+            eng_off = DeviceEngine(
+                RaftActor(RaftDeviceConfig(**rk)),
+                EngineConfig(**dict(ck, metrics=False, blackbox=0)),
+                device=dev)
+            off = eng_off.run_steps(eng_off.init(seeds, faults=faults),
+                                    steps)
+            on_leaves = dict(zip(tree_paths(ks_state),
+                                 tree_leaves(ks_state)))
+            for path, x in zip(tree_paths(off), tree_leaves(off)):
+                check(torch.equal(bits(x), bits(on_leaves[path])),
+                      f"{name}: the metrics or ring lanes changed leaf "
+                      f"{path}")
+            del off
         log(f"[4 compare] {name}: W={w} {steps} steps bitwise equal "
             f"(bug {int(obs['bug'].sum())}, overflow "
             f"{int(obs['overflow'].sum())}, elected "
             f"{int(obs['leader_elected'].sum())}) in "
             f"{time.perf_counter() - t0:.1f} s")
         del ks_state, pl_state
+
+    def frozen_step(eng, w, faults):
+        """One kernel step and one plain step from a state whose frozen
+        worlds the invariant never checked (see below); returns the max
+        abs difference."""
+        what = ("frozen worlds never checked"
+                + (" (metrics and ring on)" if eng.cfg.blackbox else ""))
+        state = eng.run_steps(eng.init(np.arange(w), faults=faults), 150)
+        idx = torch.arange(w, device=dev)
+        frozen = (idx < 256) | ((idx < 1024) & (idx % 4 != 0)) | (idx % 3 == 0)
+        one = frozen & (idx % 2 == 1)
+        a = state.astate
+        a.commit[one, 1:] = 0
+        top = a.commit.to(torch.int32).argmax(1)
+        a.log_term[frozen, top[frozen], 0] += 1
+        state.active[frozen] = False
+        state.bug[frozen] = False
+        n_committed = (a.commit > 0).sum(1)
+        checked = frozen & (n_committed >= 2)
+        check(int(checked.sum()) > 0 and int((frozen & ~checked).sum()) > 0
+              and int((~frozen & state.active).sum()) > 0,
+              f"{what}: the state lacks one of its kinds of world")
+        ks_state = tree_unflatten(state,
+                                  [x.clone() for x in tree_leaves(state)])
+        eng.step(ks_state)
+        pl_state = eng.step_plain(state)
+        first, err = diff(ks_state, pl_state)
+        check(first is None, f"{what}: kernel and plain step differ on leaf "
+              f"{first} (max abs err {err})")
+        flagged = pl_state.bug & frozen
+        check(torch.equal(flagged, checked), f"{what}: the changed committed "
+              f"entries were not flagged exactly where two nodes committed")
+        if eng.cfg.blackbox:
+            marked = (pl_state.blackbox.pos != state.blackbox.pos) & frozen
+            check(torch.equal(marked, checked), f"{what}: the ring's markers "
+                  f"do not fall exactly on the flagged frozen worlds")
+        log(f"[4 compare] {what}: W={w}, {int(frozen.sum())} frozen "
+            f"({int(checked.sum())} with two committed nodes, all flagged"
+            + (", each with a ring marker" if eng.cfg.blackbox else "")
+            + "), one step bitwise equal")
+        return err
 
     # Frozen worlds that the invariant never checked, as a caller may hand
     # in: part way through fault_mix, whose proposals commit entries, worlds
@@ -302,40 +408,13 @@ def main() -> int:
     # frozen world gets one committed log entry changed; every second one
     # also keeps only one committed node. One step of the kernel and of
     # the plain step must agree on every leaf.
-    _name, (rk, ck), faults, w, _m, _e = next(
-        c for c in compare_cfgs if c[0] == "fault_mix")
-    eng = DeviceEngine(RaftActor(RaftDeviceConfig(**rk)),
-                       EngineConfig(**ck), device=dev)
-    state = eng.run_steps(eng.init(np.arange(w), faults=faults), 150)
-    idx = torch.arange(w, device=dev)
-    frozen = (idx < 256) | ((idx < 1024) & (idx % 4 != 0)) | (idx % 3 == 0)
-    one = frozen & (idx % 2 == 1)
-    a = state.astate
-    a.commit[one, 1:] = 0
-    top = a.commit.to(torch.int32).argmax(1)
-    a.log_term[frozen, top[frozen], 0] += 1
-    state.active[frozen] = False
-    state.bug[frozen] = False
-    n_committed = (a.commit > 0).sum(1)
-    checked = frozen & (n_committed >= 2)
-    check(int(checked.sum()) > 0 and int((frozen & ~checked).sum()) > 0
-          and int((~frozen & state.active).sum()) > 0,
-          "frozen-world step: the state lacks one of its kinds of world")
-    ks_state = tree_unflatten(state, [x.clone() for x in tree_leaves(state)])
-    eng.step(ks_state)
-    pl_state = eng.step_plain(state)
-    first, err = diff(ks_state, pl_state)
-    max_abs_err = max(max_abs_err, err)
-    check(first is None, f"frozen-world step: kernel and plain step differ "
-          f"on leaf {first} (max abs err {err})")
-    flagged = pl_state.bug & frozen
-    check(torch.equal(flagged, checked), "frozen-world step: the changed "
-          "committed entries were not flagged exactly where two nodes "
-          "committed")
-    log(f"[4 compare] frozen worlds never checked: W={w}, "
-        f"{int(frozen.sum())} frozen ({int(checked.sum())} with two "
-        f"committed nodes, all flagged), one step bitwise equal")
-    del state, ks_state, pl_state
+    # With the ring on, each changed world records its raise as a marker.
+    _name, (rk, ck), faults, w, _m, _e = by_name["fault_mix"]
+    for lanes in ({}, dict(metrics=True, blackbox=8)):
+        max_abs_err = max(max_abs_err, frozen_step(
+            DeviceEngine(RaftActor(RaftDeviceConfig(**rk)),
+                         EngineConfig(**ck, **lanes), device=dev),
+            w, faults))
 
     # ---- 5. held to JAX without JAX ---------------------------------------
     for name, (rk, ck, faults, max_steps) in golden.CONFIGS.items():
@@ -350,7 +429,28 @@ def main() -> int:
               f"{golden.GOLDEN[name]}")
         log(f"[5 golden] {name}: observe() digest equals the JAX-derived "
             f"constant")
-
+    rk, ck, faults, max_steps = golden.CONFIGS["hunt_faults"]
+    fa = np.asarray(faults, np.int32)
+    eng = DeviceEngine(RaftActor(RaftDeviceConfig(**rk)),
+                       EngineConfig(**ck, **golden.OBS_ON), device=dev)
+    digest = golden.observe_digest(eng.observe(eng.run(
+        eng.init(golden.SEEDS, faults=fa), max_steps)))
+    check(digest == golden.GOLDEN_OBS, f"hunt_faults with {golden.OBS_ON}: "
+          f"observe() digest {digest} != JAX-derived {golden.GOLDEN_OBS}")
+    log(f"[5 golden] hunt_faults with {golden.OBS_ON}: observe() digest "
+        f"equals the JAX-derived constant")
+    sp = golden.SWEEP
+    eng = DeviceEngine(RaftActor(RaftDeviceConfig(**rk)),
+                       EngineConfig(**ck, **sp["over"]), device=dev)
+    res = sweep(None, eng.cfg, sp["seeds"], faults=fa, engine=eng,
+                pipeline=False, **sp["kwargs"])
+    digest = golden.sweep_digest(res)
+    check(digest == golden.GOLDEN_SWEEP, f"recycled sweep digest {digest} "
+          f"!= JAX-derived {golden.GOLDEN_SWEEP}")
+    log(f"[5 golden] recycled sweep of {len(sp['seeds'])} seeds "
+        f"({sp['kwargs']}, {sp['over']}): SweepResult digest equals the "
+        f"JAX-derived constant ({len(res.failing_seeds)} failing, "
+        f"{res.loop_stats['chunks']} chunks)")
     # ---- 6. the main path at full size ------------------------------------
     engines = {name: DeviceEngine(RaftActor(RaftDeviceConfig(**rk)),
                                   EngineConfig(**ck), device=dev)
@@ -437,6 +537,32 @@ def main() -> int:
         torch.cuda.synchronize()
         return e0.elapsed_time(e1) / n
 
+    def lane_bytes(before, state):
+        """Bytes one step moved in the optional lanes, per world: each
+        metrics counter it changed is read and written (8 bytes), and a
+        world that recorded a ring event read and wrote the ring's
+        position (8 bytes) and wrote the 10-byte record."""
+        out = torch.zeros_like(state.steps, dtype=torch.int64)
+        if before is None:
+            return out
+        mb0, pos0 = before
+        if mb0 is not None:
+            for x0, x in zip(mb0, state.metrics):
+                changed = x0 != x
+                out += 8 * changed.reshape(changed.shape[0], -1).sum(1)
+        if pos0 is not None:
+            out += 18 * (pos0 != state.blackbox.pos)
+        return out
+
+    def lanes_of(state):
+        """What :func:`lane_bytes` compares a step's result with."""
+        if state.metrics is None and state.blackbox is None:
+            return None
+        return (None if state.metrics is None
+                else [x.clone() for x in state.metrics],
+                None if state.blackbox is None
+                else state.blackbox.pos.clone())
+
     def least_bytes(eng, w, total):
         """Bytes each of the run's ``total`` steps must move at the least:
         per active world the queue's time and meta lanes (the pop scans
@@ -444,7 +570,8 @@ def main() -> int:
         alive and generation bytes, the RNG cursor and key, the net model,
         the scalar lanes read and written, and the invariant's commit and
         log lanes of every node; per frozen world its active flag, depth
-        lanes, bug flag and the invariant's reads. The handler's rows and
+        lanes, bug flag and the invariant's reads; the metrics and ring
+        lanes as :func:`lane_bytes` counts them. The handler's rows and
         the inserted events are not counted, so this is a lower bound."""
         cfg, L = eng.cfg, eng.actor.rcfg.log_cap
         n, q, p = cfg.n_nodes, cfg.queue_cap, cfg.payload_words
@@ -456,8 +583,10 @@ def main() -> int:
         out = []
         for _ in range(total):
             a = int(state.active.sum())
-            out.append(a * active + (w - a) * frozen)
+            before = lanes_of(state)
             eng.run_steps(state, 1)
+            out.append(a * active + (w - a) * frozen
+                       + int(lane_bytes(before, state).sum()))
         return out
 
     def needed_bytes(eng, w, total):
@@ -467,7 +596,8 @@ def main() -> int:
         (and none where the bug flag is already set), and the queue's meta
         lane whole only for a world with a paused node (else the popped
         slot's word). A frozen world reads its flags, depth lanes and
-        commit row."""
+        commit row. The metrics and ring lanes count what :func:`lane_bytes`
+        counts (nothing for a frozen world)."""
         cfg, L = eng.cfg, eng.actor.rcfg.log_cap
         n, q, p = cfg.n_nodes, cfg.queue_cap, cfg.payload_words
         frozen = 1 + 4 + 1 + 2 * n
@@ -481,9 +611,11 @@ def main() -> int:
             pair = torch.minimum(c[:, :, None], c[:, None, :]) * off_diag
             log_b = 4 * pair.amax(2).sum(1) * ~state.bug
             meta_b = 4 * (q - 1) * state.paused.any(1)
-            out.append((torch.where(state.active, active + meta_b, frozen)
-                        + log_b).sum())
+            step_b = (torch.where(state.active, active + meta_b, frozen)
+                      + log_b)
+            before = lanes_of(state)
             eng.run_steps(state, 1)
+            out.append((step_b + lane_bytes(before, state)).sum())
         return [int(x) for x in torch.stack(out).cpu()]
 
     def active_shares(eng, w, total):
@@ -579,6 +711,169 @@ def main() -> int:
             times.append(f"B={block} {per_step:.4f}")
         log(f"[6 blocks] {name}: kernel ms/step over the run's "
             f"{r['run_launches']} launches: " + ", ".join(times))
+    # ---- 7. the bug hunt's sweep at full width -----------------------------
+    # The bench's bug-hunt legs (bench.py bench_time_to_first_bug) on the
+    # hunt's 65,536 seeds: (a) the recycled hunt, (b) position
+    # independence with the metrics block and the coverage ledger, (c) the
+    # flight recorder against a replay.
+    hunt_rk = dict(n=3, buggy_double_vote=True)
+    hunt_ck = golden.CONFIGS["hunt_faults"][1]      # stop_on_bug=False
+    w = results["hunt"]["w"]
+    seeds = np.arange(w)
+    batch_w = max(256, w // 8)
+
+    def hunt_engine(**over):
+        return DeviceEngine(RaftActor(RaftDeviceConfig(**hunt_rk)),
+                            EngineConfig(**dict(hunt_ck, **over)),
+                            device=dev)
+
+    def chunk_device_ms(eng):
+        """Make ``eng``'s chunks time themselves: each chunk's launches
+        are queued behind a sleeping kernel and held by a CUDA event pair
+        (as in :func:`device_ms`); returns the list the times land in."""
+        times = []
+        real = eng.run_steps
+
+        def run_steps(state, k):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SLEEP_CYCLES // 10)
+            e0.record()
+            real(state, k)
+            e1.record()
+            check(not e0.query(), "sweep timing: the device reached a "
+                  "chunk's launches before they were all queued")
+            e1.synchronize()
+            times.append(e0.elapsed_time(e1))
+            return state
+
+        eng.run_steps = run_steps
+        return times
+
+    # (a) the recycled hunt: stop at the first bug.
+    eng_s = hunt_engine(stop_on_bug=True)
+    leg_a = dict(chunk_steps=64, max_steps=4_000, stop_on_first_bug=True,
+                 recycle=True, batch_worlds=batch_w, pipeline=False)
+    sweep(None, eng_s.cfg, seeds, engine=eng_s, **leg_a)  # warm-up
+    step_kernel.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_a = sweep(None, eng_s.cfg, seeds, engine=eng_s, **leg_a)
+    torch.cuda.synchronize()
+    wall_a = time.perf_counter() - t0
+    sweep_launches = step_kernel.launches
+    check(sweep_launches > 0, "sweep: the step kernel never launched")
+    check(res_a.failing_seeds, "recycled hunt: no bug found")
+    admitted = int((res_a.observations["steps"] > 0).sum())
+    chunk_ms = chunk_device_ms(eng_s)
+    res_t = sweep(None, eng_s.cfg, seeds, engine=eng_s, **leg_a)
+    check(res_t.failing_seeds == res_a.failing_seeds,
+          "recycled hunt: the timed replay found other seeds")
+    ls = res_a.loop_stats
+    log(f"[7 sweep a] recycled hunt, {w} seeds, batch {batch_w}, chunks of "
+        f"64, stop at the first bug: wall {wall_a * 1e3:.2f} ms, "
+        f"{admitted} seeds admitted = {admitted / wall_a:.0f} seeds/s; "
+        f"failing {res_a.failing_seeds[:8]} ({len(res_a.failing_seeds)}); "
+        f"world_utilization {res_a.world_utilization:.4f}; chunks "
+        f"{ls['chunks']}, dispatches {ls['dispatches']}, scalar fetches "
+        f"{ls['scalar_fetches']}, retire fetches {ls['retire_fetches']}; "
+        f"step kernel launches {sweep_launches}, device time "
+        f"{sum(chunk_ms):.3f} ms, device idle share "
+        f"{1 - sum(chunk_ms) / (wall_a * 1e3):.3f}")
+
+    # (b) position independence: every seed swept to retirement, recycled,
+    # metrics on, equals a monolithic init + run of the same seeds.
+    eng_m = hunt_engine(stop_on_bug=True, metrics=True)
+    t0 = time.perf_counter()
+    res_b = sweep(None, eng_m.cfg, seeds, engine=eng_m, chunk_steps=64,
+                  max_steps=1_000_000, recycle=True, batch_worlds=batch_w,
+                  pipeline=False)
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    check(not res_b.observations["active"].any(),
+          "position independence: seeds left active")
+    mono = eng_m.run(eng_m.init(seeds), 100_000)
+    mono_obs = eng_m.observe(mono)
+    check(sorted(mono_obs) == sorted(res_b.observations),
+          "position independence: observation keys differ")
+    for key, v in mono_obs.items():
+        check(np.array_equal(res_b.observations[key], v),
+              f"position independence: {key} differs from a monolithic "
+              f"run")
+    hits, first = fold_retired(*ledger_zeros(res_b.coverage.n_buckets, dev),
+                               mono.metrics,
+                               torch.ones(w, dtype=torch.bool, device=dev),
+                               torch.arange(w, dtype=torch.int32,
+                                            device=dev))
+    check(np.array_equal(res_b.coverage.hits, hits.cpu().numpy())
+          and np.array_equal(res_b.coverage.first_seen_seed,
+                             first.cpu().numpy()),
+          "position independence: the coverage ledger is not the fold of "
+          "the monolithic run's signatures")
+    check(set(res_a.failing_seeds) <= set(res_b.failing_seeds),
+          "a seed the recycled hunt reported does not fail")
+    del mono
+    chunk_ms = chunk_device_ms(eng_m)
+    sweep(None, eng_m.cfg, seeds, engine=eng_m, chunk_steps=64,
+          max_steps=1_000_000, recycle=True, batch_worlds=batch_w,
+          pipeline=False)
+    ls = res_b.loop_stats
+    log(f"[7 sweep b] {w} seeds recycled through {batch_w} slots to "
+        f"retirement with metrics on: every observation (m_* included) "
+        f"equals a monolithic init + run, the coverage ledger the fold of "
+        f"its signatures ({res_b.coverage.distinct_behaviors} behaviors); "
+        f"{len(res_b.failing_seeds)} failing, every seed of (a) among "
+        f"them; wall {wall_b * 1e3:.2f} ms = {w / wall_b:.0f} seeds/s, "
+        f"world_utilization {res_b.world_utilization:.4f}, chunks "
+        f"{ls['chunks']}, dispatches {ls['dispatches']}, scalar fetches "
+        f"{ls['scalar_fetches']}, retire fetches {ls['retire_fetches']}; "
+        f"step kernel device time {sum(chunk_ms):.3f} ms over "
+        f"{len(chunk_ms)} chunks, device idle share "
+        f"{1 - sum(chunk_ms) / (wall_b * 1e3):.3f}")
+
+    # (c) the flight recorder: the monolithic hunt with the 64-deep ring,
+    # and the kernel's price for the ring and the metrics.
+    eng_bb = hunt_engine(blackbox=64)
+    obs_bb = eng_bb.observe(eng_bb.run(eng_bb.init(seeds), 4_000))
+    check(np.array_equal(obs_bb["bug"], results["hunt"]["obs"]["bug"]),
+          "flight recorder: the ring-on run's bug vector differs")
+    row = int(np.flatnonzero(obs_bb["bug"])[0])
+    ring = rings_from_observations(obs_bb)
+    pos = int(ring["pos"][row])
+    entries = decode_ring({k: v[row] for k, v in ring.items()},
+                          kind_names=eng_bb.actor.kind_names)
+    replay = eng_bb.trace(int(seeds[row]), max_steps=4_000)
+    err = ring_matches_trace(entries, replay, total=pos)
+    check(err is None, f"flight recorder: {err}")
+    log(f"[7 ring c] seed {int(seeds[row])}: its {len(entries)} ring "
+        f"records (of {pos}) are the suffix of trace() on the card, ending "
+        f"at {entries[-1]['kind']} step {entries[-1]['step']}")
+    lane_cases = [("off", engines["hunt"]), ("ring", eng_bb),
+                  ("metrics", hunt_engine(metrics=True)),
+                  ("ring+metrics", hunt_engine(blackbox=64, metrics=True))]
+    expect_bytes = {"off": 1934, "ring": 2578, "ring+metrics": 2690}
+    lane_ms = {}
+    for label, eng in lane_cases + lane_cases[:1]:
+        per_world = sum(int(np.prod(shape)) * torch.empty(
+            0, dtype=dtype).element_size()
+            for _n, dtype, shape in eng.state_layout())
+        if label in expect_bytes:
+            check(per_world == expect_bytes[label],
+                  f"{label}: {per_world} state bytes per world, expected "
+                  f"{expect_bytes[label]}")
+        total = results["hunt"]["run_launches"]
+        ms = sum(m for _k, m in device_ms(eng, w, total)) / total
+        bound = (sum(needed_bytes(eng, w, total)) / total
+                 / HBM_BYTES_PER_S * 1e3)
+        lane_ms.setdefault(label, []).append(ms)
+        log(f"[7 ring c] hunt W={w}, {label}: {per_world} B/world; kernel "
+            f"{ms:.4f} ms/step over {total} launches, needed-bytes bound "
+            f"{bound:.4f} ms, share {bound / ms:.3f}")
+    off_ms = sum(lane_ms["off"]) / len(lane_ms["off"])
+    log("[7 ring c] kernel ms/step against the off runs' mean "
+        f"{off_ms:.4f}: " + ", ".join(
+            f"{label} {lane_ms[label][0] / off_ms - 1:+.3f}"
+            for label, _e in lane_cases[1:]))
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(card)
@@ -587,7 +882,7 @@ def main() -> int:
         "route": "cuda",
         "source": "madsim_tpu_torch/csrc/step_kernel.cu",
         "replaces": "madsim_tpu/engine/pallas_step.py:132",
-        "launches": main_launches,
+        "launches": main_launches + sweep_launches,
         "max_abs_err": max_abs_err,
         "ms": hl["kernel_ms"],
         "plain_ms": hl["plain_ms"],

@@ -65,6 +65,15 @@
 //   still advances as the plain step's does).
 // - The payload lane stays in device memory: one row read per active world,
 //   one row written per insert, as 16-byte vectors when P is 8 or 16.
+// - The write-only lanes stay in device memory too. With the metrics block
+//   on (EngineConfig(metrics=True)), an active world adds each nonzero
+//   increment to its counters, and one to the histogram bins it addresses;
+//   with the flight recorder on (blackbox=K), a world that processed an
+//   event, or whose bug flag rose, writes one record at slot pos % K. The
+//   counts come from the step as it runs (the sends offered, clogged and
+//   lost, the inserts refused for a saturated time or a full queue), so
+//   nothing is rebuilt for them. Nothing reads these lanes, so turning
+//   them on changes no other leaf; they are null pointers when off.
 //
 // Exactness rules kept here (each a place where a plain reading gives a
 // different bit): int8/int16 lane writes saturate, except the generation
@@ -142,8 +151,38 @@ struct State {
   int32_t* lat_min;
   int32_t* lat_max;
   float* loss;
+  // The optional, write-only lanes, in device memory (never tiled): the
+  // metrics block (EngineConfig(metrics=True)) and the flight-recorder
+  // ring (EngineConfig(blackbox=K)); null when off.
+  int32_t* m_msgs_sent;
+  int32_t* m_msgs_delivered;
+  int32_t* m_timer_fires;
+  int32_t* m_drop_loss;
+  int32_t* m_drop_stale;
+  int32_t* m_drop_dead;
+  int32_t* m_drop_out_of_time;
+  int32_t* m_enqueued;
+  int32_t* m_drop_overflow;
+  int32_t* m_drop_inf;
+  int32_t* m_vtime_us;
+  int32_t* m_fault_hist;  // (W, NUM_FAULT_KINDS)
+  int32_t* m_kind_hist;   // (W, num_kinds)
+  int32_t* bb_pos;
+  int16_t* bb_step_lo;    // (W, K) each
+  int16_t* bb_t_lo;
+  int16_t* bb_t_hi;
+  int8_t* bb_kind;
+  int8_t* bb_src;
+  int8_t* bb_dst;
+  int8_t* bb_flags;
 };
-constexpr int N_LEAVES = 38;
+constexpr int N_BASE_LEAVES = 38, N_METRICS = 13, N_RING = 8;
+constexpr int N_PTRS = N_BASE_LEAVES + N_METRICS + N_RING;
+constexpr int NUM_FAULT_KINDS = 10;
+
+// Flag bits of a flight-recorder record (obs/blackbox.py BB_*).
+constexpr int BB_TIMER = 1, BB_FAULT = 2, BB_DROP_STALE = 4, BB_DROP_DEAD = 8,
+              BB_RAISE = 16, BB_MARKER = 32;
 
 // The engine's parameters, then the tile plan (step_kernel.py TilePlan):
 // row strides of the shared tiles, global access widths in bytes, and the
@@ -158,8 +197,11 @@ struct Params {
   int log_stride;     // int16 per world row of the log_term / log_cmd tiles
   int q_unit, commit_unit, log_unit, pay_unit;
   int off_qm, off_dirty, off_commit, off_lt, off_lc;
+  // The optional lanes: metrics on (0/1), the kind histogram's width, and
+  // the ring depth K (0: off). Uniform over the grid.
+  int metrics, num_kinds, bb_k;
 };
-constexpr int N_PARAMS = 25;
+constexpr int N_PARAMS = 28;
 
 __device__ __forceinline__ int clampi(int32_t x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
@@ -235,6 +277,36 @@ __device__ __forceinline__ int32_t pack_meta(int32_t kind, int32_t flags,
 
 __device__ __forceinline__ int32_t join_wide(int32_t lo, int32_t hi) {
   return (int32_t)(((uint32_t)lo & 0xFFFFu) | ((uint32_t)hi << 16));
+}
+
+// ---------------------------------------------------------------------------
+// The write-only lanes: metrics counters and flight-recorder records.
+// ---------------------------------------------------------------------------
+// A counter's read-modify-write in device memory, skipped for a zero
+// increment; int32 adds wrap.
+__device__ __forceinline__ void count(int32_t* lane, size_t at, int32_t d) {
+  if (d != 0) lane[at] = (int32_t)((uint32_t)lane[at] + (uint32_t)d);
+}
+
+// One ring record of world w at slot pos % K. steps is the pre-step count
+// (wrapped to int16), t the event's time or, for a marker, the clock.
+__device__ __forceinline__ void ring_record(const State& s, const Params& p,
+                                            size_t w, int32_t steps,
+                                            int32_t t, int kind, int src,
+                                            int dst, int flags) {
+  const int k = p.bb_k;
+  const int32_t pos = s.bb_pos[w];
+  int slot = pos % k;
+  if (slot < 0) slot += k;
+  const size_t at = w * (size_t)k + slot;
+  s.bb_pos[w] = (int32_t)((uint32_t)pos + 1u);
+  s.bb_step_lo[at] = (int16_t)(uint16_t)((uint32_t)steps & 0xFFFFu);
+  s.bb_t_lo[at] = (int16_t)(uint16_t)((uint32_t)t & 0xFFFFu);
+  s.bb_t_hi[at] = (int16_t)(t >> 16);
+  s.bb_kind[at] = sat8(kind);
+  s.bb_src[at] = sat8(src);
+  s.bb_dst[at] = sat8(dst);
+  s.bb_flags[at] = (int8_t)flags;
 }
 
 // ---------------------------------------------------------------------------
@@ -1039,6 +1111,9 @@ __device__ __forceinline__ uint64_t active_step(const State& s,
   const int32_t room = INF_TIME - now;
   const int L = p.L;
   int cursor = 0, n_ins = 0;
+  // Send-side metrics: inserts dropped for a saturated deadline, refused by
+  // a full queue, and messages lost to the loss draw.
+  int n_inf = 0, n_over = 0, n_lost = 0;
   bool ovf = false;
   const uint32_t nodes = (1u << N) - 1u;
   const uint32_t clogged =
@@ -1049,10 +1124,14 @@ __device__ __forceinline__ uint64_t active_step(const State& s,
   auto insert = [&](int32_t delay, int kind, int flags, int d,
                     const Payload e) {
     const int32_t t_ev = now + (delay < room ? delay : room);
-    if (t_ev >= INF_TIME) return;
+    if (t_ev >= INF_TIME) {
+      n_inf++;
+      return;
+    }
     while (cursor < Q && qt[cursor] != INF_TIME) cursor++;
     if (cursor == Q) {
       ovf = true;
+      n_over++;
       return;
     }
     qt[cursor] = t_ev;
@@ -1097,6 +1176,7 @@ __device__ __forceinline__ uint64_t active_step(const State& s,
       draw3(k0, k1, ca + 1u, cb + 1u, 0u, ua, ub, unused);
       keep_a = !(u32_to_unit(ua) < r.loss);
       keep_b = keep_b && !(u32_to_unit(ub) < r.loss);
+      n_lost += (keep_a ? 0 : 1) + ((ib >= 0 && !keep_b) ? 1 : 0);
     }
     uint32_t la, lb, lt;
     draw3(k0, k1, ca, cb, sd.t_ctr, la, lb, lt);
@@ -1130,6 +1210,46 @@ __device__ __forceinline__ uint64_t active_step(const State& s,
   if (now != r.now) s.now[w] = now;
   s.steps[w] = r.steps + 1;
   s.counter[w] = ctr;
+
+  // ---- the write-only lanes (obs/metrics.py, obs/blackbox.py), in device
+  // memory; nothing above reads them ----
+  const bool valid = found && in_time;
+  if (p.metrics) {
+    // Messages offered: the outbox's valid message entries; dropped at
+    // send: those to or from a clogged node or over a clogged link, and
+    // those the loss draw took.
+    count(s.m_msgs_sent, w, __popc(sd.msg_mask & nodes));
+    count(s.m_drop_loss, w, __popc(sd.msg_mask & clogged & nodes) + n_lost);
+    count(s.m_enqueued, w, n_ins);
+    count(s.m_drop_overflow, w, n_over);
+    count(s.m_drop_inf, w, n_inf);
+    count(s.m_msgs_delivered, w, (deliver && !is_timer) ? 1 : 0);
+    count(s.m_timer_fires, w, (deliver && is_timer) ? 1 : 0);
+    count(s.m_drop_stale, w, (valid && !is_fault && stale) ? 1 : 0);
+    count(s.m_drop_dead, w, (valid && !is_fault && !stale && dead) ? 1 : 0);
+    count(s.m_drop_out_of_time, w, (found && !in_time) ? 1 : 0);
+    count(s.m_vtime_us, w, (int32_t)((uint32_t)now - (uint32_t)r.now));
+    // The histograms' bins by address; a kind out of range counts nowhere.
+    if (do_fault && ev_kind < NUM_FAULT_KINDS)
+      count(s.m_fault_hist, w * NUM_FAULT_KINDS + ev_kind, 1);
+    if (deliver && ev_kind < p.num_kinds)
+      count(s.m_kind_hist, w * (size_t)p.num_kinds + ev_kind, 1);
+  }
+  if (p.bb_k > 0) {
+    const bool raised = bug && !r.bug;
+    const bool marker = raised && !valid;
+    if (valid || marker) {
+      const int flags = (valid && is_timer ? BB_TIMER : 0) |
+                        (valid && is_fault ? BB_FAULT : 0) |
+                        (valid && !is_fault && stale ? BB_DROP_STALE : 0) |
+                        (valid && !is_fault && !stale && dead ? BB_DROP_DEAD
+                                                              : 0) |
+                        (raised ? BB_RAISE : 0) | (marker ? BB_MARKER : 0);
+      ring_record(s, p, w, r.steps, marker ? now : tmin,
+                  valid ? ev_kind : 0, valid ? ev_src : -1,
+                  valid ? ev_dst : -1, flags);
+    }
+  }
   return dirty;
 }
 
@@ -1205,6 +1325,10 @@ __global__ void step_kernel(State s, Params p) {
                                 s.log_cmd + w * N * L))) {
       s.bug[w] = 1;
       s.bug_time[w] = r.now;
+      // The raise of a step that processed no event: the ring's marker.
+      if (p.bb_k > 0)
+        ring_record(s, p, w, s.steps[w], r.now, 0, -1, -1,
+                    BB_RAISE | BB_MARKER);
     }
   }
   if (dense) {
@@ -1256,16 +1380,27 @@ int launch_step(const State& s, const Params& p, int block, void* stream) {
 
 }  // namespace
 
-// One engine step of every world, in place. ptrs: the 38 state leaves in
-// leaf order; params: W then the Params fields after it (the engine's
-// parameters, then the tile plan); block: worlds per block. Returns the
-// CUDA status of the launch.
+// One engine step of every world, in place. ptrs: the State's N_PTRS
+// pointers in its order (the 38 base leaves, then the metrics block's 13
+// and the ring's 8 lanes, null when off); params: W then the Params fields
+// after it (the engine's parameters, the tile plan, the optional lanes);
+// block: worlds per block. Returns the CUDA status of the launch.
 extern "C" int madsim_step(void* const* ptrs, const int* params, int block,
                            void* stream) {
   State s;
   void** dst = reinterpret_cast<void**>(&s);
-  static_assert(sizeof(State) == N_LEAVES * sizeof(void*), "State layout");
-  for (int i = 0; i < N_LEAVES; i++) dst[i] = ptrs[i];
+  static_assert(sizeof(State) == N_PTRS * sizeof(void*), "State layout");
+  for (int i = 0; i < N_PTRS; i++) dst[i] = ptrs[i];
+  for (int i = 0; i < N_BASE_LEAVES; i++)
+    if (ptrs[i] == nullptr) return (int)cudaErrorInvalidValue;
+  // The optional lanes: all present when on, none read when off.
+  for (int i = 0; i < N_METRICS; i++)
+    if ((ptrs[N_BASE_LEAVES + i] != nullptr) != (params[N_PARAMS - 3] != 0))
+      return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < N_RING; i++)
+    if ((ptrs[N_BASE_LEAVES + N_METRICS + i] != nullptr) !=
+        (params[N_PARAMS - 1] > 0))
+      return (int)cudaErrorInvalidValue;
   Params p;
   static_assert(sizeof(Params) == N_PARAMS * sizeof(int), "Params layout");
   int* pp = reinterpret_cast<int*>(&p);
@@ -1279,7 +1414,8 @@ extern "C" int madsim_step(void* const* ptrs, const int* params, int block,
       p.commit_unit > 4 || !unit_ok(p.log_unit, 2) || p.log_unit > 4 ||
       (p.pay_unit != 16 && p.pay_unit != 2) || (p.Q * 4) % p.q_unit ||
       (p.N * 2) % p.commit_unit || (p.N * p.L * 2) % p.log_unit ||
-      (p.pay_unit == 16 && p.P % 8))
+      (p.pay_unit == 16 && p.P % 8) || p.metrics < 0 || p.metrics > 1 ||
+      p.num_kinds < 1 || p.num_kinds > 64 || p.bb_k < 0)
     return (int)cudaErrorInvalidValue;
   // The tiles: 16-byte aligned, in order, apart, within the block's bytes.
   const long b = block;

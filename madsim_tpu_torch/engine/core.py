@@ -22,7 +22,8 @@ The contract with the JAX package is bitwise equality on every
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple, Optional
+import warnings
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -35,6 +36,7 @@ from .lanes import (
     join_wide,
     narrow,
     narrow_wrap,
+    onehot,
     split_wide,
     take_small,
     upd,
@@ -51,10 +53,22 @@ from .queue import (
     depth as queue_depth,
     eligible_mask,
     empty_queue,
+    insert_metrics,
     pop_indexed,
     push_many,
 )
 from .rng import DevRng, _u32_to_range, _u32_to_unit_f32, make_rng, next_u32_vec
+from ..obs.blackbox import (
+    BB_DROP_DEAD,
+    BB_DROP_STALE,
+    BB_FAULT,
+    BB_MARKER,
+    BB_RAISE,
+    BB_TIMER,
+    FAULT_NAMES,
+    BlackboxRing,
+)
+from ..obs.metrics import NUM_FAULT_KINDS, MetricsBlock
 
 # Device-engine RNG stream id (host streams occupy 0..3).
 STREAM_DEVICE = 16
@@ -128,14 +142,6 @@ class EngineConfig:
         if self.blackbox < 0:
             raise ValueError("blackbox must be 0 (off) or a positive ring "
                              "depth K (events/world)")
-        if self.metrics:
-            raise NotImplementedError(
-                "EngineConfig(metrics=True) is not ported yet "
-                "(ROADMAP Queue A item 5 / Queue B f)")
-        if self.blackbox:
-            raise NotImplementedError(
-                "EngineConfig(blackbox>0) is not ported yet "
-                "(ROADMAP Queue A item 5 / Queue B f)")
         if self.sequential_insert:
             raise NotImplementedError(
                 "EngineConfig(sequential_insert=True) is not ported "
@@ -178,7 +184,10 @@ class Outbox(NamedTuple):
 
 class WorldState(NamedTuple):
     """All state of W worlds; field order (and so leaf order) is the JAX
-    package's. ``metrics`` and ``blackbox`` stay None in this slice."""
+    package's. ``metrics`` is a :class:`MetricsBlock` with
+    ``EngineConfig(metrics=True)`` and ``blackbox`` a :class:`BlackboxRing`
+    with ``EngineConfig(blackbox=K)``, else None (no leaves). The step
+    writes both and reads neither."""
 
     now: torch.Tensor          # (W,) int32 µs
     queue: EventQueue
@@ -402,7 +411,7 @@ class DeviceEngine:
             raise ValueError("configs loss_rate must be in [0, 1]")
 
         def dev(x):
-            return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+            return torch.from_numpy(np.array(x, order="C")).to(self.device)
 
         return self._init_batched(dev(lo), dev(hi), dev(faults), dev(lat_min),
                                   dev(lat_max), dev(loss))
@@ -461,7 +470,14 @@ class DeviceEngine:
             q, oks, _ = push_many(q, fevs, enable=rows[..., 0] >= 0)
             overflow = overflow | ~oks.all(dim=1)
         n = cfg.n_nodes
-        qd = narrow(queue_depth(q), cfg.lanes.slot)
+        qd32 = queue_depth(q)
+        qd = narrow(qd32, cfg.lanes.slot)
+        # The metrics block starts from the init-time queue: the actor's
+        # seed events and the fault rows count as enqueued.
+        mb = (MetricsBlock.zeros(w, self.actor.num_kinds, dev)
+              ._replace(enqueued=qd32.clone()) if cfg.metrics else None)
+        bb = (BlackboxRing.zeros(w, cfg.blackbox, cfg.lanes, dev)
+              if cfg.blackbox else None)
 
         def zeros_(shape, dtype):
             return torch.zeros(shape, dtype=dtype, device=dev)
@@ -488,7 +504,45 @@ class DeviceEngine:
             lat_min=lat_min,
             lat_max=lat_max,
             loss=loss,
+            metrics=mb,
+            blackbox=bb,
         )
+
+    def refill(self, state: WorldState, slot_mask, new_seeds,
+               faults=None, configs=None) -> WorldState:
+        """Recycle batch slots: the worlds where ``slot_mask`` (W,) is True
+        become fresh worlds of the matching rows of ``new_seeds`` (length
+        W; rows outside the mask are initialised and discarded, so any
+        placeholder seed works there).
+
+        ``faults``/``configs`` follow :meth:`init`, plus a per-slot
+        ``(W, F, 4)`` host schedule, one block per slot. A refilled slot is
+        bitwise an independent :meth:`init` of its seed. ``state`` is
+        updated in place and returned.
+        """
+        w = int(np.asarray(new_seeds).shape[0])
+        if isinstance(faults, torch.Tensor):
+            raise NotImplementedError(
+                "a device-tensor per-slot fault schedule is the guided "
+                "search's refill path, not ported yet (ROADMAP Queue A "
+                "item 8): pass the schedule as a host numpy array")
+        if faults is not None and getattr(faults, "ndim", 0) == 3:
+            if faults.shape[-1] != 4:
+                raise ValueError(
+                    f"per-slot fault schedules must be (n_slots, F, 4) "
+                    f"rows of [time_us, op, a, b]; got shape "
+                    f"{tuple(faults.shape)}")
+            if faults.shape[0] != w:
+                raise ValueError(
+                    f"per-slot fault schedules carry one (F, 4) block "
+                    f"per batch slot: got leading dim {faults.shape[0]} "
+                    f"but the refill batch holds {w} slots")
+        fresh = self.init(new_seeds, faults=faults, configs=configs)
+        mask = torch.from_numpy(np.asarray(slot_mask, bool).copy()).to(
+            state.now.device)
+        for dst, src in zip(tree_leaves(state), tree_leaves(fresh)):
+            dst.copy_(where_worlds(mask, src, dst))
+        return state
 
     # ------------------------------------------------------------------
     # The plain step (JAX _build_step, batched over the world axis)
@@ -572,8 +626,23 @@ class DeviceEngine:
         overflow = ws.overflow | ~oks.all(dim=1)
         qdepth = ws.qdepth + narrow(n_ins, ws.qdepth.dtype)
         qmax = torch.maximum(ws.qmax, qdepth)
+        mb = ws.metrics
+        if cfg.metrics:
+            # Send-side counters; write-only, gated on the pre-step active
+            # flag like the inserts.
+            i32 = torch.int32
+            _n_req, n_inf, n_over = insert_metrics(t, enable, n_ins)
+            live = ob.valid & ws.active[:, None]
+            mb = mb._replace(
+                msgs_sent=mb.msgs_sent + (live & ~ob.is_timer).sum(
+                    dim=1, dtype=i32),
+                drop_loss=mb.drop_loss + (live & dropped).sum(
+                    dim=1, dtype=i32),
+                enqueued=mb.enqueued + n_ins,
+                drop_overflow=mb.drop_overflow + n_over,
+                drop_inf=mb.drop_inf + n_inf)
         return ws._replace(queue=q, rng=rng, overflow=overflow,
-                           qdepth=qdepth, qmax=qmax)
+                           qdepth=qdepth, qmax=qmax, metrics=mb)
 
     @torch.no_grad()
     def step_plain(self, ws: WorldState) -> WorldState:
@@ -638,8 +707,69 @@ class DeviceEngine:
             dropped=ws3.dropped
             + (found & in_time & ~deliver & ~do_fault).to(torch.int32),
         )
+        i32 = torch.int32
+        if cfg.metrics:
+            # Pop-side counters. Every increment is gated on ``found``,
+            # which the pop gates on the active flag, so a frozen world's
+            # block never moves. An out-of-range kind increments no bin.
+            mb = ws3.metrics
+            mb = mb._replace(
+                msgs_delivered=mb.msgs_delivered
+                + (deliver & ~is_timer).to(i32),
+                timer_fires=mb.timer_fires + (deliver & is_timer).to(i32),
+                drop_stale=mb.drop_stale
+                + (found & in_time & ~is_fault & stale).to(i32),
+                drop_dead=mb.drop_dead
+                + (found & in_time & ~is_fault & ~stale & dead).to(i32),
+                drop_out_of_time=mb.drop_out_of_time
+                + (found & ~in_time).to(i32),
+                vtime_us=mb.vtime_us + (now - ws.now),
+                fault_hist=mb.fault_hist
+                + (onehot(ev.kind, NUM_FAULT_KINDS)
+                   & do_fault[:, None]).to(i32),
+                kind_hist=mb.kind_hist
+                + (onehot(ev.kind, mb.kind_hist.shape[1])
+                   & deliver[:, None]).to(i32))
+            ws4 = ws4._replace(metrics=mb)
+        if cfg.blackbox:
+            # The flight recorder: one record per step trace() records —
+            # a valid processed event, or the ``invariant`` marker for a
+            # raise on a step that processed none — at slot pos % K. A
+            # disabled write aims at slot K, where upd writes nothing.
+            k = cfg.blackbox
+            rb = ws3.blackbox
+            valid = found & in_time
+            raised = bug & ~ws3.bug
+            marker = raised & ~valid
+            rec = valid | marker
+            cur = torch.where(rec, torch.remainder(rb.pos, k), k)
+            # A valid record keeps the event's time, a marker the clock.
+            t_lo, t_hi = split_wide(torch.where(marker, now, ev.time))
+            fl = ((valid & is_timer).to(i32) * BB_TIMER
+                  + (valid & is_fault).to(i32) * BB_FAULT
+                  + (valid & ~is_fault & stale).to(i32) * BB_DROP_STALE
+                  + (valid & ~is_fault & ~stale & dead).to(i32)
+                  * BB_DROP_DEAD
+                  + raised.to(i32) * BB_RAISE
+                  + marker.to(i32) * BB_MARKER)
+            rb = rb._replace(
+                pos=rb.pos + rec.to(i32),
+                # The step index wraps to the lane's width (pos gives the
+                # high bits back); pre-wrapped, so upd's saturating write
+                # passes it through.
+                step_lo=upd(rb.step_lo, cur,
+                            narrow_wrap(ws.steps, rb.step_lo.dtype)),
+                t_lo=upd(rb.t_lo, cur, t_lo),
+                t_hi=upd(rb.t_hi, cur, t_hi),
+                kind=upd(rb.kind, cur, torch.where(valid, ev.kind, 0)),
+                src=upd(rb.src, cur, torch.where(valid, ev.src, -1)),
+                dst=upd(rb.dst, cur, torch.where(valid, ev.dst, -1)),
+                flags=upd(rb.flags, cur, fl))
+            ws4 = ws4._replace(blackbox=rb)
         # Frozen worlds pass through untouched: every write above is gated
-        # on ws.active except the RNG cursor and the step counter.
+        # on ws.active except the RNG cursor and the step counter. (The
+        # ring's marker needs a rising bug flag, which a frozen world's
+        # unchanged state raises only where no step has checked it.)
         return ws4._replace(
             rng=tree_select(ws.active, ws4.rng, ws.rng),
             steps=torch.where(ws.active, ws4.steps, ws.steps))
@@ -684,6 +814,109 @@ class DeviceEngine:
         return state
 
     # ------------------------------------------------------------------
+    # Single-seed tracing (repro tooling)
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def trace(self, seed: int, max_steps: int = 2_000,
+              faults: Optional[np.ndarray] = None) -> List[Dict[str, Any]]:
+        """Replay ONE seed on this engine's device and return its event
+        trace: per processed step its virtual time, kind, src→dst, timer
+        flag and payload, ``dropped`` for a stale timer or a dead
+        destination, ``bug_raised`` where the bug flag first rose (an
+        ``invariant`` marker when that step processed no event), and a
+        ``truncated`` entry, with a RuntimeWarning if no bug was seen, when
+        ``max_steps`` ends the replay of a world still live.
+
+        Each step peeks at the event the step will pop (the same eligible
+        first-min pop), then steps the one world with :meth:`run_steps`
+        (on CUDA, the kernel at W=1). The records stay on the device and
+        are pulled once at the end. Steps after the world froze record
+        nothing, so the replay stops there (tested every
+        :attr:`check_every` steps).
+        """
+        cfg = self.cfg
+        n = cfg.n_nodes
+        state = self.init(np.asarray([seed], np.uint64), faults=faults)
+        rows = []
+        i = 0
+        while i < max_steps:
+            _q, ev, found, _slot = pop_indexed(
+                state.queue, eligible_mask(state.queue, state.paused))
+            in_time = torch.maximum(state.now, ev.time) < cfg.t_limit_us
+            valid = found & state.active & in_time
+            self.run_steps(state, 1)
+            # The step's own drop tests, on the stepped world.
+            dst_c = ev.dst.clamp(0, n - 1)
+            is_fault = (ev.flags & FLAG_FAULT) != 0
+            stale = ((ev.flags & FLAG_TIMER) != 0) & (
+                ev.gen != (widen(take_small(state.gen, dst_c)) & GEN_MASK))
+            dead = ~take_small(state.alive, dst_c)
+            delivered = ~is_fault & ~stale & ~dead
+            rows.append(torch.cat([
+                torch.stack([valid.to(torch.int32), ev.time, ev.kind,
+                             ev.flags, ev.src, ev.dst,
+                             delivered.to(torch.int32),
+                             state.bug.to(torch.int32), state.now.clone()],
+                            dim=1),
+                ev.payload], dim=1))
+            i += 1
+            if i % self.check_every == 0 and not bool(state.active[0]):
+                break
+        recs = (torch.cat(rows).cpu().numpy() if rows
+                else np.zeros((0, 9 + cfg.payload_words), np.int32))
+        final_active = bool(state.active[0])
+        final_now = int(state.now[0])
+        kind_names = getattr(self.actor, "kind_names", None)
+        out: List[Dict[str, Any]] = []
+        bug_seen = False
+        for i, r in enumerate(recs):
+            (valid, time_us, kind, flags, src, dst, delivered, bug,
+             now_us) = (int(x) for x in r[:9])
+            raised_here = bool(bug) and not bug_seen
+            if not valid:
+                if raised_here:
+                    # The invariant rose on a step that processed no event.
+                    out.append({"step": i, "t_us": now_us,
+                                "kind": "invariant", "timer": False,
+                                "src": -1, "dst": -1, "payload": [],
+                                "bug_raised": True})
+                    bug_seen = True
+                continue
+            is_fault = bool(flags & FLAG_FAULT)
+            if is_fault:
+                name = f"fault:{FAULT_NAMES.get(kind, kind)}"
+            elif kind_names is not None and 0 <= kind < len(kind_names):
+                name = kind_names[kind]
+            else:
+                name = str(kind)
+            entry = {
+                "step": i,
+                "t_us": time_us,
+                "kind": name,
+                "timer": bool(flags & FLAG_TIMER),
+                "src": src,
+                "dst": dst,
+                "payload": r[9:].tolist(),
+            }
+            if not is_fault and not delivered:
+                entry["dropped"] = True
+            if raised_here:
+                entry["bug_raised"] = True
+                bug_seen = True
+            out.append(entry)
+        if final_active:
+            out.append({"step": max_steps, "t_us": final_now,
+                        "kind": "truncated", "timer": False, "src": -1,
+                        "dst": -1, "payload": [], "bug_seen": bug_seen})
+            if not bug_seen:
+                warnings.warn(
+                    f"trace(seed={seed}) truncated at max_steps={max_steps} "
+                    "before any bug_raised event — raise max_steps if you "
+                    "expected the invariant violation in this window",
+                    RuntimeWarning, stacklevel=2)
+        return out
+
+    # ------------------------------------------------------------------
     # Observation
     # ------------------------------------------------------------------
     def observe_device(self, state: WorldState) -> Dict[str, torch.Tensor]:
@@ -700,6 +933,15 @@ class DeviceEngine:
             "bug_time_us": state.bug_time,
             "queue_depth": state.qdepth,
         }
+        if self.cfg.metrics and state.metrics is not None:
+            # One m_<field> entry per counter, one bb_<field> per ring
+            # lane: the sweep attributes them per seed like any other
+            # observation.
+            out.update({f"m_{name}": val for name, val
+                        in state.metrics._asdict().items()})
+        if self.cfg.blackbox and state.blackbox is not None:
+            out.update({f"bb_{name}": val for name, val
+                        in state.blackbox._asdict().items()})
         out.update(self.actor.observe(self.cfg, state.astate))
         return out
 

@@ -4,9 +4,13 @@ is not installed.
 The GPU machine has no JAX, so the port cannot be compared with the JAX
 package there directly. Instead, :data:`GOLDEN` holds the SHA-256 of the
 JAX engine's ``observe()`` for seeds 0..63 of two deployments, and
-``chip_smoke.py`` checks that the port, stepping through the CUDA kernel,
-reproduces them. ``tests/test_torch_engine.py`` recomputes every digest
-from the JAX package on the CPU, so the constants cannot drift from it.
+:data:`GOLDEN_OBS` / :data:`GOLDEN_SWEEP` those of the hunt with the
+metrics block and the flight recorder on: its ``observe()``, and the
+result of a small recycled sweep (:data:`SWEEP`). ``chip_smoke.py`` checks
+that the port, stepping through the CUDA kernel, reproduces them.
+``tests/test_torch_engine.py`` and ``tests/test_torch_sweep.py`` recompute
+every digest from the JAX package on the CPU, so the constants cannot drift
+from it.
 """
 from __future__ import annotations
 
@@ -44,14 +48,53 @@ GOLDEN = {
 }
 
 
+#: The hunt with kill/restart (CONFIGS["hunt_faults"]) with these
+#: EngineConfig fields added: the metrics block and a 64-deep ring.
+OBS_ON = dict(metrics=True, blackbox=64)
+
+#: A recycled sweep of the hunt with kill/restart, metrics on and a 16-deep
+#: ring: the seeds and the sweep's keyword arguments (pipeline=False).
+SWEEP = dict(seeds=np.arange(256), over=dict(metrics=True, blackbox=16),
+             kwargs=dict(chunk_steps=64, max_steps=4_000, recycle=True,
+                         batch_worlds=64))
+
+#: SHA-256 of observe() for SEEDS under CONFIGS["hunt_faults"] + OBS_ON.
+GOLDEN_OBS = (
+    "317e110980ba730937aa0591e9111933cac2d520e7ca10f56caad1522c13dbb5")
+
+#: sweep_digest of the SWEEP over CONFIGS["hunt_faults"] + SWEEP["over"].
+GOLDEN_SWEEP = (
+    "c723302d23f7261e764bcc23a0bdf6b8a91c8c6f00254b5d63944ea4bd6037c4")
+
+
 def observe_digest(obs: Dict[str, np.ndarray]) -> str:
     """SHA-256 over an observation dict: every key in sorted order with
     its array's dtype, shape and bytes."""
     h = hashlib.sha256()
-    for key in sorted(obs):
-        a = np.ascontiguousarray(np.asarray(obs[key]))
+    _update(h, obs)
+    return h.hexdigest()
+
+
+def _update(h, arrays: Dict[str, np.ndarray]):
+    for key in sorted(arrays):
+        a = np.ascontiguousarray(np.asarray(arrays[key]))
         h.update(key.encode())
         h.update(a.dtype.str.encode())
         h.update(repr(a.shape).encode())
         h.update(a.tobytes())
+
+
+def sweep_digest(res) -> str:
+    """SHA-256 over a SweepResult: its seeds and bug flags, every
+    observation, the occupancy history and its chunk indices, the coverage
+    ledger (hits, first seen seeds, novelty curve) and ``summary()``."""
+    h = hashlib.sha256()
+    cov = res.coverage
+    _update(h, {"seeds": res.seeds, "bug": res.bug,
+                "n_active_history": res.n_active_history,
+                "n_active_chunks": res.n_active_chunks,
+                "cov_hits": cov.hits, "cov_first_seen": cov.first_seen_seed,
+                "cov_novelty": cov.novelty_curve})
+    _update(h, res.observations)
+    h.update(res.summary().encode())
     return h.hexdigest()

@@ -197,3 +197,17 @@ def eligible_mask(q: EventQueue, paused: torch.Tensor) -> torch.Tensor:
     is_fault_q = (q.meta & (FLAG_FAULT << 6)) != 0
     dst_q = (q.meta >> 16) & 0xFF  # take_small clamps to [0, n_nodes)
     return is_fault_q | ~take_small(paused, dst_q)
+
+
+def insert_metrics(times: torch.Tensor, enable: torch.Tensor,
+                   n_inserted: torch.Tensor):
+    """Insert-path counters of the metrics block: given an insert batch's
+    (W, M) ``times`` and ``enable`` and the (W,) count :func:`push_many`
+    inserted, return ``(n_requested, n_inf_dropped, n_overflow)``, each
+    (W,) int32 — the enabled events, those dropped for a saturated
+    deadline (``INF_TIME``), and those refused by a full queue."""
+    en = enable.to(torch.bool)
+    n_req = en.sum(dim=1, dtype=torch.int32)
+    n_inf = (en & (times.to(torch.int32) >= INF_TIME)).sum(
+        dim=1, dtype=torch.int32)
+    return n_req, n_inf, n_req - n_inf - n_inserted.to(torch.int32)

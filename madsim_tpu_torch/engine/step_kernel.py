@@ -33,6 +33,14 @@ and the handler's rows; ``chip_smoke.py`` (``needed_bytes``) counts those
 bytes for its bound. Sizes are runtime ints under the static maxima below;
 the wrapper raises beyond them.
 
+With ``EngineConfig(metrics=True)`` and ``EngineConfig(blackbox=K)`` the
+kernel also writes what the plain step writes into the metrics block and
+the flight-recorder ring: a few int32 read-modify-writes and one ring
+record per active world and step, straight to device memory (the lanes are
+written only, so they take no tile). Their pointers follow the base leaves
+in the kernel's ``State``, looked up by leaf name (:func:`kernel_pointers`)
+and null when off.
+
 On CPU tensors :func:`run_steps` runs the plain step
 (:meth:`DeviceEngine.step_plain`) instead; on CUDA tensors it always
 launches the kernel, or raises.
@@ -45,6 +53,8 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
+from ..obs.blackbox import RING_FIELDS
+from ..obs.metrics import BLOCK_FIELDS
 from ..ops.threefry import threefry2x32_torch
 from .core import DEFAULT_BLOCK, tree_leaves
 from .raft_actor import WON_WORDS, RaftActor
@@ -55,6 +65,11 @@ launches = 0
 # Static maxima of the kernel (csrc/step_kernel.cu).
 MAX_N, MAX_Q, MAX_L, MAX_P = 8, 256, 64, 16
 MAX_M = MAX_N + 1
+#: The optional leaves the kernel writes, in its State's order after the
+#: base leaves: the metrics block, then the flight-recorder ring (null
+#: pointers when off).
+OPTIONAL_LEAVES = (tuple("metrics." + f for f in BLOCK_FIELDS)
+                   + tuple("blackbox." + f for f in RING_FIELDS))
 #: Shared memory one block may use on sm_90 (227 KB).
 SMEM_MAX = 232_448
 #: The fewest worlds per block a tile plan accepts: one warp.
@@ -202,6 +217,18 @@ def kernel_params(eng):
             int(r.buggy_double_vote)]
 
 
+def kernel_pointers(eng, leaves):
+    """The kernel's State pointers: the base leaves in leaf order, then
+    each of :data:`OPTIONAL_LEAVES`, looked up by name in
+    :meth:`DeviceEngine.state_layout` (0 where the lane is off)."""
+    names = [name for name, _, _ in eng.state_layout()]
+    lane = dict(zip(names, leaves))
+    base = [lane[name].data_ptr() for name in names
+            if name not in OPTIONAL_LEAVES]
+    return base + [lane[name].data_ptr() if name in lane else 0
+                   for name in OPTIONAL_LEAVES]
+
+
 def _aligned(unit: int, *tensors) -> int:
     """``unit`` halved until every tensor's address is a multiple of it."""
     while any(x.data_ptr() % unit for x in tensors):
@@ -211,8 +238,9 @@ def _aligned(unit: int, *tensors) -> int:
 
 def launch_ints(eng, leaves):
     """``(block, ints)`` for ``madsim_step``: the plan's worlds per block,
-    and W, :func:`kernel_params`, then the :func:`tile_plan` with its
-    access widths narrowed to the leaves' alignment."""
+    and W, :func:`kernel_params`, the :func:`tile_plan` with its access
+    widths narrowed to the leaves' alignment, then the optional lanes
+    (metrics on, the kind histogram's width, the ring depth K)."""
     plan = tile_plan(eng.cfg, eng.actor.rcfg.log_cap)
     params = kernel_params(eng)
     lane = dict(zip((name for name, _, _ in eng.state_layout()), leaves))
@@ -226,7 +254,8 @@ def launch_ints(eng, leaves):
         _aligned(plan.log_unit, lane["astate.log_term"],
                  lane["astate.log_cmd"]),
         pay_unit, plan.off_qm, plan.off_dirty, plan.off_commit, plan.off_lt,
-        plan.off_lc]
+        plan.off_lc, int(eng.cfg.metrics), int(eng.actor.num_kinds),
+        int(eng.cfg.blackbox)]
 
 
 def check_leaves(eng, leaves):
@@ -261,7 +290,8 @@ def launch(eng, leaves, k: int = 1):
     if leaves[0].shape[0] == 0:
         return
     lib = _lib()
-    ptrs = (ctypes.c_void_p * len(leaves))(*[x.data_ptr() for x in leaves])
+    addrs = kernel_pointers(eng, leaves)
+    ptrs = (ctypes.c_void_p * len(addrs))(*addrs)
     ints = (ctypes.c_int * len(params))(*params)
     stream = torch.cuda.current_stream(leaves[0].device).cuda_stream
     with torch.cuda.device(leaves[0].device):

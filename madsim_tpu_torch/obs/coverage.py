@@ -1,0 +1,154 @@
+"""The behavior-coverage ledger: the sweep's novelty signal.
+
+The PyTorch counterpart of ``madsim_tpu/obs/coverage.py``. Each retiring
+world's :class:`~madsim_tpu_torch.obs.metrics.MetricsBlock` histograms are
+hashed into one u32 *behavior signature* — every count quantized to its
+power-of-two bucket (``bit_length``), the bucketed columns folded with
+FNV-1a — and the signatures are folded into a K-bucket sketch on the
+device: ``hits`` (worlds per bucket) and ``first_seen`` (the lowest seed id
+per bucket, -1 when empty). Both depend only on the set of folded worlds,
+not on the order of the folds.
+
+torch has no u32 arithmetic: signatures are int64 tensors holding u32
+values, every multiply masked back to 32 bits.
+
+Read-only over the simulation state: nothing here feeds a step.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+#: Default sketch width (buckets).
+DEFAULT_BUCKETS = 256
+
+# FNV-1a 32-bit constants (the signature hash).
+_FNV_SEED = 0x811C9DC5
+_FNV_PRIME = 0x01000193
+_U32 = 0xFFFFFFFF
+
+# "No seed folded into this bucket yet" inside the fold (-1 on the host).
+_NO_SEED = 2**31 - 1
+
+
+def _bit_length_u32(x: torch.Tensor) -> torch.Tensor:
+    """Per-element ``int.bit_length`` of the u32 reading of ``x`` (int64):
+    0→0, 1→1, 2..3→2, 4..7→3, ..."""
+    x = x.to(torch.int64) & _U32
+    n = torch.zeros_like(x)
+    for s in (16, 8, 4, 2, 1):
+        hi = x >> s
+        move = hi > 0
+        n = n + move.to(torch.int64) * s
+        x = torch.where(move, hi, x)
+    return n + (x > 0).to(torch.int64)
+
+
+def behavior_signature(mb) -> torch.Tensor:
+    """(W,) u32 behavior signature (int64) of a batched MetricsBlock: the
+    per-kind histogram, the fault histogram and the drop-cause counters,
+    bucketed to powers of two, FNV-1a-folded in a fixed column order."""
+    cols = [mb.kind_hist[..., j] for j in range(mb.kind_hist.shape[-1])]
+    cols += [mb.fault_hist[..., j] for j in range(mb.fault_hist.shape[-1])]
+    cols += [mb.drop_loss, mb.drop_stale, mb.drop_dead,
+             mb.drop_out_of_time, mb.drop_overflow, mb.drop_inf]
+    h = torch.full(cols[0].shape, _FNV_SEED, dtype=torch.int64,
+                   device=cols[0].device)
+    for c in cols:
+        h = ((h ^ _bit_length_u32(c)) * _FNV_PRIME) & _U32
+    return h
+
+
+def ledger_zeros(n_buckets: int, device=None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A fresh ``(hits, first_seen)`` ledger on ``device``."""
+    return (torch.zeros((n_buckets,), dtype=torch.int32, device=device),
+            torch.full((n_buckets,), -1, dtype=torch.int32, device=device))
+
+
+def _identity(x):
+    return x
+
+
+def fold_retired(hits, first_seen, mb, fold_mask, idx,
+                 reduce_sum=_identity, reduce_min=_identity):
+    """Fold the masked worlds' behavior signatures into the ledger.
+
+    ``fold_mask`` (W,) bool selects the worlds, ``idx`` (W,) their seed
+    ids. Masked-out worlds scatter into a dump row past the K buckets, so
+    the fold has no branch. ``reduce_sum``/``reduce_min`` reduce the
+    per-device bucket vectors over devices; on one device they are the
+    identity. Returns the new ``(hits, first_seen)``.
+    """
+    k = hits.shape[0]
+    bucket = behavior_signature(mb) % k
+    slot = torch.where(fold_mask, bucket, torch.full_like(bucket, k))
+    add = torch.zeros((k + 1,), dtype=torch.int32, device=hits.device)
+    add.scatter_add_(0, slot, torch.ones_like(slot, dtype=torch.int32))
+    add = reduce_sum(add[:k])
+    cand = torch.full((k + 1,), _NO_SEED, dtype=torch.int32,
+                      device=hits.device)
+    cand.scatter_reduce_(0, slot, idx.to(torch.int32), "amin")
+    cand = reduce_min(cand[:k])
+    # first_seen is a minimum seed id, not a temporal first: the fold order
+    # cannot change it.
+    best = torch.minimum(torch.where(first_seen >= 0, first_seen,
+                                     _NO_SEED), cand)
+    first_seen = torch.where(best < _NO_SEED, best, -1).to(torch.int32)
+    return hits + add, first_seen
+
+
+def distinct_count(hits: torch.Tensor) -> torch.Tensor:
+    """Number of non-empty buckets (int32 scalar tensor)."""
+    return (hits > 0).sum(dtype=torch.int32)
+
+
+@dataclasses.dataclass
+class SweepCoverage:
+    """Host-side coverage ledger of one sweep (``SweepResult.coverage``).
+
+    ``novelty_curve[i]`` is the cumulative distinct-behavior count after
+    chunk ``SweepResult.n_active_chunks[i]``. ``distinct_behaviors`` also
+    counts the end-of-sweep fold of worlds still live at exit.
+    """
+
+    n_buckets: int
+    hits: np.ndarray             # (K,) worlds folded per bucket
+    first_seen_seed: np.ndarray  # (K,) lowest seed id in bucket; -1 empty
+    novelty_curve: np.ndarray    # cumulative distinct per executed chunk
+
+    @property
+    def distinct_behaviors(self) -> int:
+        return int(np.count_nonzero(self.hits))
+
+    @property
+    def new_behaviors_per_chunk(self) -> np.ndarray:
+        """Fresh buckets per chunk entry (the curve's derivative)."""
+        c = np.asarray(self.novelty_curve, np.int64)
+        return np.diff(c, prepend=0)
+
+    def to_json(self) -> Dict[str, object]:
+        """Compact JSON-safe record."""
+        curve = [int(x) for x in self.novelty_curve]
+        return {
+            "n_buckets": int(self.n_buckets),
+            "distinct_behaviors": self.distinct_behaviors,
+            "worlds_folded": int(self.hits.sum()),
+            "novelty_first": curve[0] if curve else 0,
+            "novelty_last": curve[-1] if curve else 0,
+            "novelty_chunks": len(curve),
+        }
+
+
+def coverage_from_device(n_buckets: int, hits, first_seen,
+                         novelty: Optional[list]) -> SweepCoverage:
+    """Assemble the host dataclass from the pulled ledger arrays."""
+    return SweepCoverage(
+        n_buckets=int(n_buckets),
+        hits=np.asarray(hits, np.int64),
+        first_seen_seed=np.asarray(first_seen, np.int64),
+        novelty_curve=np.asarray(novelty or [], np.int64),
+    )

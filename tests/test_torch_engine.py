@@ -198,10 +198,10 @@ def test_config_and_init_validation_match_jax():
             J.EngineConfig(**bad)
         with pytest.raises(ValueError):
             T.EngineConfig(**bad)
-    for unported in (dict(metrics=True), dict(blackbox=8),
-                     dict(sequential_insert=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            T.EngineConfig(n_nodes=3, **unported)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        T.EngineConfig(n_nodes=3, sequential_insert=True)
+    # The metrics block and the flight recorder are ported.
+    assert T.EngineConfig(n_nodes=3, metrics=True, blackbox=8).blackbox == 8
     rk, ck = HEADLINE
     je, te = engines(rk, ck)
     bad_rows = [
@@ -221,7 +221,10 @@ def test_config_and_init_validation_match_jax():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    code = ("import sys, madsim_tpu_torch.engine, madsim_tpu_torch._build; "
+    code = ("import sys, madsim_tpu_torch.engine, madsim_tpu_torch._build, "
+            "madsim_tpu_torch.obs.metrics, madsim_tpu_torch.obs.blackbox, "
+            "madsim_tpu_torch.obs.coverage, "
+            "madsim_tpu_torch.parallel.sweep; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'madsim_tpu' or "
             "m.startswith('madsim_tpu.')]; "

@@ -146,7 +146,10 @@ def test_launch_vector_matches_the_kernels_params():
     assert block == plan.block
     assert len(ints) == n_params
     assert ints[0] == 8 and ints[1:12] == step_kernel.kernel_params(eng)
-    assert ints[12:] == [plan.smem_bytes, plan.q_stride, plan.commit_stride,
-                         plan.log_stride, 16, plan.commit_unit, 4, 16,
-                         plan.off_qm, plan.off_dirty, plan.off_commit,
-                         plan.off_lt, plan.off_lc]
+    assert ints[12:25] == [plan.smem_bytes, plan.q_stride,
+                           plan.commit_stride, plan.log_stride, 16,
+                           plan.commit_unit, 4, 16, plan.off_qm,
+                           plan.off_dirty, plan.off_commit, plan.off_lt,
+                           plan.off_lc]
+    # The optional lanes: metrics off, Raft's 7 kinds, no ring.
+    assert ints[25:] == [0, 7, 0]
