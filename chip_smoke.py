@@ -5,13 +5,15 @@ Builds the CUDA step kernel from ``madsim_tpu_torch/csrc`` and drives the
 batched Raft engine — ``DeviceEngine(RaftActor(..), EngineConfig(..))``,
 ``init``, ``run``, ``observe`` — and the bug hunt's seed sweep
 (``madsim_tpu_torch.parallel.sweep.sweep``, ``refill``, ``trace``) through
-it. Phases, in order; any failure
-exits non-zero:
+it, then the compiled families two-phase commit and primary-backup
+(``DeviceEngine(TPCActor(..) | PBActor(..), ..)``) through their kernel
+policies. Phases, in order; any failure exits non-zero:
 
 1. card: name and power limit; uint32 <-> int64 round trip on CUDA tensors;
-2. build: nvcc, with the ptxas register/spill report; fails unless every
-   instantiation ``step_kernel<N>`` (N = 1..8) has a 0-byte stack frame
-   and no spills;
+2. build: one nvcc per source (``step_raft.cu``, ``step_tpc.cu``,
+   ``step_pb.cu``), all started together, with the ptxas register/spill
+   report; fails unless every instantiation ``step_kernel<A, N>`` (Raft
+   and pb N = 1..8, tpc N = 2..8) has a 0-byte stack frame and no spills;
 3. Threefry on the card: Random123 known answers and bitwise agreement with
    the plain torch version on 2^20 keys and counters;
 4. kernel vs plain step, whole runs: six configurations at W=4096 (two of
@@ -22,12 +24,16 @@ exits non-zero:
    kernel (the hunt with kill/restart, the overflowing queue with a ring of
    5, sends saturating at INF_TIME, the odd widths) and the full-W hunt
    with both, each also held to a run with the lanes off on every other
-   leaf; then one step from a state whose frozen worlds were never checked
-   by the invariant, with the lanes off and on;
+   leaf; the families: tpc_crosscheck, pb_crosscheck and pb_hunt at
+   W=4096 and at their main path's W=65,536, tpc with
+   its coordinator killed and restarted, tpc at n = 8, and pb_hunt with
+   the metrics block and a 64-deep ring (held also to its lanes-off run);
+   then one step from a state whose frozen worlds were never checked by
+   the invariant, with the lanes off and on;
 5. held to JAX without JAX: observe() digests of seeds 0..63 equal the
    JAX-derived constants in ``madsim_tpu_torch/engine/golden.py``, with
    the lanes off and on, and so does the SweepResult of a small recycled
-   sweep with both on;
+   sweep with both on, and the families' three deployments;
 6. the main path at full size: the headline deployment at W=524,288 and the
    bug hunt at W=65,536, init and run timed apart (best of 3), the kernel's
    launches counted; the kernel's device time per step over the same
@@ -35,7 +41,10 @@ exits non-zero:
    least-traffic count beside it), the share of active worlds in each
    timed chunk, and the run's device idle share; then the same
    timing at 64, 128 and 256 worlds per block (where the tiles fit), each
-   run's observations held to the main run's;
+   run's observations held to the main run's; then each family deployment
+   at W=65,536 the same way (init and run best of 3, the launches, the
+   kernel's time per step over the run's own launches against the bytes
+   the family's steps need, the active share by chunk, the plain step);
 7. the bug hunt's sweep at full width (65,536 seeds), ``sweep(...,
    pipeline=False)`` as bench.py's legs run it: (a) recycled through 8,192
    slots, stopping at the first bug, timed, with its chunks' kernel device
@@ -45,10 +54,13 @@ exits non-zero:
    monolithic hunt with a 64-deep ring: the bug vector of the off run, a
    failing seed's decoded ring the suffix of ``trace()`` on the card, and
    the kernel's time and needed-bytes bound with the ring and the metrics
-   off and on, and the state bytes per world they take.
+   off and on, and the state bytes per world they take; (d) the pb hunt
+   recycled to its first bug over 65,536 seeds, whose first failing seed
+   fails again in an independent ``init`` + ``run``.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
-line before it lists each kernel with its launches and times.
+line before it lists each kernel route (the step kernel with Raft's, tpc's
+and pb's policy) with its launches and times.
 
 Usage: python3 chip_smoke.py   (from the root of the repository)
 """
@@ -64,6 +76,9 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 W_COMPARE = 4096
+# Worlds of each compiled family's deployment at full size (bench.py's
+# crosscheck legs run at most 1,024; 65,536 is the hunt's width).
+W_FAMILY = 65_536
 COMPARE_EVERY_STEP = 64
 TIMED_STEPS = 100
 # A sleep the device runs while the host queues a chunk of timed launches
@@ -131,6 +146,7 @@ def main() -> int:
         RaftActor, RaftDeviceConfig, golden, step_kernel)
     from madsim_tpu_torch.engine.core import (tree_leaves, tree_paths,
                                               tree_unflatten)
+    from madsim_tpu_torch.engine.families import family
     from madsim_tpu_torch.obs.blackbox import (decode_ring,
                                                ring_matches_trace,
                                                rings_from_observations)
@@ -156,31 +172,44 @@ def main() -> int:
     log("[1 card] uint32 <-> int64 round trip on CUDA: ok")
 
     # ---- 2. build ---------------------------------------------------------
-    took = _build.build("step_kernel")
-    log(f"[2 build] step_kernel.cu: nvcc {took:.1f} s")
-    report = _build.build_log.get("step_kernel", "")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            log(f"[2 build] step_kernel.cu: {line.strip()}")
-    # One instantiation per node count the kernel takes, each without
-    # local memory.
-    ptx = ptxas_report(report, "step_kernel")
-    check(len(ptx) == step_kernel.MAX_N
-          and all(len(f) == 4 for f in ptx.values()),
-          f"ptxas reported {len(ptx)} step_kernel instantiations, expected "
-          f"{step_kernel.MAX_N} with registers, stack frame and spills")
-    for name, f in ptx.items():
-        check(f["stack"] == 0 and f["spill_stores"] == 0
-              and f["spill_loads"] == 0,
-              f"{name} uses local memory: {f['stack']} bytes stack frame, "
-              f"{f['spill_stores']} bytes spill stores, "
-              f"{f['spill_loads']} bytes spill loads")
-    main_regs = [f["registers"] for name, f in ptx.items() if "ILi3E" in name]
-    log(f"[2 build] step_kernel<N> for N=1..{step_kernel.MAX_N}: 0 bytes "
-        f"stack frame and no spills in each; registers "
-        f"{min(f['registers'] for f in ptx.values())}-"
-        f"{max(f['registers'] for f in ptx.values())}, "
-        f"{main_regs[0] if main_regs else '?'} at N=3 (the main path)")
+    # One nvcc per source, all started together: the kernel with Raft's,
+    # two-phase commit's and primary-backup's policy.
+    sources = {f.name: f.source for f in step_kernel.FAMILIES.values()}
+    least = {f.name: f.least_n for f in step_kernel.FAMILIES.values()}
+    t0 = time.perf_counter()
+    took = _build.build_all(list(sources.values()))
+    log(f"[2 build] nvcc of {', '.join(s + '.cu' for s in sources.values())}"
+        f" in parallel: " + ", ".join(f"{s} {took[s]:.1f} s"
+                                      for s in sources.values())
+        + f"; wall {time.perf_counter() - t0:.1f} s")
+    regs = {}
+    for fam, src in sources.items():
+        report = _build.build_log.get(src, "")
+        for line in report.splitlines():
+            if "error" in line:
+                log(f"[2 build] {src}.cu: {line.strip()}")
+        # One instantiation per node count the family takes, each without
+        # local memory.
+        least_n = least[fam]
+        want = step_kernel.MAX_N - least_n + 1
+        ptx = ptxas_report(report, "step_kernel")
+        check(len(ptx) == want and all(len(f) == 4 for f in ptx.values()),
+              f"ptxas reported {len(ptx)} step_kernel instantiations in "
+              f"{src}.cu, expected {want} with registers, stack frame and "
+              f"spills")
+        for name, f in ptx.items():
+            check(f["stack"] == 0 and f["spill_stores"] == 0
+                  and f["spill_loads"] == 0,
+                  f"{name} uses local memory: {f['stack']} bytes stack "
+                  f"frame, {f['spill_stores']} bytes spill stores, "
+                  f"{f['spill_loads']} bytes spill loads")
+        by_n = {int(re.search(r"Li(\d+)E", name)[1]): f["registers"]
+                for name, f in ptx.items()}
+        regs[fam] = by_n
+        log(f"[2 build] {src}.cu: step_kernel<{fam}, N> for N={least_n}.."
+            f"{step_kernel.MAX_N}: 0 bytes stack frame and no spills in "
+            f"each; registers by N " + ", ".join(
+                f"{n}: {r}" for n, r in sorted(by_n.items())))
 
     # ---- 3. Threefry on the card ------------------------------------------
     kat = [((0x00000000, 0x00000000), (0x00000000, 0x00000000),
@@ -292,9 +321,9 @@ def main() -> int:
     by_name = {c[0]: c for c in compare_cfgs}
 
     def with_lanes(name, new_name, expect, **over):
-        _n, (rk, ck), faults, w, max_steps, _e = by_name[name]
-        return (new_name, (rk, dict(ck, **over)), faults, w, max_steps,
-                expect)
+        _n, cfgs, faults, w, max_steps, _e = by_name[name]
+        return (new_name, (*cfgs[:-1], dict(cfgs[-1], **over)), faults, w,
+                max_steps, expect)
 
     compare_cfgs += [
         with_lanes("hunt_kill_restart", "hunt_kill_restart+obs",
@@ -306,12 +335,68 @@ def main() -> int:
         with_lanes("n5_q30_p12", "n5_q30_p12+obs", "m_drop_loss", **on),
         with_lanes("main_hunt", "main_hunt+obs", "bug", **on),
     ]
-    max_abs_err = 0.0
-    for name, (rk, ck), faults, w, max_steps, expect in compare_cfgs:
+    # The compiled families through their kernel policies: bench.py's
+    # crosscheck legs and the pb hunt (golden.FAMILY_CONFIGS), tpc with
+    # its coordinator killed and restarted (tests/test_tpc_actor.py), tpc
+    # at n = 8 (the template's widest instantiation), and the pb hunt with
+    # the metrics block and a 64-deep ring, held also to its lanes-off run.
+    # The three deployments run both at W_COMPARE and, as main_*, at the
+    # main path's W_FAMILY (phase 6 and the sweep of phase 7 (d)).
+    # A family's cfgs are (family, config kwargs, EngineConfig kwargs).
+    fam_compare = [
+        (prefix + name, (fam, ak, ck),
+         None if faults is None else np.asarray(faults, np.int32),
+         w, max_steps, "bug" if name != "pb_crosscheck" else None)
+        for prefix, w in (("", W_COMPARE), ("main_", W_FAMILY))
+        for name, (fam, ak, ck, faults, max_steps)
+        in golden.FAMILY_CONFIGS.items()]
+    tpc_ak, tpc_ck = golden.FAMILY_CONFIGS["tpc_crosscheck"][1:3]
+    fam_compare += [
+        ("tpc_kill_restart", ("tpc", tpc_ak, dict(tpc_ck, stop_on_bug=False)),
+         np.array([[200_000, FAULT_KILL, 0, 0],
+                   [500_000, FAULT_RESTART, 0, 0]], np.int32),
+         W_COMPARE, 5_000, "bug"),
+        ("tpc_n8", ("tpc", dict(n=8, n_txns=6),
+                    dict(n_nodes=8, outbox_cap=9, queue_cap=64,
+                         t_limit_us=1_500_000, loss_rate=0.1)),
+         None, W_COMPARE, 5_000, "aborts"),
+        # Off the deployments' widths, under every fault op: 4-byte queue
+        # accesses (Q=30), element-wise payload rows (P=12), other node
+        # counts, a short pb log.
+        ("tpc_n3_q30_p12", ("tpc", dict(n=3, n_txns=5, no_vote_num=100,
+                                         buggy_presumed_commit=True),
+                            dict(n_nodes=3, outbox_cap=4, queue_cap=30,
+                                 payload_words=12, t_limit_us=1_500_000,
+                                 loss_rate=0.2, stop_on_bug=False)),
+         fault_mix, W_COMPARE, 5_000, "bug"),
+        ("pb_n5_q30_p12", ("pb", dict(n=5, n_writes=5, log_cap=6,
+                                       buggy_commit_early=True),
+                           dict(n_nodes=5, outbox_cap=6, queue_cap=30,
+                                payload_words=12, t_limit_us=1_500_000,
+                                loss_rate=0.2, stop_on_bug=False)),
+         fault_mix, W_COMPARE, 5_000, "overflow"),
+    ]
+    compare_cfgs += fam_compare
+    by_name = {c[0]: c for c in compare_cfgs}
+    compare_cfgs.append(with_lanes("pb_hunt", "pb_hunt+obs", "m_drop_loss",
+                                   **on))
+    fam_err = {}
+
+    def make_engine(cfgs, **over):
+        """An engine on the card from (RaftDeviceConfig kwargs,
+        EngineConfig kwargs) or (family, config kwargs, EngineConfig
+        kwargs)."""
+        fam, ak, ck = cfgs if len(cfgs) == 3 else ("raft", *cfgs)
+        acls, ccls = family(fam).load()
+        return DeviceEngine(acls(ccls(**ak)), EngineConfig(**dict(ck, **over)),
+                            device=dev)
+
+    for name, cfgs, faults, w, max_steps, expect in compare_cfgs:
         seeds = np.arange(w)
         t0 = time.perf_counter()
-        eng = DeviceEngine(RaftActor(RaftDeviceConfig(**rk)),
-                           EngineConfig(**ck), device=dev)
+        ck = cfgs[-1]
+        eng = make_engine(cfgs)
+        fam = step_kernel.family_of(eng.actor).name
         ks_state = eng.init(seeds, faults=faults)
         pl_state = eng.init(seeds, faults=faults)
         first, err = diff(ks_state, pl_state)
@@ -324,12 +409,12 @@ def main() -> int:
             steps += 1
             if steps <= COMPARE_EVERY_STEP or steps % 64 == 0:
                 first, err = diff(ks_state, pl_state)
-                max_abs_err = max(max_abs_err, err)
                 check(first is None, f"{name}: kernel and plain step differ "
                       f"first on leaf {first} after step {steps} "
                       f"(max abs err {err})")
+                fam_err[fam] = max(fam_err.get(fam, 0.0), err)
         first, err = diff(ks_state, pl_state)
-        max_abs_err = max(max_abs_err, err)
+        fam_err[fam] = max(fam_err.get(fam, 0.0), err)
         check(first is None, f"{name}: kernel and plain step differ at the "
               f"end on leaf {first}")
         obs = eng.observe(ks_state)
@@ -340,10 +425,7 @@ def main() -> int:
         if ck.get("metrics") or ck.get("blackbox"):
             # The lanes are invisible: the same steps with both off leave
             # every other leaf as the kernel's run with them on.
-            eng_off = DeviceEngine(
-                RaftActor(RaftDeviceConfig(**rk)),
-                EngineConfig(**dict(ck, metrics=False, blackbox=0)),
-                device=dev)
+            eng_off = make_engine(cfgs, metrics=False, blackbox=0)
             off = eng_off.run_steps(eng_off.init(seeds, faults=faults),
                                     steps)
             on_leaves = dict(zip(tree_paths(ks_state),
@@ -353,11 +435,12 @@ def main() -> int:
                       f"{name}: the metrics or ring lanes changed leaf "
                       f"{path}")
             del off
-        log(f"[4 compare] {name}: W={w} {steps} steps bitwise equal "
-            f"(bug {int(obs['bug'].sum())}, overflow "
-            f"{int(obs['overflow'].sum())}, elected "
-            f"{int(obs['leader_elected'].sum())}) in "
-            f"{time.perf_counter() - t0:.1f} s")
+        log(f"[4 compare] {name} ({fam}): W={w} {steps} steps bitwise "
+            f"equal (bug {int(obs['bug'].sum())}, overflow "
+            f"{int(obs['overflow'].sum())}"
+            + (f", elected {int(obs['leader_elected'].sum())}"
+               if fam == "raft" else "")
+            + f") in {time.perf_counter() - t0:.1f} s")
         del ks_state, pl_state
 
     def frozen_step(eng, w, faults):
@@ -411,7 +494,7 @@ def main() -> int:
     # With the ring on, each changed world records its raise as a marker.
     _name, (rk, ck), faults, w, _m, _e = by_name["fault_mix"]
     for lanes in ({}, dict(metrics=True, blackbox=8)):
-        max_abs_err = max(max_abs_err, frozen_step(
+        fam_err["raft"] = max(fam_err["raft"], frozen_step(
             DeviceEngine(RaftActor(RaftDeviceConfig(**rk)),
                          EngineConfig(**ck, **lanes), device=dev),
             w, faults))
@@ -451,6 +534,19 @@ def main() -> int:
         f"({sp['kwargs']}, {sp['over']}): SweepResult digest equals the "
         f"JAX-derived constant ({len(res.failing_seeds)} failing, "
         f"{res.loop_stats['chunks']} chunks)")
+    for name, (fam, ak, ck, faults, max_steps) in \
+            golden.FAMILY_CONFIGS.items():
+        eng = make_engine((fam, ak, ck))
+        fa = None if faults is None else np.asarray(faults, np.int32)
+        obs = eng.observe(eng.run(eng.init(golden.SEEDS, faults=fa),
+                                  max_steps))
+        digest = golden.observe_digest(obs)
+        check(digest == golden.GOLDEN_FAMILIES[name],
+              f"{name}: observe() digest {digest} != JAX-derived "
+              f"{golden.GOLDEN_FAMILIES[name]}")
+        log(f"[5 golden] {name} ({fam}): observe() digest equals the "
+            f"JAX-derived constant ({int(obs['bug'].sum())} of 64 seeds "
+            f"failing)")
     # ---- 6. the main path at full size ------------------------------------
     engines = {name: DeviceEngine(RaftActor(RaftDeviceConfig(**rk)),
                                   EngineConfig(**ck), device=dev)
@@ -498,14 +594,14 @@ def main() -> int:
     # Outside the counted main path: the kernel's device time over the
     # run's own launches, the plain step's time, and the bytes each step
     # must move at the least.
-    def device_ms(eng, w, total):
+    def device_ms(eng, w, total, faults=None):
         """Device ms of each chunk of TIMED_STEPS launches, over the
         ``total`` launches a run made from a fresh init. Each chunk is
         queued behind a sleeping kernel, and the check that the chunk's
         first event had not run when its last launch was queued proves
         that its launches ran back to back: the event pair holds the
         kernels and the gaps between them, not the host's launch cost."""
-        state = eng.init(np.arange(w))
+        state = eng.init(np.arange(w), faults=faults)
         leaves = tree_leaves(state)
         chunks = []
         while sum(k for k, _ in chunks) < total:
@@ -522,11 +618,11 @@ def main() -> int:
             chunks.append((k, e0.elapsed_time(e1)))
         return chunks
 
-    def plain_ms_per_step(eng, w, n=3):
+    def plain_ms_per_step(eng, w, n=3, faults=None):
         """Event pair over n plain steps; the plain step syncs with the
         host inside (it skips branches no world takes), so this is its
         wall time on the device's clock."""
-        state = eng.step_plain(eng.init(np.arange(w)))  # warm-up
+        state = eng.step_plain(eng.init(np.arange(w), faults=faults))
         torch.cuda.synchronize()
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
@@ -618,10 +714,10 @@ def main() -> int:
             out.append((step_b + lane_bytes(before, state)).sum())
         return [int(x) for x in torch.stack(out).cpu()]
 
-    def active_shares(eng, w, total):
+    def active_shares(eng, w, total, faults=None):
         """Mean share of active worlds over each chunk of TIMED_STEPS of the
         run's ``total`` steps, replayed from a fresh init."""
-        state = eng.init(np.arange(w))
+        state = eng.init(np.arange(w), faults=faults)
         counts = []
         for _ in range(total):
             counts.append(state.active.sum())
@@ -711,6 +807,130 @@ def main() -> int:
             times.append(f"B={block} {per_step:.4f}")
         log(f"[6 blocks] {name}: kernel ms/step over the run's "
             f"{r['run_launches']} launches: " + ", ".join(times))
+    # ---- 6, the compiled families: each deployment at full size ----------
+    def family_needed_bytes(eng, w, total, faults):
+        """Bytes each of a family run's ``total`` steps needs, from this
+        run's state: per active world the engine's part of
+        :func:`needed_bytes` (the queue's time lane, the popped meta word,
+        or the meta lane where a node is paused, the payload row, the
+        scalar lanes and the net model); per frozen world its flags and
+        depth lanes; per world whose bug flag is not yet set, what the
+        invariant reads (tpc: the N x T decision table; pb: committed_max,
+        and past it the views, the primary's log length, and the log row
+        and committed_cmd over the committed prefix); per delivered event
+        the handler's reads (tpc: decided, decision, voted and votes_yes at
+        the txn, 7 B; pb: the node's view, log_len, commit and wd_epoch,
+        8 B); the actor lanes' bytes the step changed, written once; and
+        the metrics and ring lanes as :func:`lane_bytes` counts them."""
+        cfg, fam = eng.cfg, step_kernel.family_of(eng.actor).name
+        n, q, p = cfg.n_nodes, cfg.queue_cap, cfg.payload_words
+        active = (4 * q + 4 + 2 * p + n + 2 + 12 + 12
+                  + 2 * (1 + 4 + 4 + 4 + 4) + 1 + 4 + 4)
+        frozen = 1 + 4 + 1
+        state = eng.init(np.arange(w), faults=faults)
+        out = []
+        for _ in range(total):
+            a0 = {k: x.clone() for k, x in state.astate.items()}
+            act, bug0 = state.active.clone(), state.bug.clone()
+            deliv0 = state.delivered.clone()
+            meta_b = 4 * (q - 1) * state.paused.any(1)
+            if fam == "tpc":
+                inv = n * eng.actor.tcfg.n_txns
+                handler = 7
+            else:
+                cm = a0["committed_max"].to(torch.int64)
+                lim = cm.clamp(0, eng.actor.pcfg.log_cap)
+                inv = 2 + (cm > 0) * (2 * n + 2 + 4 * lim)
+                handler = 8
+            before = lanes_of(state)
+            eng.run_steps(state, 1)
+            written = sum(
+                (x != a0[k]).reshape(w, -1).sum(1) * x.element_size()
+                for k, x in state.astate.items())
+            step_b = (torch.where(act, active + meta_b, frozen)
+                      + inv * ~bug0
+                      + handler * (state.delivered != deliv0)
+                      + written + lane_bytes(before, state))
+            out.append(step_b.sum())
+        return [int(x) for x in torch.stack(out).cpu()]
+
+    fam_results, fam_launches = {}, {}
+    for name, (fam, ak, ck, faults, max_steps) in \
+            golden.FAMILY_CONFIGS.items():
+        eng = make_engine((fam, ak, ck))
+        fa = None if faults is None else np.asarray(faults, np.int32)
+        w = W_FAMILY
+        step_kernel.launches = 0
+        best_init = best_run = float("inf")
+        for rep in range(4):  # rep 0 warms up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = eng.init(np.arange(w), faults=fa)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            n0 = step_kernel.launches
+            state = eng.run(state, max_steps)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if rep:
+                best_init = min(best_init, t1 - t0)
+                best_run = min(best_run, t2 - t1)
+        launched = step_kernel.launches
+        fam_launches[fam] = fam_launches.get(fam, 0) + launched
+        steps_run = launched - n0
+        obs = eng.observe(state)
+        del state
+        check(launched > 0, f"{name}: the step kernel never launched")
+        check(not obs["active"].any(), f"{name}: worlds left active")
+        check(obs["bug"].any() == (name != "pb_crosscheck"),
+              f"{name}: {int(obs['bug'].sum())} failing worlds, against "
+              f"the deployment's expectation")
+        n0 = step_kernel.launches
+        shares = active_shares(eng, w, steps_run, fa)
+        check(step_kernel.launches - n0 == steps_run,
+              f"{name}: {step_kernel.launches - n0} launches for "
+              f"{steps_run} steps")
+        chunks = device_ms(eng, w, steps_run, fa)
+        needed = family_needed_bytes(eng, w, steps_run, fa)
+        busy = sum(ms for _k, ms in chunks)
+        r = dict(w=w, kernel_ms=busy / steps_run,
+                 needed_bytes=sum(needed) / steps_run,
+                 plain_ms=plain_ms_per_step(eng, w, faults=fa),
+                 launches=launched)
+        r["bound_ms"] = r["needed_bytes"] / HBM_BYTES_PER_S * 1e3
+        fam_results[name] = r
+        plan = step_kernel.engine_plan(eng)
+        state_b = sum(int(np.prod(shape)) * torch.empty(
+            0, dtype=dtype).element_size()
+            for _n, dtype, shape in eng.state_layout())
+        bugs = np.flatnonzero(obs["bug"])
+        log(f"[6 family] {name} ({fam}): tile plan {plan.block} worlds per "
+            f"block, {plan.smem_bytes} B shared memory (queue tiles only), "
+            f"{state_b} state B/world")
+        log(f"[6 family] {name}: W={w} init {best_init * 1e3:.2f} ms, run "
+            f"{best_run * 1e3:.2f} ms (best of 3); "
+            f"{w / (best_init + best_run):.0f} worlds/s incl. init, "
+            f"{w / best_run:.0f} run only; {steps_run} launches per run "
+            f"(max world steps {int(obs['steps'].max())}, mean "
+            f"{float(obs['steps'].mean()):.1f}), "
+            f"{best_run * 1e3 / steps_run:.4f} ms/step wall; {launched} "
+            f"launches on this path (4 runs)")
+        log(f"[6 family] {name}: kernel device time over the run's "
+            f"{steps_run} launches {busy:.3f} ms = {r['kernel_ms']:.4f} "
+            f"ms/step against a bound of {r['bound_ms']:.4f} ms for the "
+            f"bytes its steps need ({r['needed_bytes'] / 1e6:.2f} MB/step; "
+            f"share {r['bound_ms'] / r['kernel_ms']:.3f}); device idle "
+            f"share of the run {1 - busy / (best_run * 1e3):.3f}; plain "
+            f"step {r['plain_ms']:.3f} ms (no yardstick)")
+        log(f"[6 family] {name}: kernel ms/step by chunk of {TIMED_STEPS} "
+            f"launches: " + ", ".join(f"{ms / k:.4f}" for k, ms in chunks))
+        log(f"[6 family] {name}: active-world share by chunk of "
+            f"{TIMED_STEPS} launches: " + ", ".join(f"{a:.4f}"
+                                                    for a in shares))
+        log(f"[6 family] {name}: bugs {len(bugs)}"
+            + (f", first failing seed {int(bugs[0])}" if len(bugs) else "")
+            + f"; overflow {int(obs['overflow'].sum())}")
+
     # ---- 7. the bug hunt's sweep at full width -----------------------------
     # The bench's bug-hunt legs (bench.py bench_time_to_first_bug) on the
     # hunt's 65,536 seeds: (a) the recycled hunt, (b) position
@@ -874,22 +1094,79 @@ def main() -> int:
         f"{off_ms:.4f}: " + ", ".join(
             f"{label} {lane_ms[label][0] / off_ms - 1:+.3f}"
             for label, _e in lane_cases[1:]))
+    # (d) the pb hunt (tests/test_pb_actor.py's, golden.FAMILY_CONFIGS)
+    # through the recycled first-bug sweep over 65,536 seeds; its first
+    # failing seed fails again in an independent init + run.
+    fam, ak, ck, faults, max_steps = golden.FAMILY_CONFIGS["pb_hunt"]
+    fa = np.asarray(faults, np.int32)
+    eng_pb = make_engine((fam, ak, ck))
+    seeds = np.arange(W_FAMILY)
+    leg_d = dict(chunk_steps=64, max_steps=max_steps, stop_on_first_bug=True,
+                 recycle=True, batch_worlds=8192, pipeline=False, faults=fa)
+    sweep(None, eng_pb.cfg, seeds, engine=eng_pb, **leg_d)  # warm-up
+    step_kernel.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_d = sweep(None, eng_pb.cfg, seeds, engine=eng_pb, **leg_d)
+    torch.cuda.synchronize()
+    wall_d = time.perf_counter() - t0
+    pb_sweep_launches = step_kernel.launches
+    fam_launches["pb"] += pb_sweep_launches
+    check(pb_sweep_launches > 0, "pb sweep: the step kernel never launched")
+    check(res_d.failing_seeds, "pb sweep: no bug found")
+    first = int(res_d.failing_seeds[0])
+    alone = eng_pb.observe(eng_pb.run(eng_pb.init(np.array([first]),
+                                                  faults=fa), max_steps))
+    check(bool(alone["bug"][0]), f"pb sweep: seed {first} does not fail "
+          f"in an independent init + run")
+    admitted = int((res_d.observations["steps"] > 0).sum())
+    chunk_ms = chunk_device_ms(eng_pb)
+    res_t = sweep(None, eng_pb.cfg, seeds, engine=eng_pb, **leg_d)
+    check(res_t.failing_seeds == res_d.failing_seeds,
+          "pb sweep: the timed replay found other seeds")
+    ls = res_d.loop_stats
+    log(f"[7 sweep d] pb_hunt recycled, {W_FAMILY} seeds, batch 8192, "
+        f"chunks of 64, stop at the first bug: wall {wall_d * 1e3:.2f} ms, "
+        f"{admitted} seeds admitted = {admitted / wall_d:.0f} seeds/s; "
+        f"failing {res_d.failing_seeds[:8]} ({len(res_d.failing_seeds)}); "
+        f"seed {first} fails again alone (bug at "
+        f"{int(alone['bug_time_us'][0])} us); world_utilization "
+        f"{res_d.world_utilization:.4f}; chunks {ls['chunks']}, dispatches "
+        f"{ls['dispatches']}; step kernel launches {pb_sweep_launches}, "
+        f"device time {sum(chunk_ms):.3f} ms, device idle share "
+        f"{1 - sum(chunk_ms) / (wall_d * 1e3):.3f}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(card)
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "step_kernel",
         "route": "cuda",
-        "source": "madsim_tpu_torch/csrc/step_kernel.cu",
+        "source": "madsim_tpu_torch/csrc/step_raft.cu",
         "replaces": "madsim_tpu/engine/pallas_step.py:132",
         "launches": main_launches + sweep_launches,
-        "max_abs_err": max_abs_err,
+        "max_abs_err": fam_err["raft"],
         "ms": hl["kernel_ms"],
         "plain_ms": hl["plain_ms"],
         "bound_ms": hl["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
-    }]}))
+    }]
+    for fam, main in (("tpc", "tpc_crosscheck"), ("pb", "pb_crosscheck")):
+        r = fam_results[main]
+        kernels.append({
+            "name": f"step_kernel:{fam}",
+            "route": "cuda",
+            "source": f"madsim_tpu_torch/csrc/step_{fam}.cu",
+            "replaces": "madsim_tpu/engine/pallas_step.py:132",
+            "launches": fam_launches[fam],
+            "max_abs_err": fam_err[fam],
+            "ms": r["kernel_ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+        })
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,7 +5,8 @@ A package of its own beside ``madsim_tpu`` (the JAX reference): it imports
 ``torch`` and ``numpy`` and nothing of JAX or of ``madsim_tpu``. Each module
 mirrors the JAX module of the same name and reproduces its results bit for
 bit; the engine's step runs on an NVIDIA GPU as one hand-written CUDA kernel
-(``csrc/step_kernel.cu``), built with ``nvcc`` at first use.
+(``csrc/step_kernel.cuh``, with a policy per actor family), built with
+``nvcc`` at first use.
 
 Usage::
 

@@ -3,9 +3,11 @@
 Each ``madsim_tpu_torch/csrc/<name>.cu`` compiles with ``nvcc`` into a
 shared library with a plain C interface, ``.kernel_build/<name>-<hash>.so``
 at the root of the checkout, which :func:`load` opens with ``ctypes``. The
-hash covers the source and the flags, so an edited source rebuilds and an
-unchanged one is reused. No PyTorch headers, no ninja: a build takes
-seconds.
+hash covers the source, the ``csrc/`` headers it includes (directly or
+through another header) and the flags, so an edited source or header
+rebuilds the libraries that include it and reuses the others. No
+PyTorch headers, no ninja. :func:`build_all` runs one nvcc per source, all
+started together.
 
 A failed build raises :class:`BuildError` with nvcc's output; nothing falls
 back to another implementation.
@@ -15,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -51,9 +54,27 @@ def nvcc_path() -> str:
                      "CUDA toolkit is installed")
 
 
+def includes(path: Path) -> set:
+    """The ``csrc/`` headers that ``path`` includes as ``#include "..."``,
+    directly or through another of them."""
+    found, todo = set(), [path]
+    while todo:
+        text = todo.pop().read_text()
+        for inc in re.findall(r'^\s*#\s*include\s+"([^"]+)"', text, re.M):
+            header = CSRC / inc
+            if header not in found:
+                found.add(header)
+                todo.append(header)
+    return found
+
+
 def library_path(name: str) -> Path:
+    source = CSRC / f"{name}.cu"
     h = hashlib.sha256()
-    h.update((CSRC / f"{name}.cu").read_bytes())
+    h.update(source.read_bytes())
+    for header in sorted(includes(source)):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
@@ -67,25 +88,43 @@ def build(name: str) -> float:
     """Compile ``csrc/<name>.cu`` unless it is built already. Returns the
     seconds it took (0.0 when already built). nvcc's output is kept beside
     the library, so :data:`build_log` holds it either way."""
-    out = library_path(name)
-    if out.exists():
-        log = out.with_suffix(".log")
-        build_log[name] = log.read_text() if log.exists() else ""
-        return 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(CSRC / f"{name}.cu")],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
-    build_log[name] = proc.stdout
-    if proc.returncode != 0:
-        raise BuildError(f"nvcc failed on {name}.cu (rc {proc.returncode}):"
-                         f"\n{proc.stdout}")
-    out.with_suffix(".log").write_text(proc.stdout)
-    os.replace(tmp, out)
-    return time.perf_counter() - t0
+    return build_all([name])[name]
+
+
+def build_all(names) -> Dict[str, float]:
+    """Compile each ``csrc/<name>.cu`` that is not built yet, one nvcc
+    process per source, all started together; returns the seconds each
+    took (0.0 when already built). Raises :class:`BuildError` with nvcc's
+    output if any build fails, after every process has ended."""
+    took, procs = {}, {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            log = out.with_suffix(".log")
+            build_log[name] = log.read_text() if log.exists() else ""
+            took[name] = 0.0
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (time.perf_counter(), tmp, subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+             str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (t0, tmp, proc) in procs.items():
+        text, _ = proc.communicate()
+        took[name] = time.perf_counter() - t0
+        build_log[name] = text
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {name}.cu (rc {proc.returncode}):"
+                          f"\n{text}")
+            continue
+        out = library_path(name)
+        out.with_suffix(".log").write_text(text)
+        os.replace(tmp, out)
+    if failed:
+        raise BuildError("\n".join(failed))
+    return took
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -28,9 +28,27 @@ from .lanes import PACKED, WIDE, Lanes
 from .queue import INF_TIME, Event
 from .raft_actor import RaftActor, RaftDeviceConfig
 
+# The compiled families (tpc, pb) resolve lazily, as in the JAX package:
+# their modules import the actor compiler (madsim_tpu_torch.actorc), which
+# builds on the engine's submodules, so eager imports here would close an
+# import cycle whenever actorc is imported first.
+_LAZY = {"TPCActor": ".tpc_actor", "TPCDeviceConfig": ".tpc_actor",
+         "PBActor": ".pb_actor", "PBDeviceConfig": ".pb_actor"}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        return getattr(importlib.import_module(_LAZY[name], __name__),
+                       name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = [
     "DeviceEngine", "EngineConfig", "Event", "Outbox", "WorldState",
-    "RaftActor", "RaftDeviceConfig",
+    "RaftActor", "RaftDeviceConfig", "PBActor", "PBDeviceConfig",
+    "TPCActor", "TPCDeviceConfig",
     "Lanes", "PACKED", "WIDE",
     "state_from_numpy", "state_to_numpy",
     "FAULT_KILL", "FAULT_RESTART", "FAULT_CLOG_NODE", "FAULT_UNCLOG_NODE",

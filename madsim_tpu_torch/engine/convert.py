@@ -14,28 +14,24 @@ import numpy as np
 import torch
 
 from .core import EngineConfig, WorldState, tree_leaves, tree_unflatten
-from .queue import EventQueue
-from .rng import DevRng
 
 
-def state_template(actor) -> WorldState:
-    """A :class:`WorldState` whose leaves are placeholders — the structure
-    :func:`state_from_numpy` fills."""
-    nleaf = len(actor.state_type._fields)
-    return WorldState(
-        now=0, queue=EventQueue(0, 0, 0), rng=DevRng(0, 0, 0), alive=0,
-        gen=0, paused=0, clog_node=0, clog_link=0,
-        astate=actor.state_type(*([0] * nleaf)), active=0, steps=0,
-        delivered=0, dropped=0, overflow=0, qdepth=0, qmax=0, bug=0,
-        bug_time=0, lat_min=0, lat_max=0, loss=0)
+def state_template(actor, cfg: EngineConfig) -> WorldState:
+    """A one-world :class:`WorldState` of ``actor`` under ``cfg``, built on
+    the CPU — the structure :func:`state_from_numpy` fills (NamedTuple
+    actor states and the dict states of compiled actors alike)."""
+    from .core import DeviceEngine
+
+    return DeviceEngine(actor, cfg, device="cpu").init(np.zeros(1, np.uint64))
 
 
 def state_from_numpy(leaves: List[np.ndarray], cfg: EngineConfig, actor,
                      device) -> WorldState:
     """Build the port's state from numpy leaves in ``jax.tree.leaves``
-    order (38 for Raft). Dtypes are kept, so a packed JAX state stays
-    packed; ``cfg`` is checked against the queue's shape."""
-    tpl = state_template(actor)
+    order (38 for Raft; a compiled actor's lanes in sorted name order).
+    Dtypes are kept, so a packed JAX state stays packed; ``cfg`` is checked
+    against the queue's shape."""
+    tpl = state_template(actor, cfg)
     n_expected = len(tree_leaves(tpl))
     if len(leaves) != n_expected:
         raise ValueError(f"expected {n_expected} leaves, got {len(leaves)}")

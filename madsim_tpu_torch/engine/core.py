@@ -12,7 +12,7 @@ Two implementations of the step exist and are bitwise equal:
 
 - :meth:`DeviceEngine.step_plain`, plain PyTorch ops on any device — the
   reference the kernel is held to, and the step the CPU runs;
-- the hand-written CUDA kernel (``csrc/step_kernel.cu``, launched by
+- the hand-written CUDA kernel (``csrc/step_kernel.cuh``, launched by
   :mod:`madsim_tpu_torch.engine.step_kernel`), which is always the step
   on a CUDA device. It replaces the JAX package's one Pallas kernel.
 
@@ -197,7 +197,7 @@ class WorldState(NamedTuple):
     paused: torch.Tensor       # (W, N) bool
     clog_node: torch.Tensor    # (W, N) bool
     clog_link: torch.Tensor    # (W, N, N) bool, [src, dst]
-    astate: Any                # actor state (NamedTuple of tensors)
+    astate: Any                # actor state (NamedTuple or dict of tensors)
     active: torch.Tensor       # (W,) bool — False ⇒ frozen
     steps: torch.Tensor        # (W,) int32
     delivered: torch.Tensor    # (W,) int32
@@ -215,30 +215,34 @@ class WorldState(NamedTuple):
 
 
 # ---------------------------------------------------------------------------
-# NamedTuple trees (the port's pytrees): None is an empty subtree.
+# The port's pytrees: NamedTuples (fields in order), dicts (keys in sorted
+# order, as ``jax.tree.leaves`` flattens a dict — a compiled actor's state
+# is a dict of lanes), and None, an empty subtree.
 # ---------------------------------------------------------------------------
 
 def tree_leaves(tree) -> list:
-    """Leaves in ``jax.tree.leaves`` order (NamedTuple fields in order,
-    None skipped)."""
+    """Leaves in ``jax.tree.leaves`` order."""
     if tree is None:
         return []
-    if isinstance(tree, tuple):
+    if isinstance(tree, (tuple, dict)):
         out = []
-        for x in tree:
+        for x in (tree if isinstance(tree, tuple)
+                  else (tree[k] for k in sorted(tree))):
             out.extend(tree_leaves(x))
         return out
     return [tree]
 
 
 def tree_paths(tree, prefix: str = "") -> list:
-    """Dotted field names of :func:`tree_leaves` (``queue.time``, ...),
-    in the same order."""
+    """Dotted field or key names of :func:`tree_leaves` (``queue.time``,
+    ``astate.decision``, ...), in the same order."""
     if tree is None:
         return []
-    if isinstance(tree, tuple):
+    if isinstance(tree, (tuple, dict)):
+        items = (zip(tree._fields, tree) if isinstance(tree, tuple)
+                 else ((k, tree[k]) for k in sorted(tree)))
         out = []
-        for name, x in zip(tree._fields, tree):
+        for name, x in items:
             out.extend(tree_paths(x, prefix + name + "."))
         return out
     return [prefix[:-1]]
@@ -254,6 +258,8 @@ def tree_unflatten(template, leaves):
             return None
         if isinstance(t, tuple):
             return type(t)(*[build(x) for x in t])
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
         return next(it)
 
     out = build(template)
@@ -269,6 +275,8 @@ def tree_map(fn, *trees):
         return None
     if isinstance(t0, tuple):
         return type(t0)(*[tree_map(fn, *xs) for xs in zip(*trees)])
+    if isinstance(t0, dict):
+        return {k: tree_map(fn, *[t[k] for t in trees]) for k in sorted(t0)}
     return fn(*trees)
 
 

@@ -1,0 +1,95 @@
+"""The actor-family registry: every workload family the port ships, with
+its canonical conformance shape.
+
+The port of ``madsim_tpu/engine/families.py`` for the families ported so
+far: raft, pb, tpc and paxos, with the JAX registry's ``conformance()``
+shapes. The guided search's synthetic families (``pair_restart``,
+``guided_pair``) come with it (ROADMAP Queue A item 8), and the JAX
+registry's ``compiled`` flag and class properties with the host twin's
+conformance crosscheck (``actorc/host.py``), their one consumer. Imports
+are lazy per entry.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class Family:
+    """One registered actor family."""
+
+    name: str
+    load: Callable[[], Tuple[type, type]]   # -> (actor_cls, config_cls)
+    # Canonical (actor, EngineConfig): the clean (bug switches off) shape.
+    conformance: Callable[[], Tuple[Any, Any]]
+
+
+def _raft() -> Family:
+    def load():
+        from .raft_actor import RaftActor, RaftDeviceConfig
+
+        return RaftActor, RaftDeviceConfig
+
+    def conf():
+        from .core import EngineConfig
+
+        cls, cfg = load()
+        return cls(cfg(n=3, n_proposals=2)), EngineConfig(
+            n_nodes=3, outbox_cap=4, queue_cap=64, t_limit_us=2_000_000)
+    return Family("raft", load, conf)
+
+
+def _pb() -> Family:
+    def load():
+        from .pb_actor import PBActor, PBDeviceConfig
+
+        return PBActor, PBDeviceConfig
+
+    def conf():
+        from .core import EngineConfig
+
+        cls, cfg = load()
+        return cls(cfg(n=3, n_writes=3)), EngineConfig(
+            n_nodes=3, outbox_cap=4, queue_cap=64, t_limit_us=2_000_000)
+    return Family("pb", load, conf)
+
+
+def _tpc() -> Family:
+    def load():
+        from .tpc_actor import TPCActor, TPCDeviceConfig
+
+        return TPCActor, TPCDeviceConfig
+
+    def conf():
+        from .core import EngineConfig
+
+        cls, cfg = load()
+        return cls(cfg(n=4, n_txns=4)), EngineConfig(
+            n_nodes=4, outbox_cap=5, queue_cap=64, t_limit_us=2_000_000)
+    return Family("tpc", load, conf)
+
+
+def _paxos() -> Family:
+    def load():
+        from ..actorc.families.paxos import PaxosActor, PaxosConfig
+
+        return PaxosActor, PaxosConfig
+
+    def conf():
+        from ..actorc.families.paxos import engine_config
+
+        cls, cfg = load()
+        acfg = cfg()
+        return cls(acfg), engine_config(acfg)
+    return Family("paxos", load, conf)
+
+
+def actor_families() -> Dict[str, Family]:
+    """name -> :class:`Family`, for every family the port ships."""
+    fams = [_raft(), _pb(), _tpc(), _paxos()]
+    return {f.name: f for f in fams}
+
+
+def family(name: str) -> Optional[Family]:
+    return actor_families().get(name)

@@ -6,11 +6,12 @@ package there directly. Instead, :data:`GOLDEN` holds the SHA-256 of the
 JAX engine's ``observe()`` for seeds 0..63 of two deployments, and
 :data:`GOLDEN_OBS` / :data:`GOLDEN_SWEEP` those of the hunt with the
 metrics block and the flight recorder on: its ``observe()``, and the
-result of a small recycled sweep (:data:`SWEEP`). ``chip_smoke.py`` checks
-that the port, stepping through the CUDA kernel, reproduces them.
-``tests/test_torch_engine.py`` and ``tests/test_torch_sweep.py`` recompute
-every digest from the JAX package on the CPU, so the constants cannot drift
-from it.
+result of a small recycled sweep (:data:`SWEEP`); :data:`GOLDEN_FAMILIES`
+those of the compiled families' deployments (:data:`FAMILY_CONFIGS`).
+``chip_smoke.py`` checks that the port, stepping through the CUDA kernel,
+reproduces them. ``tests/test_torch_engine.py``, ``tests/test_torch_sweep.py``
+and ``tests/test_torch_families.py`` recompute every digest from the JAX
+package on the CPU, so the constants cannot drift from it.
 """
 from __future__ import annotations
 
@@ -65,6 +66,41 @@ GOLDEN_OBS = (
 #: sweep_digest of the SWEEP over CONFIGS["hunt_faults"] + SWEEP["over"].
 GOLDEN_SWEEP = (
     "c723302d23f7261e764bcc23a0bdf6b8a91c8c6f00254b5d63944ea4bd6037c4")
+
+
+#: The compiled families' deployments on the card: name -> (family in
+#: ``engine/families.py``, its config kwargs, EngineConfig kwargs, fault
+#: rows, max_steps). tpc_crosscheck and pb_crosscheck are bench.py's
+#: bench_crosscheck legs (bench.py:980-990); pb_hunt is
+#: tests/test_pb_actor.py's bug hunt (commit after the first ack, loss 0.3,
+#: the primary killed at 130 ms).
+FAMILY_CONFIGS = {
+    "tpc_crosscheck": (
+        "tpc", dict(n=4, n_txns=4, buggy_presumed_commit=True),
+        dict(n_nodes=4, outbox_cap=5, queue_cap=64, t_limit_us=1_500_000,
+             loss_rate=0.1),
+        None, 5_000),
+    "pb_crosscheck": (
+        "pb", dict(n=3, n_writes=4),
+        dict(n_nodes=3, outbox_cap=4, queue_cap=64, t_limit_us=1_500_000,
+             loss_rate=0.05),
+        None, 5_000),
+    "pb_hunt": (
+        "pb", dict(n=3, n_writes=4, buggy_commit_early=True),
+        dict(n_nodes=3, outbox_cap=4, queue_cap=48, t_limit_us=2_000_000,
+             loss_rate=0.3),
+        [[130_000, FAULT_KILL, 0, 0]], 8_000),
+}
+
+#: SHA-256 of observe() for SEEDS under each of FAMILY_CONFIGS.
+GOLDEN_FAMILIES = {
+    "tpc_crosscheck":
+        "8abbbff1adf8bdbab32c72ae149dcccf2fd135674c3db3d71850099baea3f50e",
+    "pb_crosscheck":
+        "7543f4af3011166516227ffddc8801951181ae153052443c7e0ed01c0827dc45",
+    "pb_hunt":
+        "18bb10c188dea992e33571d9fff19ca1270902e7c5673505abed9c63f370fda3",
+}
 
 
 def observe_digest(obs: Dict[str, np.ndarray]) -> str:

@@ -10,10 +10,10 @@ packed lanes), reads through the clamping
 :func:`~madsim_tpu_torch.engine.lanes.take_small`, exactly as in the JAX
 actor, so the two agree bit for bit.
 
-The CUDA step kernel (``csrc/step_kernel.cu``) carries its own C++ copy of
-:meth:`RaftActor.handle`, :meth:`RaftActor.on_restart` and
-:meth:`RaftActor.invariant`; this module is the plain version it is held
-to.
+The CUDA step kernel's Raft policy (``csrc/actor_raft.cuh``) carries its
+own C++ copy of :meth:`RaftActor.handle`, :meth:`RaftActor.on_restart`
+and :meth:`RaftActor.invariant`; this module is the plain version it is
+held to.
 """
 from __future__ import annotations
 

@@ -1,16 +1,24 @@
-"""The engine step as one hand-written CUDA kernel (``csrc/step_kernel.cu``).
+"""The engine step as one hand-written CUDA kernel (``csrc/step_kernel.cuh``).
 
 Replaces ``madsim_tpu/engine/pallas_step.py::make_pallas_step``, the JAX
 package's one Pallas kernel: one whole engine step for every world per
-launch — the eligible first-min pop, fault apply or the Raft merged
+launch — the eligible first-min pop, fault apply or the actor's merged
 handler, the Threefry draws for latency and loss, the rank-ordered insert
 with the pop's clear fused in, the invariant and the step's bookkeeping.
+The kernel's skeleton is a template on the actor family's policy, written
+by hand per family: Raft (``csrc/actor_raft.cuh``), two-phase commit
+(``actor_tpc.cuh``) and primary-backup (``actor_pb.cuh``), each built from
+its own source (``csrc/step_{raft,tpc,pb}.cu``) into a library of its own.
+Paxos, the guided search's pair-restart family and ``packed=False`` have
+no kernel yet: :func:`kernel_params` raises, naming the ROADMAP item.
 Like the Pallas kernel (``input_output_aliases``), it **updates the state
 tensors in place**: :func:`run_steps` returns the state it was given.
 
 Design: one thread per world, a block of B worlds. The lanes a step reads
-whole — the queue's time and meta lanes (the pop scans every slot) and the
-invariant's commit and log lanes — are staged through shared memory: the
+whole — the queue's time and meta lanes (the pop scans every slot) and
+Raft's invariant lanes, commit and log — are staged through shared memory
+(the other families' lanes are small and read once a step, in device
+memory): the
 block copies its contiguous range of each lane in with coalesced
 asynchronous copies (``cp.async``), one padded row per world, while each
 thread reads its world's scalars into registers; each thread then steps
@@ -27,11 +35,12 @@ raises :class:`ValueError` where no block of :data:`MIN_BLOCK` worlds fits
 in :data:`SMEM_MAX` bytes.
 
 Bound: memory. A step must read the queue's time lane of every world it
-steps, its meta lane where a node is paused, the commit row and the log
-entries over each node pair's committed prefix, besides one payload row
-and the handler's rows; ``chip_smoke.py`` (``needed_bytes``) counts those
-bytes for its bound. Sizes are runtime ints under the static maxima below;
-the wrapper raises beyond them.
+steps, its meta lane where a node is paused, what the invariant reads
+(Raft: the commit row and the log entries over each node pair's committed
+prefix), besides one payload row and the handler's rows;
+``chip_smoke.py`` (``needed_bytes``) counts those bytes for its bound.
+Sizes are runtime ints under the static maxima below; the wrapper raises
+beyond them.
 
 With ``EngineConfig(metrics=True)`` and ``EngineConfig(blackbox=K)`` the
 kernel also writes what the plain step writes into the metrics block and
@@ -48,7 +57,7 @@ launches the kernel, or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
@@ -57,12 +66,15 @@ from ..obs.blackbox import RING_FIELDS
 from ..obs.metrics import BLOCK_FIELDS
 from ..ops.threefry import threefry2x32_torch
 from .core import DEFAULT_BLOCK, tree_leaves
+from .pb_actor import PBActor
 from .raft_actor import WON_WORDS, RaftActor
+from .tpc_actor import TPCActor
 
 #: Kernel launches so far (the step kernel); a plain integer.
 launches = 0
 
-# Static maxima of the kernel (csrc/step_kernel.cu).
+# Static maxima of the kernel (csrc/step_common.cuh; MAX_L is Raft's log,
+# csrc/actor_raft.cuh).
 MAX_N, MAX_Q, MAX_L, MAX_P = 8, 256, 64, 16
 MAX_M = MAX_N + 1
 #: The optional leaves the kernel writes, in its State's order after the
@@ -88,7 +100,9 @@ class TilePlan(NamedTuple):
     launch narrows them to the tensors' alignment); a ``pay_unit`` of 16
     moves payload rows as 16-byte vectors. ``off_*`` are byte offsets in
     dynamic shared memory (the q_time tile is at 0; ``dirty`` holds each
-    world's mask of changed queue chunks).
+    world's mask of changed queue chunks). The commit and log tiles are
+    Raft's; a plan for another family has none (their strides and widths
+    0).
     """
 
     block: int
@@ -126,27 +140,31 @@ def _layout(block, q_stride, commit_stride, log_stride):
     return offs, at
 
 
-def tile_plan(cfg, log_cap: int) -> TilePlan:
-    """The tile plan for an engine config and the Raft log capacity.
+def tile_plan(cfg, log_cap: Optional[int]) -> TilePlan:
+    """The tile plan for an engine config and the Raft log capacity (None
+    for a family without Raft's commit and log tiles).
 
     ``cfg.pallas_block`` worlds per block where it is set (raises if they
     do not fit); else :data:`DEFAULT_BLOCK`, lowered by warps to what fits.
     """
-    n, q, p, L = cfg.n_nodes, cfg.queue_cap, cfg.payload_words, log_cap
+    n, q, p = cfg.n_nodes, cfg.queue_cap, cfg.payload_words
+    L = log_cap or 0
     q_stride = 4 * (-(-q // 4) | 1)
-    commit_stride = _i16_stride(n)
-    log_stride = _i16_stride(n * L)
+    commit_stride = _i16_stride(n) if log_cap else 0
+    log_stride = _i16_stride(n * L) if log_cap else 0
 
     def smem(b):
         return _layout(b, q_stride, commit_stride, log_stride)[1]
 
+    what = (f"n_nodes={n}, queue_cap={q}"
+            + (f", log_cap={L}" if log_cap else ""))
     if cfg.pallas_block is not None:
         block = cfg.pallas_block
         if smem(block) > SMEM_MAX:
             raise ValueError(
-                f"pallas_block={block}: a block's tiles for n_nodes={n}, "
-                f"queue_cap={q}, log_cap={L} take {smem(block)} bytes of "
-                f"shared memory, more than {SMEM_MAX}")
+                f"pallas_block={block}: a block's tiles for {what} take "
+                f"{smem(block)} bytes of shared memory, more than "
+                f"{SMEM_MAX}")
     else:
         block = DEFAULT_BLOCK
         while block > MIN_BLOCK and smem(block) > SMEM_MAX:
@@ -154,30 +172,100 @@ def tile_plan(cfg, log_cap: int) -> TilePlan:
         if smem(block) > SMEM_MAX:
             raise ValueError(
                 f"no block of {MIN_BLOCK} worlds fits in {SMEM_MAX} bytes of "
-                f"shared memory for n_nodes={n}, queue_cap={q}, "
-                f"log_cap={L}: it needs {smem(block)}")
+                f"shared memory for {what}: it needs {smem(block)}")
     offs, total = _layout(block, q_stride, commit_stride, log_stride)
     return TilePlan(
         block=block, smem_bytes=total, q_stride=q_stride,
         commit_stride=commit_stride, log_stride=log_stride,
         q_unit=16 if q % 4 == 0 else 4,
-        commit_unit=4 if n % 2 == 0 else 2,
-        log_unit=4 if (n * L) % 2 == 0 else 2,
+        commit_unit=(4 if n % 2 == 0 else 2) if log_cap else 0,
+        log_unit=(4 if (n * L) % 2 == 0 else 2) if log_cap else 0,
         pay_unit=16 if p % 8 == 0 else 2,
         off_qm=offs[1], off_dirty=offs[2], off_commit=offs[3],
         off_lt=offs[4], off_lc=offs[5])
 
 
-def _lib():
-    lib = _build.load("step_kernel")
+class KernelFamily(NamedTuple):
+    """A family the kernel has compiled in, as its policy declares it."""
+
+    name: str
+    #: Params::family (``csrc/step_common.cuh``).
+    id: int
+    #: ``csrc/<source>.cu`` instantiates ``step_kernel<Policy, N>``.
+    source: str
+    #: The least N it takes: ``step_entry<Policy, least_n>`` in the source.
+    least_n: int
+    #: actor -> its static parameters, Params::f0.. (the policy names them).
+    params: Callable[[Any], tuple]
+    #: Its policy's Lanes struct, (name, dtype) in JAX's leaf order (sorted
+    #: names) and the packed profile's dtypes; None where the actor's state
+    #: type fixes them (Raft).
+    lanes: Optional[tuple]
+    #: The log capacity that sizes Raft's commit and log tiles; None for a
+    #: family without them.
+    log_cap: Callable[[Any], Optional[int]] = lambda actor: None
+
+
+#: Actor class -> the kernel's policy for it.
+FAMILIES = {
+    RaftActor: KernelFamily(
+        "raft", 0, "step_raft", 1,
+        lambda a: (a.rcfg.log_cap, WON_WORDS, a.rcfg.elect_min_us,
+                   a.rcfg.elect_max_us, a.rcfg.heartbeat_us,
+                   a.rcfg.buggy_double_vote),
+        None, lambda a: a.rcfg.log_cap),
+    TPCActor: KernelFamily(
+        "tpc", 1, "step_tpc", 2,
+        lambda a: (a.tcfg.n_txns, a.tcfg.txn_start_us,
+                   a.tcfg.txn_interval_us, a.tcfg.vote_timeout_us,
+                   a.tcfg.no_vote_num, a.tcfg.buggy_presumed_commit),
+        (("aborts", torch.int32), ("commits", torch.int32),
+         ("decided", torch.int8), ("decision", torch.int8),
+         ("txns_seen", torch.int32), ("voted", torch.int8),
+         ("votes_yes", torch.int32))),
+    PBActor: KernelFamily(
+        "pb", 2, "step_pb", 1,
+        lambda a: (a.pcfg.log_cap, a.pcfg.heartbeat_us,
+                   a.pcfg.watchdog_min_us, a.pcfg.watchdog_max_us,
+                   a.pcfg.n_writes, a.pcfg.write_start_us,
+                   a.pcfg.write_interval_us, a.pcfg.buggy_commit_early),
+        (("acks", torch.int32), ("commit", torch.int16),
+         ("committed_cmd", torch.int16), ("committed_max", torch.int16),
+         ("log_cmd", torch.int16), ("log_len", torch.int16),
+         ("view", torch.int16), ("views_changed", torch.int32),
+         ("wd_epoch", torch.int16), ("writes_done", torch.int32))),
+}
+
+
+def family_of(actor) -> KernelFamily:
+    """The kernel's policy for ``actor`` (a value of :data:`FAMILIES`), or
+    NotImplementedError naming the ROADMAP item that ports it."""
+    for cls, fam in FAMILIES.items():
+        if isinstance(actor, cls):
+            return fam
+    name = getattr(getattr(actor, "spec", None), "name", type(actor).__name__)
+    raise NotImplementedError(
+        f"the CUDA step kernel has no policy for the {name!r} family: it "
+        f"has raft, tpc and pb compiled in; the Paxos and pair-restart "
+        f"policies come with the guided search (ROADMAP Queue B g, Queue A "
+        f"item 8). The plain step runs it with device='cpu'")
+
+
+def engine_plan(eng) -> TilePlan:
+    """The tile plan of ``eng``'s family (Raft's tiles sized by its log)."""
+    return tile_plan(eng.cfg, family_of(eng.actor).log_cap(eng.actor))
+
+
+def _lib(source: str):
+    """The built library of ``csrc/<source>.cu``, its ``madsim_step``
+    typed."""
+    lib = _build.load(source)
     if not getattr(lib, "_madsim_typed", False):
         lib.madsim_step.argtypes = [ctypes.POINTER(ctypes.c_void_p),
+                                    ctypes.c_int,
                                     ctypes.POINTER(ctypes.c_int),
                                     ctypes.c_int, ctypes.c_void_p]
         lib.madsim_step.restype = ctypes.c_int
-        lib.madsim_threefry.argtypes = [ctypes.c_void_p] * 6 + [
-            ctypes.c_int, ctypes.c_void_p]
-        lib.madsim_threefry.restype = ctypes.c_int
         lib._madsim_typed = True
     return lib
 
@@ -188,38 +276,52 @@ def _check_status(status: int, what: str):
                            f"{status}")
 
 
+def family_params(actor) -> list:
+    """The family's static parameters, Params::f0..f7 (each policy in
+    ``csrc/actor_*.cuh`` names them)."""
+    vals = family_of(actor).params(actor)
+    return [int(v) for v in vals] + [0] * (8 - len(vals))
+
+
 def kernel_params(eng):
-    """The kernel's int parameter vector for this engine (raises on a
-    configuration the kernel does not take)."""
+    """The kernel's int parameters for this engine after W (N, Q, P, the
+    family, t_limit_us, stop_on_bug, :func:`family_params`); raises on a
+    configuration the kernel does not take."""
     cfg, actor = eng.cfg, eng.actor
-    if not isinstance(actor, RaftActor):
-        raise NotImplementedError(
-            "the CUDA step kernel has Raft compiled in; other actor "
-            "families are ROADMAP Queue B g")
+    fam = family_of(actor)
     if not cfg.packed:
         raise NotImplementedError(
             "the CUDA step kernel covers the packed lane profile only; "
             "packed=False on CUDA is ROADMAP Queue B f")
-    r = actor.rcfg
-    n, q, p, L = cfg.n_nodes, cfg.queue_cap, cfg.payload_words, r.log_cap
-    if not (n <= MAX_N and q <= MAX_Q and 8 <= p <= MAX_P and L <= MAX_L):
+    n, q, p = cfg.n_nodes, cfg.queue_cap, cfg.payload_words
+    if not (fam.least_n <= n <= MAX_N and q <= MAX_Q and 8 <= p <= MAX_P):
         raise ValueError(
-            f"the CUDA step kernel takes n_nodes <= {MAX_N}, queue_cap <= "
-            f"{MAX_Q}, 8 <= payload_words <= {MAX_P}, log_cap <= {MAX_L}; "
-            f"got {n}, {q}, {p}, {L}")
+            f"the CUDA step kernel takes {fam.least_n} <= n_nodes <= {MAX_N} "
+            f"for {fam.name}, queue_cap <= {MAX_Q}, 8 <= payload_words <= "
+            f"{MAX_P}; got {n}, {q}, {p}")
+    log_cap = fam.log_cap(actor)
+    if log_cap is not None and log_cap > MAX_L:
+        raise ValueError(f"the CUDA step kernel takes log_cap <= {MAX_L}; "
+                         f"got {log_cap}")
     if cfg.m != n + 1 or cfg.m > MAX_M:
         raise ValueError("the CUDA step kernel needs outbox_cap == n + 1")
+    if fam.lanes is not None:
+        lanes = tuple((name[len("astate."):], dtype) for name, dtype, _
+                      in eng.state_layout() if name.startswith("astate."))
+        if lanes != fam.lanes:
+            raise ValueError(f"the {fam.name} actor's lanes {lanes} are not "
+                             f"the kernel's {fam.lanes}")
     if not 0 < cfg.block <= 1024:
         raise ValueError("pallas_block (worlds per CUDA block) must be in "
                          "[1, 1024]")
-    return [n, q, p, L, WON_WORDS, int(cfg.t_limit_us), int(cfg.stop_on_bug),
-            r.elect_min_us, r.elect_max_us, r.heartbeat_us,
-            int(r.buggy_double_vote)]
+    return [n, q, p, fam.id, int(cfg.t_limit_us), int(cfg.stop_on_bug),
+            *family_params(actor)]
 
 
 def kernel_pointers(eng, leaves):
-    """The kernel's State pointers: the base leaves in leaf order, then
-    each of :data:`OPTIONAL_LEAVES`, looked up by name in
+    """The kernel's State pointers: the base leaves in leaf order (the
+    actor's lanes among them, in JAX's order: a compiled actor's sorted by
+    name), then each of :data:`OPTIONAL_LEAVES`, looked up by name in
     :meth:`DeviceEngine.state_layout` (0 where the lane is off)."""
     names = [name for name, _, _ in eng.state_layout()]
     lane = dict(zip(names, leaves))
@@ -241,21 +343,24 @@ def launch_ints(eng, leaves):
     and W, :func:`kernel_params`, the :func:`tile_plan` with its access
     widths narrowed to the leaves' alignment, then the optional lanes
     (metrics on, the kind histogram's width, the ring depth K)."""
-    plan = tile_plan(eng.cfg, eng.actor.rcfg.log_cap)
     params = kernel_params(eng)
+    plan = engine_plan(eng)
     lane = dict(zip((name for name, _, _ in eng.state_layout()), leaves))
     pay_unit = 16 if _aligned(plan.pay_unit,
                               lane["queue.payload"]) == 16 else 2
+    if plan.commit_stride:
+        commit_unit = _aligned(plan.commit_unit, lane["astate.commit"])
+        log_unit = _aligned(plan.log_unit, lane["astate.log_term"],
+                            lane["astate.log_cmd"])
+    else:
+        commit_unit = log_unit = 0
     return plan.block, [
         leaves[0].shape[0], *params, plan.smem_bytes, plan.q_stride,
         plan.commit_stride, plan.log_stride,
         _aligned(plan.q_unit, lane["queue.time"], lane["queue.meta"]),
-        _aligned(plan.commit_unit, lane["astate.commit"]),
-        _aligned(plan.log_unit, lane["astate.log_term"],
-                 lane["astate.log_cmd"]),
-        pay_unit, plan.off_qm, plan.off_dirty, plan.off_commit, plan.off_lt,
-        plan.off_lc, int(eng.cfg.metrics), int(eng.actor.num_kinds),
-        int(eng.cfg.blackbox)]
+        commit_unit, log_unit, pay_unit, plan.off_qm, plan.off_dirty,
+        plan.off_commit, plan.off_lt, plan.off_lc, int(eng.cfg.metrics),
+        int(eng.actor.num_kinds), int(eng.cfg.blackbox)]
 
 
 def check_leaves(eng, leaves):
@@ -289,15 +394,15 @@ def launch(eng, leaves, k: int = 1):
     block, params = launch_ints(eng, leaves)
     if leaves[0].shape[0] == 0:
         return
-    lib = _lib()
+    lib = _lib(family_of(eng.actor).source)
     addrs = kernel_pointers(eng, leaves)
     ptrs = (ctypes.c_void_p * len(addrs))(*addrs)
     ints = (ctypes.c_int * len(params))(*params)
     stream = torch.cuda.current_stream(leaves[0].device).cuda_stream
     with torch.cuda.device(leaves[0].device):
         for _ in range(k):
-            _check_status(lib.madsim_step(ptrs, ints, block, stream),
-                          "step kernel")
+            _check_status(lib.madsim_step(ptrs, len(addrs), ints, block,
+                                          stream), "step kernel")
             launches += 1
 
 
@@ -321,7 +426,7 @@ def run_steps(eng, state, k: int):
 
 def threefry2x32(k0, k1, c0, c1):
     """Threefry-2x32/20 of u32 tensors (same shape, 1-D). CUDA: the test
-    kernel exported by ``step_kernel.cu``; CPU: the plain torch version."""
+    kernel exported by ``step_raft.cu``; CPU: the plain torch version."""
     if k0.device.type == "cpu":
         return threefry2x32_torch(k0, k1, c0, c1)
     xs = [k0, k1, c0, c1]
@@ -336,8 +441,12 @@ def threefry2x32(k0, k1, c0, c1):
     if n == 0:
         return o0, o1
     stream = torch.cuda.current_stream(k0.device).cuda_stream
+    lib = _build.load("step_raft")
+    lib.madsim_threefry.argtypes = [ctypes.c_void_p] * 6 + [
+        ctypes.c_int, ctypes.c_void_p]
+    lib.madsim_threefry.restype = ctypes.c_int
     with torch.cuda.device(k0.device):
-        status = _lib().madsim_threefry(*[x.data_ptr() for x in xs],
+        status = lib.madsim_threefry(*[x.data_ptr() for x in xs],
                                         o0.data_ptr(), o1.data_ptr(), n,
                                         stream)
     _check_status(status, "threefry kernel")

@@ -189,6 +189,26 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take():
     _, eng = engines(dict(rk, log_cap=65), ck)
     with pytest.raises(ValueError, match="log_cap"):
         step_kernel.kernel_params(eng)
+    # Two-phase commit and primary-backup have policies in the kernel;
+    # Paxos and packed=False raise, naming their ROADMAP items.
+    from madsim_tpu_torch.actorc.families.paxos import (PaxosActor,
+                                                        PaxosConfig,
+                                                        engine_config)
+    tck = dict(n_nodes=4, outbox_cap=5, queue_cap=64)
+    pck = dict(n_nodes=3, outbox_cap=4, queue_cap=48)
+    for actor, ck2 in ((T.TPCActor(T.TPCDeviceConfig(n=4)), tck),
+                       (T.PBActor(T.PBDeviceConfig(n=3)), pck)):
+        eng = T.DeviceEngine(actor, T.EngineConfig(**ck2), device="cpu")
+        assert step_kernel.kernel_params(eng)[3] == \
+            step_kernel.family_of(actor).id
+        eng = T.DeviceEngine(actor, T.EngineConfig(**ck2, packed=False),
+                             device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue B f"):
+            step_kernel.kernel_params(eng)
+    eng = T.DeviceEngine(PaxosActor(PaxosConfig()),
+                         engine_config(PaxosConfig()), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 8"):
+        step_kernel.kernel_params(eng)
 
 
 def test_config_and_init_validation_match_jax():
@@ -224,7 +244,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     code = ("import sys, madsim_tpu_torch.engine, madsim_tpu_torch._build, "
             "madsim_tpu_torch.obs.metrics, madsim_tpu_torch.obs.blackbox, "
             "madsim_tpu_torch.obs.coverage, "
-            "madsim_tpu_torch.parallel.sweep; "
+            "madsim_tpu_torch.parallel.sweep, madsim_tpu_torch.actorc, "
+            "madsim_tpu_torch.actorc.families.tpc, "
+            "madsim_tpu_torch.actorc.families.pb, "
+            "madsim_tpu_torch.actorc.families.paxos, "
+            "madsim_tpu_torch.engine.tpc_actor, "
+            "madsim_tpu_torch.engine.pb_actor, "
+            "madsim_tpu_torch.engine.families, "
+            "madsim_tpu_torch.engine.step_kernel; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'madsim_tpu' or "
             "m.startswith('madsim_tpu.')]; "

@@ -134,22 +134,46 @@ def test_access_widths_follow_the_rows_and_the_tensors():
 
 
 def test_launch_vector_matches_the_kernels_params():
-    """W, the engine's parameters and the tile plan: as many ints as the
-    kernel's Params struct holds, the plan's block beside them."""
+    """W, the engine's parameters, the family's, and the tile plan: as many
+    ints as the kernel's Params struct holds, the plan's block beside them.
+    Raft's, tpc's and pb's, each family's parameters in the order its
+    policy (``csrc/actor_*.cuh``) reads them."""
     src = (Path(step_kernel.__file__).resolve().parent.parent / "csrc"
-           / "step_kernel.cu").read_text()
+           / "step_common.cuh").read_text()
     n_params = int(re.search(r"constexpr int N_PARAMS = (\d+);", src)[1])
-    eng = engine(*HEADLINE)
-    leaves = tree_leaves(eng.init(np.arange(8)))
-    block, ints = step_kernel.launch_ints(eng, leaves)
-    plan = step_kernel.tile_plan(eng.cfg, eng.actor.rcfg.log_cap)
-    assert block == plan.block
-    assert len(ints) == n_params
-    assert ints[0] == 8 and ints[1:12] == step_kernel.kernel_params(eng)
-    assert ints[12:25] == [plan.smem_bytes, plan.q_stride,
-                           plan.commit_stride, plan.log_stride, 16,
-                           plan.commit_unit, 4, 16, plan.off_qm,
-                           plan.off_dirty, plan.off_commit, plan.off_lt,
-                           plan.off_lc]
-    # The optional lanes: metrics off, Raft's 7 kinds, no ring.
-    assert ints[25:] == [0, 7, 0]
+    tpc = T.TPCDeviceConfig(n=4, n_txns=4, buggy_presumed_commit=True)
+    pb = T.PBDeviceConfig(n=3, n_writes=4, buggy_commit_early=True)
+    cases = [
+        (engine(*HEADLINE), 0, [4, 4, 150_000, 300_000, 50_000, 0, 0, 0], 7),
+        (T.DeviceEngine(T.TPCActor(tpc), T.EngineConfig(
+            n_nodes=4, outbox_cap=5, queue_cap=64), device="cpu"), 1,
+         [4, 50_000, 120_000, 60_000, 32, 1, 0, 0], 5),
+        (T.DeviceEngine(T.PBActor(pb), T.EngineConfig(
+            n_nodes=3, outbox_cap=4, queue_cap=48), device="cpu"), 2,
+         [16, 50_000, 200_000, 400_000, 4, 100_000, 150_000, 1], 6),
+    ]
+    for eng, family, fparams, kinds in cases:
+        leaves = tree_leaves(eng.init(np.arange(8)))
+        block, ints = step_kernel.launch_ints(eng, leaves)
+        plan = step_kernel.engine_plan(eng)
+        cfg = eng.cfg
+        assert block == plan.block
+        assert len(ints) == n_params
+        assert ints[0] == 8 and ints[1:15] == step_kernel.kernel_params(eng)
+        assert ints[1:8] == [cfg.n_nodes, cfg.queue_cap, cfg.payload_words,
+                             family, cfg.t_limit_us, 1, *fparams[:1]]
+        assert ints[7:15] == fparams
+        raft = family == 0
+        assert ints[15:28] == [plan.smem_bytes, plan.q_stride,
+                               plan.commit_stride, plan.log_stride, 16,
+                               plan.commit_unit, 4 if raft else 0, 16,
+                               plan.off_qm, plan.off_dirty, plan.off_commit,
+                               plan.off_lt, plan.off_lc]
+        # The families beside Raft take no commit or log tiles.
+        assert (plan.commit_stride > 0) == raft
+        # The optional lanes: metrics off, the family's kinds, no ring.
+        assert ints[28:] == [0, kinds, 0]
+        # One pointer per leaf: the engine's 24, the actor's lanes, the
+        # metrics block's 13 and the ring's 8 (null when off).
+        ptrs = step_kernel.kernel_pointers(eng, leaves)
+        assert len(ptrs) == len(leaves) + 21 and ptrs[-21:] == [0] * 21
