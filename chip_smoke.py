@@ -7,13 +7,18 @@ batched Raft engine — ``DeviceEngine(RaftActor(..), EngineConfig(..))``,
 (``madsim_tpu_torch.parallel.sweep.sweep``, ``refill``, ``trace``) through
 it, then the compiled families two-phase commit and primary-backup
 (``DeviceEngine(TPCActor(..) | PBActor(..), ..)``) through their kernel
-policies. Phases, in order; any failure exits non-zero:
+policies, then the coverage-guided schedule search
+(``sweep(..., search=SearchConfig(..), pipeline=False)``) over the Paxos
+and pair-restart families through theirs. Phases, in order; any failure
+exits non-zero:
 
 1. card: name and power limit; uint32 <-> int64 round trip on CUDA tensors;
 2. build: one nvcc per source (``step_raft.cu``, ``step_tpc.cu``,
-   ``step_pb.cu``), all started together, with the ptxas register/spill
-   report; fails unless every instantiation ``step_kernel<A, N>`` (Raft
-   and pb N = 1..8, tpc N = 2..8) has a 0-byte stack frame and no spills;
+   ``step_pb.cu``, ``step_paxos.cu``, ``step_pair.cu``), all started
+   together, with the ptxas register/spill report and the build time;
+   fails unless every instantiation ``step_kernel<A, N>`` (Raft, pb and
+   Paxos N = 1..8, tpc N = 2..8, pair N = 1..12) has a 0-byte stack frame
+   and no spills;
 3. Threefry on the card: Random123 known answers and bitwise agreement with
    the plain torch version on 2^20 keys and counters;
 4. kernel vs plain step, whole runs: six configurations at W=4096 (two of
@@ -29,11 +34,17 @@ policies. Phases, in order; any failure exits non-zero:
    its coordinator killed and restarted, tpc at n = 8, and pb_hunt with
    the metrics block and a 64-deep ring (held also to its lanes-off run);
    then one step from a state whose frozen worlds were never checked by
-   the invariant, with the lanes off and on;
+   the invariant, with the lanes off and on; the guided search's
+   families: Paxos (forgetful acceptors on and off) and the guided pair at
+   n = 12 at their templates, pair-restart at n = 4 under
+   ``pair_schedule``, and the guided pair and Paxos under per-slot
+   ``(W, F, 4)`` schedules made by the port's ``make_children``, lanes off
+   and on, at W=4096 and (``main_*``) W=65,536;
 5. held to JAX without JAX: observe() digests of seeds 0..63 equal the
    JAX-derived constants in ``madsim_tpu_torch/engine/golden.py``, with
    the lanes off and on, and so does the SweepResult of a small recycled
-   sweep with both on, and the families' three deployments;
+   sweep with both on, the families' three deployments, and the guided
+   search's two deployments at their templates;
 6. the main path at full size: the headline deployment at W=524,288 and the
    bug hunt at W=65,536, init and run timed apart (best of 3), the kernel's
    launches counted; the kernel's device time per step over the same
@@ -44,7 +55,9 @@ policies. Phases, in order; any failure exits non-zero:
    run's observations held to the main run's; then each family deployment
    at W=65,536 the same way (init and run best of 3, the launches, the
    kernel's time per step over the run's own launches against the bytes
-   the family's steps need, the active share by chunk, the plain step);
+   the family's steps need, the active share by chunk, the plain step),
+   the guided search's two deployments (Paxos and the guided pair at
+   their templates) among them;
 7. the bug hunt's sweep at full width (65,536 seeds), ``sweep(...,
    pipeline=False)`` as bench.py's legs run it: (a) recycled through 8,192
    slots, stopping at the first bug, timed, with its chunks' kernel device
@@ -56,11 +69,21 @@ policies. Phases, in order; any failure exits non-zero:
    the kernel's time and needed-bytes bound with the ring and the metrics
    off and on, and the state bytes per world they take; (d) the pb hunt
    recycled to its first bug over 65,536 seeds, whose first failing seed
-   fails again in an independent ``init`` + ``run``.
+   fails again in an independent ``init`` + ``run``;
+8. the guided hunts: (a) the three canonical hunts of bench.py's
+   guided_hunt leg (pair, raft, Paxos; ``search/hunts.py``) at 512 seeds,
+   guided and random, each held to the JAX pins of ``golden.HUNT_PINS``
+   (seeds to the first bug, bugs found, generations, corpus size,
+   ancestry depth, operator table, digest of the schedules and the
+   corpus), with its wall time, seeds/s, refills, the searcher's and the
+   fold's ms per refill and the device idle share; (b) the Paxos hunt at
+   the width of phase 7's sweeps (65,536 seeds through 8,192 slots),
+   guided, to its first bug, which fails again in an independent ``init``
+   + ``run`` under the schedule the search materialized for it.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
-line before it lists each kernel route (the step kernel with Raft's, tpc's
-and pb's policy) with its launches and times.
+line before it lists each kernel route (the step kernel with Raft's, tpc's,
+pb's, Paxos's and the pair families' policy) with its launches and times.
 
 Usage: python3 chip_smoke.py   (from the root of the repository)
 """
@@ -152,7 +175,12 @@ def main() -> int:
                                                rings_from_observations)
     from madsim_tpu_torch.obs.coverage import fold_retired, ledger_zeros
     from madsim_tpu_torch.ops.threefry import threefry2x32_torch
+    from madsim_tpu_torch.parallel import sweep as sweep_mod
     from madsim_tpu_torch.parallel.sweep import sweep
+    from madsim_tpu_torch.search import hunts
+    from madsim_tpu_torch.search.corpus import corpus_init
+    from madsim_tpu_torch.search.mutate import make_children
+    from madsim_tpu_torch.triage.synthetic import pair_schedule
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -173,9 +201,11 @@ def main() -> int:
 
     # ---- 2. build ---------------------------------------------------------
     # One nvcc per source, all started together: the kernel with Raft's,
-    # two-phase commit's and primary-backup's policy.
-    sources = {f.name: f.source for f in step_kernel.FAMILIES.values()}
-    least = {f.name: f.least_n for f in step_kernel.FAMILIES.values()}
+    # two-phase commit's, primary-backup's, Paxos's and the pair families'
+    # policy (one source per route).
+    sources = {f.route: f.source for f in step_kernel.FAMILIES}
+    least = {f.route: f.least_n for f in step_kernel.FAMILIES}
+    most = {f.route: f.max_n for f in step_kernel.FAMILIES}
     t0 = time.perf_counter()
     took = _build.build_all(list(sources.values()))
     log(f"[2 build] nvcc of {', '.join(s + '.cu' for s in sources.values())}"
@@ -191,7 +221,7 @@ def main() -> int:
         # One instantiation per node count the family takes, each without
         # local memory.
         least_n = least[fam]
-        want = step_kernel.MAX_N - least_n + 1
+        want = most[fam] - least_n + 1
         ptx = ptxas_report(report, "step_kernel")
         check(len(ptx) == want and all(len(f) == 4 for f in ptx.values()),
               f"ptxas reported {len(ptx)} step_kernel instantiations in "
@@ -207,7 +237,7 @@ def main() -> int:
                 for name, f in ptx.items()}
         regs[fam] = by_n
         log(f"[2 build] {src}.cu: step_kernel<{fam}, N> for N={least_n}.."
-            f"{step_kernel.MAX_N}: 0 bytes stack frame and no spills in "
+            f"{most[fam]}: 0 bytes stack frame and no spills in "
             f"each; registers by N " + ", ".join(
                 f"{n}: {r}" for n, r in sorted(by_n.items())))
 
@@ -380,6 +410,55 @@ def main() -> int:
     by_name = {c[0]: c for c in compare_cfgs}
     compare_cfgs.append(with_lanes("pb_hunt", "pb_hunt+obs", "m_drop_loss",
                                    **on))
+
+    def children(hunt, w, gen):
+        """Per-slot (W, F, 4) schedules as a guided refill makes them: the
+        port's make_children from a corpus holding the hunt's template."""
+        seed_ids = torch.arange(w, dtype=torch.int32, device=dev)
+        return make_children(hunt.search(True), hunt.cfg,
+                             corpus_init(32, hunt.template, dev), seed_ids,
+                             gen).cpu().numpy()
+
+    # The guided search's families through their kernel policies, lanes
+    # off and (+obs) on: Paxos with forgetful acceptors (the hunt's) and
+    # without, and the guided pair at n = 12, at their templates and under
+    # per-slot children of the template (generation 3 for Paxos, whose
+    # jitter then reaches the amnesia windows, 1 for the pair), at
+    # W_COMPARE and, as main_*, at the deployments' W_FAMILY; pair-restart
+    # at n = 4 under pair_schedule.
+    px_hunt, gp_hunt = hunts.paxos_hunt(), hunts.pair_hunt()
+    px_fam, px_ak, px_ck, px_t, px_m = golden.SEARCH_CONFIGS["paxos_hunt"]
+    gp_fam, gp_ak, gp_ck, gp_t, gp_m = golden.SEARCH_CONFIGS["guided_pair"]
+    lanes_off = dict(metrics=False, blackbox=0)
+    px_off = dict(px_ck, **lanes_off)
+    gp_off = dict(gp_ck, **lanes_off)
+    durable = dict(px_ak, buggy_forgetful_acceptor=False)
+    search_compare = [
+        ("pair_restart_n4", ("pair_restart", dict(n=4),
+                             dict(n_nodes=4, outbox_cap=2, queue_cap=64,
+                                  t_limit_us=2_000_000, stop_on_bug=False)),
+         pair_schedule(32), W_COMPARE, 1_000, "bug"),
+    ]
+    for prefix, w in (("", W_COMPARE), ("main_", W_FAMILY)):
+        px_kids, gp_kids = children(px_hunt, w, 3), children(gp_hunt, w, 1)
+        search_compare += [
+            (prefix + "paxos_hunt", (px_fam, px_ak, px_off),
+             np.asarray(px_t, np.int32), w, px_m, "slots_decided"),
+            (prefix + "paxos_durable", (px_fam, durable, px_off),
+             np.asarray(px_t, np.int32), w, px_m, "slots_decided"),
+            (prefix + "guided_pair", (gp_fam, gp_ak, gp_off),
+             np.asarray(gp_t, np.int32), w, gp_m, "restarts_total"),
+            (prefix + "paxos_children", (px_fam, px_ak, px_off), px_kids, w,
+             px_m, "bug"),
+            (prefix + "paxos_durable_children", (px_fam, durable, px_off),
+             px_kids, w, px_m, "slots_decided"),
+            (prefix + "guided_pair_children", (gp_fam, gp_ak, gp_off),
+             gp_kids, w, gp_m, "bug"),
+        ]
+    compare_cfgs += search_compare
+    by_name = {c[0]: c for c in compare_cfgs}
+    compare_cfgs += [with_lanes(c[0], c[0] + "+obs", c[5], **on)
+                     for c in search_compare]
     fam_err = {}
 
     def make_engine(cfgs, **over):
@@ -391,12 +470,20 @@ def main() -> int:
         return DeviceEngine(acls(ccls(**ak)), EngineConfig(**dict(ck, **over)),
                             device=dev)
 
+    # The deepest comparison of the earlier paths runs at a smaller depth,
+    # to make room for the guided search's comparisons in the script's
+    # time: the full-width Raft hunt's first 256 of its 776 steps, lanes
+    # off and on. Its whole run is still held to a recycled sweep's in
+    # phase 7 (b), and the hunt with kill/restart to JAX's in phase 5.
+    earlier_depth = {"main_hunt": 256, "main_hunt+obs": 256}
     for name, cfgs, faults, w, max_steps, expect in compare_cfgs:
         seeds = np.arange(w)
         t0 = time.perf_counter()
         ck = cfgs[-1]
+        cut = name in earlier_depth
+        max_steps = earlier_depth.get(name, max_steps)
         eng = make_engine(cfgs)
-        fam = step_kernel.family_of(eng.actor).name
+        fam = step_kernel.family_of(eng.actor).route
         ks_state = eng.init(seeds, faults=faults)
         pl_state = eng.init(seeds, faults=faults)
         first, err = diff(ks_state, pl_state)
@@ -418,7 +505,7 @@ def main() -> int:
         check(first is None, f"{name}: kernel and plain step differ at the "
               f"end on leaf {first}")
         obs = eng.observe(ks_state)
-        check(not obs["active"].any(), f"{name}: worlds still active")
+        check(cut or not obs["active"].any(), f"{name}: worlds still active")
         if expect:
             check(obs[expect].any(), f"{name}: no world hit {expect}; the "
                   f"path it exists for went unexercised")
@@ -435,7 +522,8 @@ def main() -> int:
                       f"{name}: the metrics or ring lanes changed leaf "
                       f"{path}")
             del off
-        log(f"[4 compare] {name} ({fam}): W={w} {steps} steps bitwise "
+        log(f"[4 compare] {name} ({fam}): W={w} {steps} steps"
+            + (" (depth cut)" if cut else "") + " bitwise "
             f"equal (bug {int(obs['bug'].sum())}, overflow "
             f"{int(obs['overflow'].sum())}"
             + (f", elected {int(obs['leader_elected'].sum())}"
@@ -547,6 +635,18 @@ def main() -> int:
         log(f"[5 golden] {name} ({fam}): observe() digest equals the "
             f"JAX-derived constant ({int(obs['bug'].sum())} of 64 seeds "
             f"failing)")
+    for name, (fam, ak, ck, faults, max_steps) in \
+            golden.SEARCH_CONFIGS.items():
+        eng = make_engine((fam, ak, ck))
+        obs = eng.observe(eng.run(eng.init(
+            golden.SEEDS, faults=np.asarray(faults, np.int32)), max_steps))
+        digest = golden.observe_digest(obs)
+        check(digest == golden.GOLDEN_SEARCH[name],
+              f"{name}: observe() digest {digest} != JAX-derived "
+              f"{golden.GOLDEN_SEARCH[name]}")
+        log(f"[5 golden] {name} ({fam}, the guided search's deployment at "
+            f"its template): observe() digest equals the JAX-derived "
+            f"constant")
     # ---- 6. the main path at full size ------------------------------------
     engines = {name: DeviceEngine(RaftActor(RaftDeviceConfig(**rk)),
                                   EngineConfig(**ck), device=dev)
@@ -817,12 +917,15 @@ def main() -> int:
         depth lanes; per world whose bug flag is not yet set, what the
         invariant reads (tpc: the N x T decision table; pb: committed_max,
         and past it the views, the primary's log length, and the log row
-        and committed_cmd over the committed prefix); per delivered event
+        and committed_cmd over the committed prefix; Paxos: the N x S
+        chosen table; pair: the two targets' counters); per delivered event
         the handler's reads (tpc: decided, decision, voted and votes_yes at
         the txn, 7 B; pb: the node's view, log_len, commit and wd_epoch,
-        8 B); the actor lanes' bytes the step changed, written once; and
-        the metrics and ring lanes as :func:`lane_bytes` counts them."""
-        cfg, fam = eng.cfg, step_kernel.family_of(eng.actor).name
+        8 B; Paxos: the six int16 lanes at the node's slot, 12 B; pair:
+        nothing); the actor lanes' bytes the step changed, written once;
+        and the metrics and ring lanes as :func:`lane_bytes` counts
+        them."""
+        cfg, fam = eng.cfg, step_kernel.family_of(eng.actor).route
         n, q, p = cfg.n_nodes, cfg.queue_cap, cfg.payload_words
         active = (4 * q + 4 + 2 * p + n + 2 + 12 + 12
                   + 2 * (1 + 4 + 4 + 4 + 4) + 1 + 4 + 4)
@@ -837,6 +940,12 @@ def main() -> int:
             if fam == "tpc":
                 inv = n * eng.actor.tcfg.n_txns
                 handler = 7
+            elif fam == "paxos":
+                inv = 2 * n * eng.actor.xcfg.n_slots
+                handler = 12
+            elif fam == "pair":
+                inv = 8
+                handler = 0
             else:
                 cm = a0["committed_max"].to(torch.int64)
                 lim = cm.clamp(0, eng.actor.pcfg.log_cap)
@@ -855,9 +964,15 @@ def main() -> int:
         return [int(x) for x in torch.stack(out).cpu()]
 
     fam_results, fam_launches = {}, {}
+    # Whether each deployment finds a bug: the crosscheck legs' tpc and the
+    # pb hunt do; the clean pb leg and the guided search's two templates
+    # (no subset of either can fail) do not.
+    expect_bug = {"tpc_crosscheck": True, "pb_crosscheck": False,
+                  "pb_hunt": True, "paxos_hunt": False, "guided_pair": False}
     for name, (fam, ak, ck, faults, max_steps) in \
-            golden.FAMILY_CONFIGS.items():
+            {**golden.FAMILY_CONFIGS, **golden.SEARCH_CONFIGS}.items():
         eng = make_engine((fam, ak, ck))
+        fam = step_kernel.family_of(eng.actor).route
         fa = None if faults is None else np.asarray(faults, np.int32)
         w = W_FAMILY
         step_kernel.launches = 0
@@ -882,7 +997,7 @@ def main() -> int:
         del state
         check(launched > 0, f"{name}: the step kernel never launched")
         check(not obs["active"].any(), f"{name}: worlds left active")
-        check(obs["bug"].any() == (name != "pb_crosscheck"),
+        check(obs["bug"].any() == expect_bug[name],
               f"{name}: {int(obs['bug'].sum())} failing worlds, against "
               f"the deployment's expectation")
         n0 = step_kernel.launches
@@ -904,7 +1019,9 @@ def main() -> int:
             0, dtype=dtype).element_size()
             for _n, dtype, shape in eng.state_layout())
         bugs = np.flatnonzero(obs["bug"])
-        log(f"[6 family] {name} ({fam}): tile plan {plan.block} worlds per "
+        log(f"[6 family] {name} ({fam}, N={eng.cfg.n_nodes}, "
+            f"Q={eng.cfg.queue_cap}, P={eng.cfg.payload_words}, "
+            f"M={eng.cfg.m}): tile plan {plan.block} worlds per "
             f"block, {plan.smem_bytes} B shared memory (queue tiles only), "
             f"{state_b} state B/world")
         log(f"[6 family] {name}: W={w} init {best_init * 1e3:.2f} ms, run "
@@ -947,17 +1064,18 @@ def main() -> int:
                             EngineConfig(**dict(hunt_ck, **over)),
                             device=dev)
 
-    def chunk_device_ms(eng):
+    def chunk_device_ms(eng, sleep_cycles=SLEEP_CYCLES // 10):
         """Make ``eng``'s chunks time themselves: each chunk's launches
-        are queued behind a sleeping kernel and held by a CUDA event pair
-        (as in :func:`device_ms`); returns the list the times land in."""
+        are queued behind a sleeping kernel (``sleep_cycles`` long) and
+        held by a CUDA event pair (as in :func:`device_ms`); returns the
+        list the times land in."""
         times = []
         real = eng.run_steps
 
         def run_steps(state, k):
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(SLEEP_CYCLES // 10)
+            torch.cuda._sleep(sleep_cycles)
             e0.record()
             real(state, k)
             e1.record()
@@ -1135,6 +1253,156 @@ def main() -> int:
         f"{ls['dispatches']}; step kernel launches {pb_sweep_launches}, "
         f"device time {sum(chunk_ms):.3f} ms, device idle share "
         f"{1 - sum(chunk_ms) / (wall_d * 1e3):.3f}")
+
+    # ---- 8. the guided hunts ----------------------------------------------
+    # (a) bench.py's guided_hunt leg (search/hunts.py): each canonical hunt
+    # at 512 seeds, guided and random, through the guided sweep, held to
+    # the JAX pins; then a replay of the same hunt that times its chunks
+    # (chunk_device_ms), its searcher and its fold, and must give the same
+    # pins. Each chunk waits behind a longer sleep than phase 7's (about
+    # 50 ms, not 10): a raft hunt chunk's 64 launches once took longer to
+    # queue than 10 ms, which the timing's check refuses.
+    hunt_sleep = SLEEP_CYCLES // 2
+    def timed_search():
+        """Make the sweep's searcher (the children's generation on the
+        card, between a CUDA event pair, host launch gaps included) and
+        its fold (on the host) time themselves; returns the two lists the
+        ms land in, and a function that undoes it."""
+        gen_ms, fold_ms = [], []
+        real_gen = sweep_mod.generate_children
+        real_fold = sweep_mod.host_harvest_fold
+
+        def gen(*a, **k):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = real_gen(*a, **k)
+            e1.record()
+            e1.synchronize()
+            gen_ms.append(e0.elapsed_time(e1))
+            return out
+
+        def fold(*a, **k):
+            t0 = time.perf_counter()
+            out = real_fold(*a, **k)
+            fold_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        def undo():
+            sweep_mod.generate_children = real_gen
+            sweep_mod.host_harvest_fold = real_fold
+
+        sweep_mod.generate_children = gen
+        sweep_mod.host_harvest_fold = fold
+        return gen_ms, fold_ms, undo
+
+    def mean(xs):
+        return sum(xs) / len(xs) if xs else 0.0
+
+    hunt_launches = {}
+    for hname in ("pair", "raft", "paxos"):
+        hunt = getattr(hunts, f"{hname}_hunt")()
+        route = step_kernel.family_of(hunt.actor).route
+        for mode in ("guided", "random"):
+            kw = dict(faults=hunt.template, pipeline=False,
+                      stop_on_first_bug=golden.HUNT_STOP_FIRST[hname],
+                      search=hunt.search(mode == "guided"), **hunt.sweep_kw)
+            seeds = np.arange(golden.HUNT_BUDGET)
+            eng = DeviceEngine(hunt.actor, hunt.cfg, device=dev)
+            step_kernel.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = sweep(None, hunt.cfg, seeds, engine=eng, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = step_kernel.launches
+            check(launched > 0, f"hunt {hname} {mode}: the step kernel "
+                  f"never launched")
+            hunt_launches[route] = hunt_launches.get(route, 0) + launched
+            pins = golden.hunt_pins(res)
+            want = golden.HUNT_PINS[hname][mode]
+            check(pins == want, f"hunt {hname} {mode}: {pins} differ from "
+                  f"the JAX pins {want}")
+            eng_t = DeviceEngine(hunt.actor, hunt.cfg, device=dev)
+            chunk_ms = chunk_device_ms(eng_t, hunt_sleep)
+            gen_ms, fold_ms, undo = timed_search()
+            try:
+                res_t = sweep(None, hunt.cfg, seeds, engine=eng_t, **kw)
+            finally:
+                undo()
+            check(golden.hunt_pins(res_t) == pins, f"hunt {hname} {mode}: "
+                  f"the timed replay gave other pins")
+            admitted = int((res.observations["steps"] > 0).sum())
+            ls = res.loop_stats
+            log(f"[8 hunt a] {hname} {mode} ({route} kernel, "
+                f"{golden.HUNT_BUDGET} seeds, batch "
+                f"{hunt.sweep_kw['batch_worlds']}, chunks of "
+                f"{hunt.sweep_kw['chunk_steps']}): the JAX pins hold "
+                f"(seeds to bug {pins['seeds_to_bug']}, bugs "
+                f"{pins['bugs_found']}, generations {pins['generations']}, "
+                f"corpus {pins['corpus_size']}, depth "
+                f"{pins['lineage_depth']}); wall {wall * 1e3:.2f} ms, "
+                f"{admitted} seeds admitted = {admitted / wall:.0f} seeds/s, "
+                f"{res.search.generations} refills, chunks {ls['chunks']}, "
+                f"{launched} launches; searcher {mean(gen_ms):.3f} ms and "
+                f"fold {mean(fold_ms):.3f} ms per refill (replay; "
+                f"{sum(gen_ms) + sum(fold_ms):.1f} ms of the hunt); kernel "
+                f"device time {sum(chunk_ms):.3f} ms, device idle share "
+                f"{1 - sum(chunk_ms) / (wall * 1e3):.3f}")
+    # (b) the Paxos hunt at the width of phase 7's sweeps: 65,536 seeds
+    # through 8,192 slots, guided, to its first bug; that seed fails again
+    # in an independent init + run under the schedule the search
+    # materialized for it.
+    hunt = hunts.paxos_hunt()
+    wide = dict(faults=hunt.template, search=hunt.search(True),
+                recycle=True, batch_worlds=8192, chunk_steps=64,
+                max_steps=50_000_000, stop_on_first_bug=True,
+                pipeline=False)
+    seeds = np.arange(W_FAMILY)
+    eng = DeviceEngine(hunt.actor, hunt.cfg, device=dev)
+    step_kernel.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sweep(None, hunt.cfg, seeds, engine=eng, **wide)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = step_kernel.launches
+    hunt_launches["paxos"] += launched
+    check(launched > 0, "wide Paxos hunt: the step kernel never launched")
+    check(res.failing_seeds, "wide Paxos hunt: no bug found")
+    first = int(res.failing_seeds[0])
+    sched = res.search.schedules[first]
+    alone = eng.observe(eng.run(eng.init(np.array([first]), faults=sched),
+                                100_000))
+    check(bool(alone["bug"][0]), f"wide Paxos hunt: seed {first} does not "
+          f"fail in an independent init + run under its schedule")
+    eng_t = DeviceEngine(hunt.actor, hunt.cfg, device=dev)
+    chunk_ms = chunk_device_ms(eng_t, hunt_sleep)
+    gen_ms, fold_ms, undo = timed_search()
+    try:
+        res_t = sweep(None, hunt.cfg, seeds, engine=eng_t, **wide)
+    finally:
+        undo()
+    check(res_t.failing_seeds == res.failing_seeds
+          and golden.search_digest(res_t.search)
+          == golden.search_digest(res.search),
+          "wide Paxos hunt: the timed replay differs")
+    admitted = int((res.observations["steps"] > 0).sum())
+    chain = res.search.ancestry(first)
+    log(f"[8 hunt b] Paxos guided, {W_FAMILY} seeds through 8192 slots, "
+        f"chunks of 64, stop at the first bug: wall {wall * 1e3:.2f} ms, "
+        f"{admitted} seeds admitted = {admitted / wall:.0f} seeds/s; "
+        f"failing {res.failing_seeds[:8]} ({len(res.failing_seeds)}); seed "
+        f"{first} fails again alone under its schedule (bug at "
+        f"{int(alone['bug_time_us'][0])} us; ancestry depth "
+        f"{len(chain) - 1}, operators "
+        f"{sorted({op for node in chain for op in node['ops']})}); "
+        f"{res.search.generations} refills, corpus "
+        f"{res.search.corpus_size}/{res.search.corpus_capacity}, "
+        f"{res.search.inserted} inserts; {launched} launches; searcher "
+        f"{mean(gen_ms):.3f} ms and fold {mean(fold_ms):.3f} ms per refill "
+        f"(replay); kernel device time {sum(chunk_ms):.3f} ms, device idle "
+        f"share {1 - sum(chunk_ms) / (wall * 1e3):.3f}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(card)
@@ -1143,7 +1411,7 @@ def main() -> int:
         "route": "cuda",
         "source": "madsim_tpu_torch/csrc/step_raft.cu",
         "replaces": "madsim_tpu/engine/pallas_step.py:132",
-        "launches": main_launches + sweep_launches,
+        "launches": main_launches + sweep_launches + hunt_launches["raft"],
         "max_abs_err": fam_err["raft"],
         "ms": hl["kernel_ms"],
         "plain_ms": hl["plain_ms"],
@@ -1151,14 +1419,15 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": None,
     }]
-    for fam, main in (("tpc", "tpc_crosscheck"), ("pb", "pb_crosscheck")):
+    for fam, main in (("tpc", "tpc_crosscheck"), ("pb", "pb_crosscheck"),
+                      ("paxos", "paxos_hunt"), ("pair", "guided_pair")):
         r = fam_results[main]
         kernels.append({
             "name": f"step_kernel:{fam}",
             "route": "cuda",
             "source": f"madsim_tpu_torch/csrc/step_{fam}.cu",
             "replaces": "madsim_tpu/engine/pallas_step.py:132",
-            "launches": fam_launches[fam],
+            "launches": fam_launches[fam] + hunt_launches.get(fam, 0),
             "max_abs_err": fam_err[fam],
             "ms": r["kernel_ms"],
             "plain_ms": r["plain_ms"],

@@ -115,6 +115,11 @@ struct Pb {
   using View = PbView<N>;
   using Row = PbRow;
   static constexpr int FAMILY = FAMILY_PB;
+  // Node counts up to 8; the outbox is a message per node and the timer.
+  static constexpr int MAX_NODES = 8;
+  __host__ __device__ static constexpr int m(int n) { return n + 1; }
+  // Payload rows of at least 8 words.
+  static constexpr bool SHORT_PAYLOAD = false;
 
   template <int N>
   static __device__ __forceinline__ void tiles_in(const State<Lanes>&,

@@ -426,6 +426,11 @@ struct Raft {
   using View = World<N>;
   using Row = RaftRow;
   static constexpr int FAMILY = FAMILY_RAFT;
+  // Node counts up to 8; the outbox is a message per node and the timer.
+  static constexpr int MAX_NODES = 8;
+  __host__ __device__ static constexpr int m(int n) { return n + 1; }
+  // Payload rows of at least 8 words.
+  static constexpr bool SHORT_PAYLOAD = false;
 
   // The commit and log tiles: the block's range of each lane (first, step
   // over the block), or this world's rows (at its tile row).

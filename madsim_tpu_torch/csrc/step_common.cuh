@@ -11,7 +11,9 @@
 
 namespace {
 
-constexpr int MAX_N = 8;
+// The most nodes any policy takes (each policy declares its own
+// MAX_NODES; only the pair policy goes past 8).
+constexpr int MAX_N = 12;
 constexpr int MAX_P = 16;
 constexpr int MAX_Q = 256;
 constexpr int MAX_BLOCK = 1024;
@@ -28,7 +30,8 @@ constexpr int FAULT_KILL = 0, FAULT_RESTART = 1, FAULT_CLOG_NODE = 2,
               FAULT_SET_LOSS = 7, FAULT_PAUSE = 8, FAULT_RESUME = 9;
 
 // The actor families the kernel has compiled in (Params::family).
-constexpr int FAMILY_RAFT = 0, FAMILY_TPC = 1, FAMILY_PB = 2;
+constexpr int FAMILY_RAFT = 0, FAMILY_TPC = 1, FAMILY_PB = 2,
+              FAMILY_PAXOS = 3, FAMILY_PAIR = 4;
 
 // State leaves, in the order of madsim_tpu_torch.engine.core.tree_leaves:
 // the engine's lanes, with the actor's lanes (the family's Lanes struct of
@@ -422,11 +425,14 @@ __device__ __forceinline__ int32_t pmod(int32_t x, int n) {
 }
 
 // The popped payload row's first 8 words (no family and no net-config
-// fault reads more), widened.
+// fault reads more), widened. SHORT (a policy whose rows may hold fewer
+// than 8 words, Paxos's 5) reads min(P, 8) words, the rest as 0; the other
+// policies take P >= 8 and read 8 words unguarded.
 __device__ __forceinline__ int32_t low16(int32_t x) {
   return (int32_t)(int16_t)(uint16_t)((uint32_t)x & 0xFFFFu);
 }
-__device__ __forceinline__ Payload load_payload(const int16_t* row,
+template <bool SHORT>
+__device__ __forceinline__ Payload load_payload(const int16_t* row, int P,
                                                 bool vec) {
   Payload p;
   if (vec) {
@@ -439,7 +445,7 @@ __device__ __forceinline__ Payload load_payload(const int16_t* row,
     p.w5 = x.z >> 16;
     p.w6 = low16(x.w);
     p.w7 = x.w >> 16;
-  } else {
+  } else if constexpr (!SHORT) {
     p.w0 = row[0];
     p.w1 = row[1];
     p.w2 = row[2];
@@ -448,6 +454,15 @@ __device__ __forceinline__ Payload load_payload(const int16_t* row,
     p.w5 = row[5];
     p.w6 = row[6];
     p.w7 = row[7];
+  } else {
+    p.w0 = row[0];
+    p.w1 = P > 1 ? row[1] : 0;
+    p.w2 = P > 2 ? row[2] : 0;
+    p.w3 = P > 3 ? row[3] : 0;
+    p.w4 = P > 4 ? row[4] : 0;
+    p.w5 = P > 5 ? row[5] : 0;
+    p.w6 = P > 6 ? row[6] : 0;
+    p.w7 = P > 7 ? row[7] : 0;
   }
   return p;
 }
@@ -457,7 +472,9 @@ __device__ __forceinline__ int32_t pack2(int32_t lo, int32_t hi) {
                    ((uint32_t)(uint16_t)sat16(hi) << 16));
 }
 
-// An inserted event's payload row: words 0..7 saturated, the rest zero.
+// An inserted event's payload row: words 0..7 saturated, the rest zero;
+// SHORT (as for load_payload) writes words 0..min(P, 8)-1 only.
+template <bool SHORT>
 __device__ __forceinline__ void store_payload(int16_t* row, int P, bool vec,
                                               const Payload e) {
   if (vec) {
@@ -465,7 +482,7 @@ __device__ __forceinline__ void store_payload(int16_t* row, int P, bool vec,
     out[0] = make_int4(pack2(e.w0, e.w1), pack2(e.w2, e.w3),
                        pack2(e.w4, e.w5), pack2(e.w6, e.w7));
     if (P == 16) out[1] = make_int4(0, 0, 0, 0);
-  } else {
+  } else if constexpr (!SHORT) {
     row[0] = sat16(e.w0);
     row[1] = sat16(e.w1);
     row[2] = sat16(e.w2);
@@ -475,6 +492,15 @@ __device__ __forceinline__ void store_payload(int16_t* row, int P, bool vec,
     row[6] = sat16(e.w6);
     row[7] = sat16(e.w7);
     for (int k = 8; k < P; k++) row[k] = 0;
+  } else {
+    row[0] = sat16(e.w0);
+    if (P > 1) row[1] = sat16(e.w1);
+    if (P > 2) row[2] = sat16(e.w2);
+    if (P > 3) row[3] = sat16(e.w3);
+    if (P > 4) row[4] = sat16(e.w4);
+    if (P > 5) row[5] = sat16(e.w5);
+    if (P > 6) row[6] = sat16(e.w6);
+    if (P > 7) row[7] = sat16(e.w7);
   }
 }
 
@@ -482,7 +508,9 @@ __device__ __forceinline__ void store_payload(int16_t* row, int P, bool vec,
 // batch (every world, with its active flag) holds what a frozen world needs;
 // an active world's rest is read while the block's tile copies are in
 // flight. Per-node byte rows are bit masks (alive, paused, clog_node) or
-// packed bytes (gen), so that a runtime index needs no array.
+// packed bytes (gen: nodes 0..7 in gen, 8..11 in gen_hi, which only an
+// instantiation with N > 8 touches), so that a runtime index needs no
+// array.
 struct Pre {
   int32_t now, lat_min, lat_max, steps, delivered, dropped;
   uint32_t k0, k1, ctr;
@@ -492,9 +520,27 @@ struct Pre {
   int hint;  // the family's frozen-world hint (Raft: nodes with commit > 0)
   uint32_t alive, paused, clog_node;
   uint64_t gen;
+  uint32_t gen_hi;
 
+  template <int N>
   __device__ __forceinline__ int gen_of(int i) const {
-    return (int)((gen >> (8 * i)) & 0xFFu);
+    if constexpr (N <= 8) {
+      return (int)((gen >> (8 * i)) & 0xFFu);
+    } else {
+      return i < 8 ? (int)((gen >> (8 * i)) & 0xFFu)
+                   : (int)((gen_hi >> (8 * (i - 8))) & 0xFFu);
+    }
+  }
+  template <int N>
+  __device__ __forceinline__ void set_gen(int i, int g) {
+    if constexpr (N > 8) {
+      if (i >= 8) {
+        gen_hi = (gen_hi & ~(0xFFu << (8 * (i - 8)))) |
+                 ((uint32_t)g << (8 * (i - 8)));
+        return;
+      }
+    }
+    gen = (gen & ~(0xFFull << (8 * i))) | ((uint64_t)g << (8 * i));
   }
 };
 
@@ -517,7 +563,10 @@ __device__ __forceinline__ void load_rest(const State<Lanes>& s, size_t w,
     r.alive |= (uint32_t)(s.alive[at] != 0) << i;
     r.paused |= (uint32_t)(s.paused[at] != 0) << i;
     r.clog_node |= (uint32_t)(s.clog_node[at] != 0) << i;
-    r.gen |= (uint64_t)(uint8_t)s.gen[at] << (8 * i);
+    if (i < 8)
+      r.gen |= (uint64_t)(uint8_t)s.gen[at] << (8 * i);
+    else
+      r.gen_hi |= (uint32_t)(uint8_t)s.gen[at] << (8 * (i - 8));
   }
 }
 

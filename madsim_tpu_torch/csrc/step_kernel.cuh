@@ -115,7 +115,9 @@ template <class A, int N>
 __device__ __forceinline__ uint64_t active_step(
     const State<typename A::Lanes>& s, const Params& p, size_t w,
     const typename A::template View<N>& v, Pre& r, int32_t* qt, int32_t* qm) {
-  constexpr int M = N + 1;
+  // The outbox's entries (the family's: N messages and a timer, or the
+  // pair family's two rows); the step draws 2 M times.
+  constexpr int M = A::m(N);
   const int Q = p.Q, P = p.P;
   int16_t* qp = s.q_payload + w * Q * P;
   const bool pay_vec = p.pay_unit == 16;
@@ -164,7 +166,8 @@ __device__ __forceinline__ uint64_t active_step(
             ev_gen = (meta >> 24) & 0xFF;
   // Every read of the popped payload happens here, before the first queue
   // write: entry 0 of the sends may take the popped slot.
-  const Payload pay = load_payload(qp + slot * P, pay_vec);
+  const Payload pay =
+      load_payload<A::SHORT_PAYLOAD>(qp + slot * P, P, pay_vec);
 
   const int32_t now = found ? max(r.now, tmin) : r.now;
   const bool in_time = now < p.t_limit_us;
@@ -174,7 +177,7 @@ __device__ __forceinline__ uint64_t active_step(
   const typename A::Row row = A::template load_row<N>(v, dst);
   const bool is_fault = (ev_flags & FLAG_FAULT) != 0;
   const bool is_timer = (ev_flags & FLAG_TIMER) != 0;
-  const bool stale = is_timer && ev_gen != r.gen_of(dst);
+  const bool stale = is_timer && ev_gen != r.gen_of<N>(dst);
   const bool dead = !((r.alive >> dst) & 1u);
   const bool deliver = found && in_time && !is_fault && !stale && !dead;
   const bool do_fault = found && in_time && is_fault;
@@ -211,9 +214,9 @@ __device__ __forceinline__ uint64_t active_step(
       r.paused = set_bit(r.paused, a, paused1);
       r.clog_node = set_bit(r.clog_node, a, clog1);
       if (is_kill || is_restart) {  // the generation wraps mod 256
-        const int g1 = (r.gen_of(a) + 1) & 0xFF;
+        const int g1 = (r.gen_of<N>(a) + 1) & 0xFF;
         s.gen[at] = (int8_t)(uint8_t)g1;
-        r.gen = (r.gen & ~(0xFFull << (8 * a))) | ((uint64_t)g1 << (8 * a));
+        r.set_gen<N>(a, g1);
       }
       if (b < N) {  // a == src: the row of links the sends read
         const bool link0 = (links >> b) & 1u;
@@ -285,8 +288,8 @@ __device__ __forceinline__ uint64_t active_step(
       return;
     }
     qt[cursor] = t_ev;
-    qm[cursor] = pack_meta(kind, flags, src, d, r.gen_of(d));
-    store_payload(qp + cursor * P, P, pay_vec, e);
+    qm[cursor] = pack_meta(kind, flags, src, d, r.gen_of<N>(d));
+    store_payload<A::SHORT_PAYLOAD>(qp + cursor * P, P, pay_vec, e);
     dirty |= 1ull << (cursor >> 2);
     cursor++;
     n_ins++;
@@ -499,11 +502,14 @@ int launch_step(const State<typename A::Lanes>& s, const Params& p,
   return (int)cudaGetLastError();
 }
 
-// Instantiates and launches step_kernel<A, N> for N = N0..8 (N0 is the
-// family's least node count); other N are refused.
+// Instantiates and launches step_kernel<A, N> for N = N0..A::MAX_NODES (N0
+// is the family's least node count; MAX_NODES is 8, or 12 for the pair
+// family); other N are refused.
 template <class A, int N0>
 int launch_n(const State<typename A::Lanes>& s, const Params& p, int block,
              void* stream) {
+  constexpr int NX = A::MAX_NODES;
+  static_assert(NX >= 8 && NX <= MAX_N, "a policy's MAX_NODES");
   switch (p.N) {
     case 1:
       if constexpr (N0 <= 1) return launch_step<A, 1>(s, p, block, stream);
@@ -517,6 +523,18 @@ int launch_n(const State<typename A::Lanes>& s, const Params& p, int block,
     case 6: return launch_step<A, 6>(s, p, block, stream);
     case 7: return launch_step<A, 7>(s, p, block, stream);
     case 8: return launch_step<A, 8>(s, p, block, stream);
+    case 9:
+      if constexpr (NX >= 9) return launch_step<A, 9>(s, p, block, stream);
+      break;
+    case 10:
+      if constexpr (NX >= 10) return launch_step<A, 10>(s, p, block, stream);
+      break;
+    case 11:
+      if constexpr (NX >= 11) return launch_step<A, 11>(s, p, block, stream);
+      break;
+    case 12:
+      if constexpr (NX >= 12) return launch_step<A, 12>(s, p, block, stream);
+      break;
     default: break;
   }
   return (int)cudaErrorInvalidValue;
@@ -556,7 +574,8 @@ int step_entry(void* const* ptrs, int n_ptrs, const int* params, int block,
     if ((ptrs[n_base + N_METRICS + i] != nullptr) != (p.bb_k > 0))
       return (int)cudaErrorInvalidValue;
   if (p.family != A::FAMILY || !A::params_ok(p) || p.W <= 0 || p.N < N0 ||
-      p.N > MAX_N || p.P < 8 || p.P > MAX_P || p.Q < 1 || p.Q > MAX_Q ||
+      p.N > A::MAX_NODES || p.P < (A::SHORT_PAYLOAD ? 1 : 8) ||
+      p.P > MAX_P || p.Q < 1 || p.Q > MAX_Q ||
       block <= 0 || block > MAX_BLOCK || p.smem_bytes <= 0 ||
       p.smem_bytes > SMEM_MAX || p.q_stride < p.Q || p.q_stride % 4 ||
       !unit_ok(p.q_unit, 4) || (p.pay_unit != 16 && p.pay_unit != 2) ||

@@ -370,8 +370,6 @@ class DeviceEngine:
         if seeds.ndim != 1:
             raise ValueError("seeds must be a 1-D vector (one world per seed)")
         w = seeds.shape[0]
-        lo = (seeds & np.uint64(0xFFFFFFFF)).astype(np.uint32)
-        hi = (seeds >> np.uint64(32)).astype(np.uint32)
         if faults is None:
             faults = np.zeros((w, 0, 4), np.int32)
         else:
@@ -404,6 +402,15 @@ class DeviceEngine:
                                  f"in the payload: payload_words must be "
                                  f">= {need_words} (packed={self.cfg.packed})")
 
+        return self._init_host(seeds, faults, configs)
+
+    def _init_host(self, seeds: np.ndarray, faults, configs) -> WorldState:
+        """:meth:`init` after the fault rows' validation: ``faults`` is a
+        (W, F, 4) host array, or a device tensor the caller vouches for
+        (:meth:`refill`)."""
+        w = seeds.shape[0]
+        lo = (seeds & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        hi = (seeds >> np.uint64(32)).astype(np.uint32)
         if configs is None:
             configs = np.array([self.cfg.latency_min_us,
                                 self.cfg.latency_max_us,
@@ -419,6 +426,8 @@ class DeviceEngine:
             raise ValueError("configs loss_rate must be in [0, 1]")
 
         def dev(x):
+            if isinstance(x, torch.Tensor):
+                return x.to(device=self.device, dtype=torch.int32)
             return torch.from_numpy(np.array(x, order="C")).to(self.device)
 
         return self._init_batched(dev(lo), dev(hi), dev(faults), dev(lat_min),
@@ -524,16 +533,22 @@ class DeviceEngine:
         placeholder seed works there).
 
         ``faults``/``configs`` follow :meth:`init`, plus a per-slot
-        ``(W, F, 4)`` host schedule, one block per slot. A refilled slot is
-        bitwise an independent :meth:`init` of its seed. ``state`` is
-        updated in place and returned.
+        ``(W, F, 4)`` schedule, one block per slot. A per-slot schedule may
+        be a **device tensor** (the guided search's children): that path
+        skips the host-side validation of the row values, so the refill
+        never waits on the device, under the contract that such schedules
+        are valid by construction (the mutation operators keep validity;
+        the template was validated by :meth:`init`). A refilled slot is
+        bitwise an independent :meth:`init` of its seed under its own
+        schedule. ``state`` is updated in place and returned.
         """
         w = int(np.asarray(new_seeds).shape[0])
-        if isinstance(faults, torch.Tensor):
-            raise NotImplementedError(
-                "a device-tensor per-slot fault schedule is the guided "
-                "search's refill path, not ported yet (ROADMAP Queue A "
-                "item 8): pass the schedule as a host numpy array")
+        if isinstance(faults, torch.Tensor) and faults.dim() != 3:
+            raise ValueError(
+                f"a device-tensor fault override must be per-slot "
+                f"(n_slots, F, 4); got {faults.dim()}-D shape "
+                f"{tuple(faults.shape)}: pass host arrays for the "
+                "shared-schedule form")
         if faults is not None and getattr(faults, "ndim", 0) == 3:
             if faults.shape[-1] != 4:
                 raise ValueError(
@@ -545,7 +560,11 @@ class DeviceEngine:
                     f"per-slot fault schedules carry one (F, 4) block "
                     f"per batch slot: got leading dim {faults.shape[0]} "
                     f"but the refill batch holds {w} slots")
-        fresh = self.init(new_seeds, faults=faults, configs=configs)
+        if isinstance(faults, torch.Tensor):
+            fresh = self._init_host(np.asarray(new_seeds, dtype=np.uint64),
+                                    faults, configs)
+        else:
+            fresh = self.init(new_seeds, faults=faults, configs=configs)
         mask = torch.from_numpy(np.asarray(slot_mask, bool).copy()).to(
             state.now.device)
         for dst, src in zip(tree_leaves(state), tree_leaves(fresh)):
@@ -928,7 +947,7 @@ class DeviceEngine:
     # Observation
     # ------------------------------------------------------------------
     def observe_device(self, state: WorldState) -> Dict[str, torch.Tensor]:
-        """The observation dict as device tensors."""
+        """The observation dict as device tensors, in sorted key order."""
         out = {
             "now_us": state.now,
             "active": state.active,
@@ -951,9 +970,12 @@ class DeviceEngine:
             out.update({f"bb_{name}": val for name, val
                         in state.blackbox._asdict().items()})
         out.update(self.actor.observe(self.cfg, state.astate))
-        return out
+        # Sorted by key, as ``jax.device_get`` rebuilds a dict: the order
+        # is visible where equal counts tie (SweepResult.summary()).
+        return dict(sorted(out.items()))
 
     def observe(self, state: WorldState) -> Dict[str, np.ndarray]:
-        """Engine and actor observations as host numpy arrays."""
+        """Engine and actor observations as host numpy arrays, in sorted
+        key order (as the JAX package returns them)."""
         return {k: v.cpu().numpy()
                 for k, v in self.observe_device(state).items()}

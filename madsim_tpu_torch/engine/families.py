@@ -1,13 +1,12 @@
 """The actor-family registry: every workload family the port ships, with
 its canonical conformance shape.
 
-The port of ``madsim_tpu/engine/families.py`` for the families ported so
-far: raft, pb, tpc and paxos, with the JAX registry's ``conformance()``
-shapes. The guided search's synthetic families (``pair_restart``,
-``guided_pair``) come with it (ROADMAP Queue A item 8), and the JAX
-registry's ``compiled`` flag and class properties with the host twin's
-conformance crosscheck (``actorc/host.py``), their one consumer. Imports
-are lazy per entry.
+The port of ``madsim_tpu/engine/families.py``: raft, pb, tpc, paxos and
+the guided search's synthetic families ``pair_restart`` and
+``guided_pair``, with the JAX registry's ``conformance()`` shapes. The JAX
+registry's ``compiled`` and ``divergent`` flags come with the host twin's
+conformance crosscheck (``actorc/host.py``), their one consumer (ROADMAP).
+Imports are lazy per entry.
 """
 from __future__ import annotations
 
@@ -85,9 +84,40 @@ def _paxos() -> Family:
     return Family("paxos", load, conf)
 
 
+def _pair_restart() -> Family:
+    def load():
+        from ..triage.synthetic import PairRestartActor, PairRestartConfig
+
+        return PairRestartActor, PairRestartConfig
+
+    def conf():
+        from ..triage.synthetic import engine_config
+
+        cls, cfg = load()
+        acfg = cfg()
+        return cls(acfg), engine_config(acfg)
+    return Family("pair_restart", load, conf)
+
+
+def _guided_pair() -> Family:
+    def load():
+        from ..search.family import GuidedPairActor, GuidedPairConfig
+
+        return GuidedPairActor, GuidedPairConfig
+
+    def conf():
+        from ..search.family import engine_config
+
+        cls, cfg = load()
+        acfg = cfg()
+        return cls(acfg), engine_config(acfg)
+    return Family("guided_pair", load, conf)
+
+
 def actor_families() -> Dict[str, Family]:
     """name -> :class:`Family`, for every family the port ships."""
-    fams = [_raft(), _pb(), _tpc(), _paxos()]
+    fams = [_raft(), _pb(), _tpc(), _paxos(), _pair_restart(),
+            _guided_pair()]
     return {f.name: f for f in fams}
 
 

@@ -12,6 +12,17 @@ those of the compiled families' deployments (:data:`FAMILY_CONFIGS`).
 reproduces them. ``tests/test_torch_engine.py``, ``tests/test_torch_sweep.py``
 and ``tests/test_torch_families.py`` recompute every digest from the JAX
 package on the CPU, so the constants cannot drift from it.
+
+The guided search's constants: :data:`GOLDEN_SEARCH`, the ``observe()``
+digests of its two deployments at their templates (:data:`SEARCH_CONFIGS`),
+and the pins of the three canonical guided hunts (:data:`HUNT_PINS` at the
+full budget of 512 seeds, :data:`HUNT_PINS_REDUCED` at the budgets of the
+CPU tests), each a :func:`hunt_pins` of JAX's ``sweep(search=...,
+pipeline=False)``. ``tests/test_torch_hunts.py`` recomputes the deployment
+digests and the reduced pins from JAX; the full-budget pins were computed
+with JAX on the CPU by its test marked ``slow``::
+
+    JAX_PLATFORMS=cpu python -m pytest tests/test_torch_hunts.py -m slow
 """
 from __future__ import annotations
 
@@ -101,6 +112,232 @@ GOLDEN_FAMILIES = {
     "pb_hunt":
         "18bb10c188dea992e33571d9fff19ca1270902e7c5673505abed9c63f370fda3",
 }
+
+
+#: The guided search's two deployments (search/hunts.py) at their
+#: templates: name -> (family, config kwargs, EngineConfig kwargs, fault
+#: rows, max_steps). paxos_hunt is hunts.paxos_hunt()'s (forgetful
+#: acceptors, every decree contended; the template's six early restarts);
+#: guided_pair is hunts.pair_hunt()'s (12 nodes; six restarts of filler
+#: nodes).
+SEARCH_CONFIGS = {
+    "paxos_hunt": (
+        "paxos", dict(buggy_forgetful_acceptor=True, contend_all=True),
+        dict(n_nodes=5, outbox_cap=6, queue_cap=128, payload_words=5,
+             t_limit_us=2_000_000, metrics=True),
+        [[4_000, FAULT_RESTART, 0, 0], [8_000, FAULT_RESTART, 2, 0],
+         [12_000, FAULT_RESTART, 4, 0], [16_000, FAULT_RESTART, 1, 0],
+         [20_000, FAULT_RESTART, 3, 0], [24_000, FAULT_RESTART, 0, 0]],
+        4_000),
+    "guided_pair": (
+        "guided_pair", dict(n=12),
+        dict(n_nodes=12, outbox_cap=2, queue_cap=64, t_limit_us=2_000_000,
+             metrics=True),
+        [[20_000, FAULT_RESTART, 0, 0], [40_000, FAULT_RESTART, 3, 0],
+         [60_000, FAULT_RESTART, 4, 0], [80_000, FAULT_RESTART, 5, 0],
+         [100_000, FAULT_RESTART, 6, 0], [120_000, FAULT_RESTART, 7, 0]],
+        4_000),
+}
+
+#: SHA-256 of observe() for SEEDS under each of SEARCH_CONFIGS.
+GOLDEN_SEARCH = {
+    "paxos_hunt": (
+        "b4747c7128309ebf4311c6b591ff1f487cd63d0ac5ff5875f436d2e5987a8eca"),
+    "guided_pair": (
+        "16b4d97fa70a76168a2bb13aee3381230ec659e7077aebe183b8bbc661472118"),
+}
+
+#: The guided hunts as bench.py's guided_hunt leg runs them: 512 seeds,
+#: stopping at the first bug except for raft (bugs at the budget).
+HUNT_BUDGET = 512
+HUNT_STOP_FIRST = {"pair": True, "raft": False, "paxos": True}
+#: The budgets of the CPU tests' runs of the same hunts.
+HUNT_BUDGET_REDUCED = {"pair": 128, "raft": 64, "paxos": 96}
+
+
+def _ops(**rows):
+    """An operator table from (produced, novel, survived, bug) rows, with
+    obs/lineage.py's survival_pct."""
+    return {name: dict(produced=p, novel=nv, survived=sv, bug=b,
+                       survival_pct=round(100.0 * sv / p, 2) if p else 0.0)
+            for name, (p, nv, sv, b) in rows.items()}
+
+
+#: hunt_pins of JAX's guided and random runs at HUNT_BUDGET.
+HUNT_PINS = {
+    "pair": {
+        "guided": dict(
+            seeds_to_bug=73, bugs_found=1,
+            generations=2, corpus_size=9,
+            lineage_depth=2,
+            operator_stats=_ops(
+                splice=(50, 5, 5, 1), disable=(19, 3, 3, 0),
+                time_jitter=(46, 5, 5, 1), node_rotate=(46, 3, 3, 1),
+                op_flip=(13, 6, 6, 0)),
+            search_digest=(
+                "ffe6f4007696b3cef4155ac81f5c0906"
+                "5491869921d87430b0dca946fe4abff9")),
+        "random": dict(
+            seeds_to_bug=409, bugs_found=1,
+            generations=12, corpus_size=1,
+            lineage_depth=1,
+            operator_stats=_ops(
+                splice=(282, 0, 0, 1), disable=(112, 0, 0, 0),
+                time_jitter=(274, 0, 0, 1), node_rotate=(233, 0, 0, 1),
+                op_flip=(114, 0, 0, 0)),
+            search_digest=(
+                "8a83d53a1f3c3655c9c1b422b0ffc034"
+                "1cfdf31b6079a3e654dc225ae5110d04")),
+    },
+    "raft": {
+        "guided": dict(
+            seeds_to_bug=40, bugs_found=6,
+            generations=21, corpus_size=16,
+            lineage_depth=6,
+            operator_stats=_ops(
+                splice=(346, 299, 26, 2), disable=(101, 91, 8, 0),
+                time_jitter=(448, 389, 32, 6), node_rotate=(269, 238, 14, 2),
+                op_flip=(126, 114, 9, 1)),
+            search_digest=(
+                "33644c120a2e85ac63910dc779c8c2ff"
+                "4f3d6b186b83e6cb4eabbecaa1b640c3")),
+        "random": dict(
+            seeds_to_bug=40, bugs_found=3,
+            generations=25, corpus_size=1,
+            lineage_depth=1,
+            operator_stats=_ops(
+                splice=(356, 0, 0, 2), disable=(132, 0, 0, 0),
+                time_jitter=(458, 0, 0, 3), node_rotate=(287, 0, 0, 1),
+                op_flip=(121, 0, 0, 0)),
+            search_digest=(
+                "ca4468ee4f99e1441566a7bdda4e840a"
+                "205e0f4b0db55a7956e4a5576dcb69ae")),
+    },
+    "paxos": {
+        "guided": dict(
+            seeds_to_bug=191, bugs_found=1,
+            generations=5, corpus_size=32,
+            lineage_depth=5,
+            operator_stats=_ops(
+                splice=(122, 32, 25, 1), disable=(50, 12, 9, 0),
+                time_jitter=(150, 37, 30, 1), node_rotate=(90, 26, 20, 0),
+                op_flip=(40, 19, 16, 0)),
+            search_digest=(
+                "94775770f116ea2fda940858f8b81540"
+                "b02e35501affa4375117b5130ac8eeac")),
+        "random": dict(
+            seeds_to_bug=None, bugs_found=0,
+            generations=15, corpus_size=1,
+            lineage_depth=1,
+            operator_stats=_ops(
+                splice=(357, 0, 0, 0), disable=(135, 0, 0, 0),
+                time_jitter=(453, 0, 0, 0), node_rotate=(308, 0, 0, 0),
+                op_flip=(127, 0, 0, 0)),
+            search_digest=(
+                "3902b9ba2724285ca26c0cb781174b9d"
+                "0571b376be3fd820d33002fe1250b328")),
+    },
+}
+
+#: hunt_pins of JAX's runs at HUNT_BUDGET_REDUCED.
+HUNT_PINS_REDUCED = {
+    "pair": {
+        "guided": dict(
+            seeds_to_bug=73, bugs_found=1,
+            generations=2, corpus_size=9,
+            lineage_depth=2,
+            operator_stats=_ops(
+                splice=(50, 5, 5, 1), disable=(19, 3, 3, 0),
+                time_jitter=(46, 5, 5, 1), node_rotate=(46, 3, 3, 1),
+                op_flip=(13, 6, 6, 0)),
+            search_digest=(
+                "3912599b242aa62ae7875a59c4a9e722"
+                "bc08932ab640e94ebaf398a51318282a")),
+        "random": dict(
+            seeds_to_bug=None, bugs_found=0,
+            generations=3, corpus_size=1,
+            lineage_depth=1,
+            operator_stats=_ops(
+                splice=(71, 0, 0, 0), disable=(29, 0, 0, 0),
+                time_jitter=(71, 0, 0, 0), node_rotate=(66, 0, 0, 0),
+                op_flip=(20, 0, 0, 0)),
+            search_digest=(
+                "57104b20fd925554001c955bb6028b17"
+                "9ad2169f3faf81f0a619678b9e4a1e2c")),
+    },
+    "raft": {
+        "guided": dict(
+            seeds_to_bug=40, bugs_found=1,
+            generations=2, corpus_size=16,
+            lineage_depth=2,
+            operator_stats=_ops(
+                splice=(26, 8, 7, 1), disable=(11, 3, 2, 0),
+                time_jitter=(30, 10, 7, 1), node_rotate=(13, 4, 2, 0),
+                op_flip=(8, 2, 1, 0)),
+            search_digest=(
+                "d07387e7f87cd2241a7caa9e3b65e951"
+                "7e76666d73ddc394da50479c75befbc8")),
+        "random": dict(
+            seeds_to_bug=40, bugs_found=1,
+            generations=2, corpus_size=1,
+            lineage_depth=1,
+            operator_stats=_ops(
+                splice=(26, 0, 0, 1), disable=(11, 0, 0, 0),
+                time_jitter=(30, 0, 0, 1), node_rotate=(13, 0, 0, 0),
+                op_flip=(8, 0, 0, 0)),
+            search_digest=(
+                "db7b7c5716e879345fa2ff715199e353"
+                "4f9e13878201b35e0fb87fe8cfb066c3")),
+    },
+    "paxos": {
+        "guided": dict(
+            seeds_to_bug=None, bugs_found=0,
+            generations=2, corpus_size=10,
+            lineage_depth=2,
+            operator_stats=_ops(
+                splice=(50, 5, 5, 0), disable=(19, 2, 2, 0),
+                time_jitter=(62, 5, 5, 0), node_rotate=(34, 4, 4, 0),
+                op_flip=(17, 5, 5, 0)),
+            search_digest=(
+                "b3d72b7687f7d3346e1027dc93cc1dfe"
+                "5fc4a50405283e3deecef30fda6b7fa6")),
+        "random": dict(
+            seeds_to_bug=None, bugs_found=0,
+            generations=2, corpus_size=1,
+            lineage_depth=1,
+            operator_stats=_ops(
+                splice=(50, 0, 0, 0), disable=(19, 0, 0, 0),
+                time_jitter=(62, 0, 0, 0), node_rotate=(36, 0, 0, 0),
+                op_flip=(17, 0, 0, 0)),
+            search_digest=(
+                "68c140086cde70f966708e06d6e647ee"
+                "3846e1a53e9189be950a6ecd881c2811")),
+    },
+}
+
+
+def search_digest(report) -> str:
+    """SHA-256 over a SearchReport's per-seed schedules and its corpus
+    (schedules, signatures, scores, fill, lineage entry ids and depths)."""
+    h = hashlib.sha256()
+    _update(h, {name: getattr(report, name) for name in (
+        "schedules", "corpus_sched", "corpus_sig", "corpus_score",
+        "corpus_filled", "corpus_entry", "corpus_depth")})
+    return h.hexdigest()
+
+
+def hunt_pins(res) -> dict:
+    """What a guided hunt is held to: the seeds it took to the first bug
+    (None if none), the bugs found, the generations run, the corpus size,
+    the deepest ancestry, the operator table and :func:`search_digest`."""
+    f = res.failing_seeds
+    r = res.search
+    return dict(seeds_to_bug=(f[0] + 1) if f else None, bugs_found=len(f),
+                generations=int(r.generations),
+                corpus_size=int(r.corpus_size),
+                lineage_depth=int(r.lineage_depth()),
+                operator_stats=r.operator_stats,
+                search_digest=search_digest(r))
 
 
 def observe_digest(obs: Dict[str, np.ndarray]) -> str:

@@ -7,10 +7,13 @@ handler, the Threefry draws for latency and loss, the rank-ordered insert
 with the pop's clear fused in, the invariant and the step's bookkeeping.
 The kernel's skeleton is a template on the actor family's policy, written
 by hand per family: Raft (``csrc/actor_raft.cuh``), two-phase commit
-(``actor_tpc.cuh``) and primary-backup (``actor_pb.cuh``), each built from
-its own source (``csrc/step_{raft,tpc,pb}.cu``) into a library of its own.
-Paxos, the guided search's pair-restart family and ``packed=False`` have
-no kernel yet: :func:`kernel_params` raises, naming the ROADMAP item.
+(``actor_tpc.cuh``), primary-backup (``actor_pb.cuh``), multi-decree Paxos
+(``actor_paxos.cuh``) and the two pair-restart families of the guided
+search (``actor_pair.cuh``, one policy with the beacon as a parameter),
+each built from its own source (``csrc/step_{raft,tpc,pb,paxos,pair}.cu``)
+into a library of its own. :data:`FAMILIES` holds one record per family.
+``packed=False`` has no kernel yet: :func:`kernel_params` raises, naming
+the ROADMAP item.
 Like the Pallas kernel (``input_output_aliases``), it **updates the state
 tensors in place**: :func:`run_steps` returns the state it was given.
 
@@ -74,9 +77,8 @@ from .tpc_actor import TPCActor
 launches = 0
 
 # Static maxima of the kernel (csrc/step_common.cuh; MAX_L is Raft's log,
-# csrc/actor_raft.cuh).
-MAX_N, MAX_Q, MAX_L, MAX_P = 8, 256, 64, 16
-MAX_M = MAX_N + 1
+# csrc/actor_raft.cuh). Each family takes up to its record's max_n nodes.
+MAX_N, MAX_Q, MAX_L, MAX_P = 12, 256, 64, 16
 #: The optional leaves the kernel writes, in its State's order after the
 #: base leaves: the metrics block, then the flight-recorder ring (null
 #: pointers when off).
@@ -186,15 +188,22 @@ def tile_plan(cfg, log_cap: Optional[int]) -> TilePlan:
 
 
 class KernelFamily(NamedTuple):
-    """A family the kernel has compiled in, as its policy declares it."""
+    """One actor family's route through the kernel: its record, as its
+    policy (``csrc/actor_<route>.cuh``) declares it."""
 
     name: str
+    #: The policy: csrc/actor_<route>.cuh (two families may share one).
+    route: str
     #: Params::family (``csrc/step_common.cuh``).
     id: int
     #: ``csrc/<source>.cu`` instantiates ``step_kernel<Policy, N>``.
     source: str
-    #: The least N it takes: ``step_entry<Policy, least_n>`` in the source.
+    #: The node counts it takes: ``step_entry<Policy, least_n>`` in the
+    #: source, up to the policy's MAX_NODES.
     least_n: int
+    max_n: int
+    #: The actor's class, imported when a kernel call needs it.
+    actor: Callable[[], type]
     #: actor -> its static parameters, Params::f0.. (the policy names them).
     params: Callable[[Any], tuple]
     #: Its policy's Lanes struct, (name, dtype) in JAX's leaf order (sorted
@@ -204,51 +213,100 @@ class KernelFamily(NamedTuple):
     #: The log capacity that sizes Raft's commit and log tiles; None for a
     #: family without them.
     log_cap: Callable[[Any], Optional[int]] = lambda actor: None
+    #: The outbox rows the policy sends from, for n nodes (its ``m(N)``):
+    #: a message per node and the timer, or the pair families' two rows.
+    outbox: Callable[[int], int] = lambda n: n + 1
+    #: The fewest payload words it takes: 8, or Paxos's 5 (the policy's
+    #: SHORT_PAYLOAD, whose rows are read and written only up to P).
+    min_p: int = 8
 
 
-#: Actor class -> the kernel's policy for it.
-FAMILIES = {
-    RaftActor: KernelFamily(
-        "raft", 0, "step_raft", 1,
+def _paxos_actor():
+    from ..actorc.families.paxos import PaxosActor
+
+    return PaxosActor
+
+
+def _pair_restart_actor():
+    from ..triage.synthetic import PairRestartActor
+
+    return PairRestartActor
+
+
+def _guided_pair_actor():
+    from ..search.family import GuidedPairActor
+
+    return GuidedPairActor
+
+
+_I16, _I32 = torch.int16, torch.int32
+_PAXOS_TABLE = ("acc_bal", "acc_val", "chosen", "promised", "prop_bal",
+                "prop_val", "seen_bal", "seen_val")
+
+#: The kernel's routes, one record per actor family.
+FAMILIES = (
+    KernelFamily(
+        "raft", "raft", 0, "step_raft", 1, 8, lambda: RaftActor,
         lambda a: (a.rcfg.log_cap, WON_WORDS, a.rcfg.elect_min_us,
                    a.rcfg.elect_max_us, a.rcfg.heartbeat_us,
                    a.rcfg.buggy_double_vote),
         None, lambda a: a.rcfg.log_cap),
-    TPCActor: KernelFamily(
-        "tpc", 1, "step_tpc", 2,
+    KernelFamily(
+        "tpc", "tpc", 1, "step_tpc", 2, 8, lambda: TPCActor,
         lambda a: (a.tcfg.n_txns, a.tcfg.txn_start_us,
                    a.tcfg.txn_interval_us, a.tcfg.vote_timeout_us,
                    a.tcfg.no_vote_num, a.tcfg.buggy_presumed_commit),
-        (("aborts", torch.int32), ("commits", torch.int32),
-         ("decided", torch.int8), ("decision", torch.int8),
-         ("txns_seen", torch.int32), ("voted", torch.int8),
-         ("votes_yes", torch.int32))),
-    PBActor: KernelFamily(
-        "pb", 2, "step_pb", 1,
+        (("aborts", _I32), ("commits", _I32), ("decided", torch.int8),
+         ("decision", torch.int8), ("txns_seen", _I32),
+         ("voted", torch.int8), ("votes_yes", _I32))),
+    KernelFamily(
+        "pb", "pb", 2, "step_pb", 1, 8, lambda: PBActor,
         lambda a: (a.pcfg.log_cap, a.pcfg.heartbeat_us,
                    a.pcfg.watchdog_min_us, a.pcfg.watchdog_max_us,
                    a.pcfg.n_writes, a.pcfg.write_start_us,
                    a.pcfg.write_interval_us, a.pcfg.buggy_commit_early),
-        (("acks", torch.int32), ("commit", torch.int16),
-         ("committed_cmd", torch.int16), ("committed_max", torch.int16),
-         ("log_cmd", torch.int16), ("log_len", torch.int16),
-         ("view", torch.int16), ("views_changed", torch.int32),
-         ("wd_epoch", torch.int16), ("writes_done", torch.int32))),
-}
+        (("acks", _I32), ("commit", _I16), ("committed_cmd", _I16),
+         ("committed_max", _I16), ("log_cmd", _I16), ("log_len", _I16),
+         ("view", _I16), ("views_changed", _I32), ("wd_epoch", _I16),
+         ("writes_done", _I32))),
+    KernelFamily(
+        "paxos", "paxos", 3, "step_paxos", 1, 8, _paxos_actor,
+        lambda a: (a.xcfg.n_slots, a.xcfg.retry_min_us,
+                   a.xcfg.retry_max_us,
+                   int(a.xcfg.buggy_forgetful_acceptor)
+                   | int(a.xcfg.contend_all) << 1,
+                   a.xcfg.cmd_start_us, a.xcfg.cmd_interval_us,
+                   a.xcfg.contend_slot, a.xcfg.contend_gap_us),
+        tuple(sorted([(k, _I16) for k in _PAXOS_TABLE]
+                     + [(k, _I32) for k in ("accepts", "chosen_count",
+                                            "promises", "proposals",
+                                            "retries")])), min_p=5),
+    KernelFamily(
+        "pair_restart", "pair", 4, "step_pair", 1, 12, _pair_restart_actor,
+        lambda a: (a.acfg.node_a, a.acfg.node_b, 0),
+        (("restarts", _I32),), outbox=lambda n: 2),
+    KernelFamily(
+        "guided_pair", "pair", 4, "step_pair", 1, 12, _guided_pair_actor,
+        lambda a: (a.acfg.node_a, a.acfg.node_b, 1),
+        (("restarts", _I32),), outbox=lambda n: 2),
+)
+
+#: Family parameters per launch: Params::f0..f7. (Twelve, in any order,
+#: made the Raft and pb instantiations 2-4% slower on an H100: PERF.md.)
+N_FAMILY_PARAMS = 8
 
 
 def family_of(actor) -> KernelFamily:
-    """The kernel's policy for ``actor`` (a value of :data:`FAMILIES`), or
-    NotImplementedError naming the ROADMAP item that ports it."""
-    for cls, fam in FAMILIES.items():
-        if isinstance(actor, cls):
+    """The kernel's record for ``actor`` (one of :data:`FAMILIES`), or
+    NotImplementedError for an actor it has no policy for."""
+    for fam in FAMILIES:
+        if isinstance(actor, fam.actor()):
             return fam
     name = getattr(getattr(actor, "spec", None), "name", type(actor).__name__)
     raise NotImplementedError(
         f"the CUDA step kernel has no policy for the {name!r} family: it "
-        f"has raft, tpc and pb compiled in; the Paxos and pair-restart "
-        f"policies come with the guided search (ROADMAP Queue B g, Queue A "
-        f"item 8). The plain step runs it with device='cpu'")
+        f"has {', '.join(f.name for f in FAMILIES)} compiled in. The plain "
+        f"step runs it with device='cpu'")
 
 
 def engine_plan(eng) -> TilePlan:
@@ -280,7 +338,7 @@ def family_params(actor) -> list:
     """The family's static parameters, Params::f0..f7 (each policy in
     ``csrc/actor_*.cuh`` names them)."""
     vals = family_of(actor).params(actor)
-    return [int(v) for v in vals] + [0] * (8 - len(vals))
+    return [int(v) for v in vals] + [0] * (N_FAMILY_PARAMS - len(vals))
 
 
 def kernel_params(eng):
@@ -294,17 +352,20 @@ def kernel_params(eng):
             "the CUDA step kernel covers the packed lane profile only; "
             "packed=False on CUDA is ROADMAP Queue B f")
     n, q, p = cfg.n_nodes, cfg.queue_cap, cfg.payload_words
-    if not (fam.least_n <= n <= MAX_N and q <= MAX_Q and 8 <= p <= MAX_P):
+    if not (fam.least_n <= n <= fam.max_n and q <= MAX_Q
+            and fam.min_p <= p <= MAX_P):
         raise ValueError(
-            f"the CUDA step kernel takes {fam.least_n} <= n_nodes <= {MAX_N} "
-            f"for {fam.name}, queue_cap <= {MAX_Q}, 8 <= payload_words <= "
-            f"{MAX_P}; got {n}, {q}, {p}")
+            f"the CUDA step kernel takes {fam.least_n} <= n_nodes <= "
+            f"{fam.max_n} for {fam.name}, queue_cap <= {MAX_Q}, "
+            f"{fam.min_p} <= payload_words <= {MAX_P}; got {n}, {q}, {p}")
     log_cap = fam.log_cap(actor)
     if log_cap is not None and log_cap > MAX_L:
         raise ValueError(f"the CUDA step kernel takes log_cap <= {MAX_L}; "
                          f"got {log_cap}")
-    if cfg.m != n + 1 or cfg.m > MAX_M:
-        raise ValueError("the CUDA step kernel needs outbox_cap == n + 1")
+    if cfg.m != fam.outbox(n):
+        raise ValueError(f"the CUDA step kernel's {fam.name} policy sends "
+                         f"from outbox_cap == {fam.outbox(n)} rows; got "
+                         f"{cfg.m}")
     if fam.lanes is not None:
         lanes = tuple((name[len("astate."):], dtype) for name, dtype, _
                       in eng.state_layout() if name.startswith("astate."))

@@ -1,0 +1,132 @@
+"""Time the CUDA step kernel of two checkouts against each other, on one
+card, in turns.
+
+Usage (on a machine with the GPU)::
+
+    python3 -m madsim_tpu_torch.kernel_ab OLD_ROOT NEW_ROOT
+
+``OLD_ROOT`` and ``NEW_ROOT`` are roots of two checkouts of this
+repository (for example the parent commit unpacked with ``git archive``
+and the working tree). Each checkout's kernels are built from its own
+sources (the two builds run together), then each deployment's step kernel
+is timed in the order old, new, new, old, each timing in a process of its
+own with that checkout's root in place of this file's directory on
+``sys.path`` (so the older checkout needs no copy of this file). A timing
+is the device time per step over a whole run's own launches, in chunks of
+100 queued behind a sleeping kernel (as ``chip_smoke.py``'s
+``device_ms``), the best of three runs. The deployments are the Raft headline and hunt and the compiled
+families' (``engine/golden.py`` ``CONFIGS`` and ``FAMILY_CONFIGS``), at
+``chip_smoke.py``'s widths. Prints the card's name and power limit, then
+one JSON line per timing: ``{"root": ..., "ms": {deployment: ms/step}}``.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+SOURCES = ("step_raft", "step_tpc", "step_pb")
+CHUNK = 100
+SLEEP_CYCLES = 200_000_000
+
+
+def _time_here() -> dict:
+    """Device ms/step of each deployment with the package on sys.path."""
+    import numpy as np
+    import torch
+
+    from madsim_tpu_torch.engine import (DeviceEngine, EngineConfig, golden,
+                                         step_kernel)
+    from madsim_tpu_torch.engine.core import tree_leaves
+    from madsim_tpu_torch.engine.families import family
+
+    dev = torch.device("cuda")
+    cases = [("headline", ("raft",) + golden.CONFIGS["headline"][:2], None,
+              524_288, golden.CONFIGS["headline"][3]),
+             ("hunt", ("raft", dict(n=3, buggy_double_vote=True),
+                       golden.CONFIGS["hunt_faults"][1]), None, 65_536,
+              4_000)]
+    for name, (fam, ak, ck, faults, steps) in golden.FAMILY_CONFIGS.items():
+        cases.append((name, (fam, ak, ck), None if faults is None
+                      else np.asarray(faults, np.int32), 65_536, steps))
+    out = {}
+    for name, (fam, ak, ck), faults, w, max_steps in cases:
+        acls, ccls = family(fam).load()
+        eng = DeviceEngine(acls(ccls(**ak)), EngineConfig(**ck), device=dev)
+        n0 = step_kernel.launches
+        eng.run(eng.init(np.arange(w), faults=faults), max_steps)
+        total = step_kernel.launches - n0
+        best = float("inf")
+        for _ in range(3):
+            leaves = tree_leaves(eng.init(np.arange(w), faults=faults))
+            done, busy = 0, 0.0
+            while done < total:
+                k = min(CHUNK, total - done)
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                torch.cuda._sleep(SLEEP_CYCLES)
+                e0.record()
+                step_kernel.launch(eng, leaves, k)
+                e1.record()
+                if e0.query():
+                    raise RuntimeError("the device reached the timed "
+                                       "launches before they were queued")
+                e1.synchronize()
+                busy += e0.elapsed_time(e1)
+                done += k
+            best = min(best, busy / total)
+        out[name] = best
+    return out
+
+
+def _child(mode: str, root: str) -> subprocess.Popen:
+    """This file run as ``mode`` against the checkout at ``root``."""
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__), mode,
+                             root], cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _wait(proc: subprocess.Popen, what: str) -> str:
+    out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"{what} failed:\n{out}\n{err}")
+    return out
+
+
+def main(argv) -> int:
+    if argv[:1] in (["--build"], ["--time"]):
+        # The checkout under test, not this file's package, is imported.
+        sys.path[0] = argv[1]
+        if argv[0] == "--build":
+            from madsim_tpu_torch import _build
+
+            _build.build_all(SOURCES)
+        else:
+            print(json.dumps(_time_here()))
+        return 0
+    if len(argv) != 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 1
+    roots = [os.path.abspath(r) for r in argv]
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    builds = [_child("--build", r) for r in roots]
+    for b, r in zip(builds, roots):
+        _wait(b, f"the build of {r}")
+    old, new = roots
+    for root in (old, new, new, old):
+        out = _wait(_child("--time", root), f"the timing of {root}")
+        ms = json.loads(out.strip().splitlines()[-1])
+        print(json.dumps({"root": root, "ms": ms}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -20,9 +20,15 @@ every seed the trajectory of an independent ``init`` + ``run``.
 Every device→host read of the loop goes through :func:`_fetch`, the one
 patchable pull seam (tests count its calls).
 
+With ``search=SearchConfig(...)`` the loop is the guided schedule search
+(madsim_tpu_torch/search): each refill harvests the retiring worlds into a
+corpus of parent schedules and refills the slots with mutated children.
+The fold runs on the host over the retiring rows the refill's one pull
+brings back; the children are generated on the device.
+
 Not ported here, each raising ``NotImplementedError`` naming its ROADMAP
-item: the pipelined and fused loops, checkpoints, guided search, the
-observatory hooks, multi-device meshes and ``SweepResult.minimize``.
+item: the pipelined and fused loops, checkpoints, the observatory hooks,
+multi-device meshes and ``SweepResult.minimize``.
 """
 from __future__ import annotations
 
@@ -44,15 +50,24 @@ from ..obs.coverage import (
     ledger_zeros,
 )
 from ..obs.metrics import aggregate_metrics, metrics_from_observations
+from ..search.corpus import (
+    HostCorpus,
+    corpus_to_device,
+    host_corpus_init,
+    host_harvest_fold,
+    normalize_schedule,
+)
+from ..search.generate import generate_children
 
 
 def _to_host(tree):
     """A tree of tensors (dicts, tuples, lists, None) as the same tree of
-    numpy arrays."""
+    numpy arrays, each dict in sorted key order."""
     if isinstance(tree, torch.Tensor):
         return tree.cpu().numpy()
     if isinstance(tree, dict):
-        return {k: _to_host(v) for k, v in tree.items()}
+        # Sorted by key, as ``jax.device_get`` rebuilds a dict.
+        return {k: _to_host(tree[k]) for k in sorted(tree)}
     if isinstance(tree, (tuple, list)):
         items = [_to_host(v) for v in tree]
         return (type(tree)(*items) if hasattr(tree, "_fields")
@@ -148,27 +163,36 @@ def _permute_worlds(tree, perm: torch.Tensor):
     return tree_map(lambda x: _take(x, perm), tree)
 
 
-def _compactor(state, idx, new_w: Optional[int] = None):
+def _compactor(state, idx, new_w: Optional[int] = None, extra=()):
     """Compaction: the stable active-first permutation
-    (``torch.sort(stable=True)`` of the frozen flag) applied to the state
-    and the slot→seed index; with ``new_w`` also the split into the live
-    head of ``new_w`` worlds and the frozen tail."""
+    (``torch.sort(stable=True)`` of the frozen flag) applied to the state,
+    the slot→seed index and the ``extra`` per-slot trees (a guided sweep's
+    schedules and lineage lanes); with ``new_w`` also the split into the
+    live head of ``new_w`` worlds and the frozen tail. Returns ``(state,
+    idx, *extra)``, or a ``(live, frozen)`` pair of such tuples."""
     order = torch.sort((~state.active).to(torch.int32), stable=True).indices
-    state, idx = _permute_worlds(state, order), _take(idx, order)
+    group = [_permute_worlds(t, order) for t in (state, idx) + tuple(extra)]
     if new_w is None:
-        return state, idx
-    return ((tree_map(lambda x: x[:new_w], state), idx[:new_w]),
-            (tree_map(lambda x: x[new_w:], state), idx[new_w:]))
+        return tuple(group)
+    return (tuple(tree_map(lambda x: x[:new_w], t) for t in group),
+            tuple(tree_map(lambda x: x[new_w:], t) for t in group))
+
+
+def _rows_from(x: torch.Tensor, start: int, rows: int) -> torch.Tensor:
+    """``rows`` rows of ``x`` from ``start`` on, clamped to the batch (the
+    caller slices the pull to the true tail)."""
+    w = x.shape[0]
+    take = (start + torch.arange(rows, device=x.device)).clamp(0, w - 1)
+    return _take(x, take)
 
 
 def _tail_observer(eng: DeviceEngine, state, idx, start: int, rows: int):
     """The retiring tail's gather: ``rows`` observation rows from ``start``
     on (clamped to the batch; the caller slices to the true tail), with
     the slot→seed index, so that retirement pulls only those rows."""
-    w = idx.shape[0]
-    take = (start + torch.arange(rows, device=idx.device)).clamp(0, w - 1)
-    obs = {k: _take(v, take) for k, v in eng.observe_device(state).items()}
-    return obs, _take(idx, take)
+    obs = {k: _rows_from(v, start, rows)
+           for k, v in eng.observe_device(state).items()}
+    return obs, _rows_from(idx, start, rows)
 
 
 def _observer(eng: DeviceEngine, state, idx):
@@ -197,6 +221,8 @@ class SweepResult:
     ``n_active_chunks[i]``; ``world_utilization`` is live-world steps over
     issued slot-steps; ``loop_stats`` counts chunks, dispatches and device
     pulls and times the loop on the host (the port's own times).
+    ``search`` is the guided sweep's
+    :class:`~madsim_tpu_torch.search.SearchReport` (None otherwise).
     """
 
     seeds: np.ndarray
@@ -212,6 +238,7 @@ class SweepResult:
     loop_stats: Dict[str, Any] = dataclasses.field(default_factory=dict)
     faults_sha256: Optional[str] = None
     coverage: Optional[Any] = None
+    search: Optional[Any] = None
     triage_ctx: Optional[TriageContext] = dataclasses.field(
         default=None, repr=False)
 
@@ -257,7 +284,8 @@ class SweepResult:
 
     def summary(self) -> str:
         """One paragraph of what the sweep did: seeds, bugs, utilization,
-        coverage, the top drop causes and the recorder's depth."""
+        coverage, the guided search, the top drop causes and the
+        recorder's depth."""
         n = len(self.seeds)
         n_bug = len(self.failing_seeds)
         parts = [f"swept {n} seed{'s' if n != 1 else ''} on "
@@ -274,6 +302,18 @@ class SweepResult:
                     f"across the run)" if curve.size else "")
             parts.append(f"{cov.distinct_behaviors} distinct behaviors "
                          f"in {cov.n_buckets} buckets{tail}")
+        if self.search is not None:
+            s = self.search
+            line = (f"guided search: corpus {s.corpus_size}/"
+                    f"{s.corpus_capacity}, {s.inserted} inserted over "
+                    f"{s.generations} generations")
+            if s.operator_stats:
+                from ..obs.lineage import top_operator
+
+                top = top_operator(s.operator_stats)
+                if top:
+                    line += f", top operator {top}"
+            parts.append(line)
         m = self.metrics
         if m is not None:
             agg = m["aggregate"]
@@ -359,10 +399,16 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
     ``SweepResult.coverage``. ``max_steps`` bounds the steps issued
     (whole chunks).
 
+    ``search=SearchConfig(...)`` (with ``recycle=True``, metrics on and a
+    ``faults`` template) makes each refill a generation of the guided
+    schedule search; ``search_corpus`` (a :class:`HostCorpus`) seeds its
+    corpus, ``search_gen0`` offsets its mutation streams and
+    ``search_lin_base`` its lineage entry ids, as in the JAX package.
+
     The pipelined and fused loops (``pipeline=True``, ``fused=True``),
-    checkpoints, guided search, the observatory hooks (``observe``,
-    ``profile_dir``) and a ``mesh`` raise ``NotImplementedError`` naming
-    their ROADMAP item: nothing runs the serial loop in their place.
+    checkpoints, the observatory hooks (``observe``, ``profile_dir``) and
+    a ``mesh`` raise ``NotImplementedError`` naming their ROADMAP item:
+    nothing runs the serial loop in their place.
     """
     if mesh is not None:
         raise _unported("sweep(mesh=...) over several devices", "12")
@@ -375,9 +421,6 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
     if checkpoint_path is not None or resume:
         raise _unported("sweep checkpoints (checkpoint_path=, resume=)",
                         "6")
-    if (search is not None or search_corpus is not None or search_gen0
-            or search_lin_base):
-        raise _unported("guided schedule search (search=...)", "8")
     if observe is not None or profile_dir is not None:
         raise _unported("the sweep observatory (observe=, profile_dir=)",
                         "11")
@@ -398,6 +441,41 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
     cov_k = int(coverage_buckets) if coverage_buckets else DEFAULT_BUCKETS
     if cov_on and cov_k < 1:
         raise ValueError("coverage_buckets must be >= 1")
+
+    # The guided schedule search: validated here, wired in at the refills.
+    search_on = search is not None
+    if search_on:
+        if not recycle:
+            raise ValueError(
+                "search= needs recycle=True (and batch_worlds): guided "
+                "children stream into recycled refill slots — a "
+                "non-recycled sweep has no refill edge to feed")
+        if not cov_on:
+            raise ValueError(
+                "search= requires EngineConfig(metrics=True): the "
+                "novelty signal hashes the MetricsBlock histograms of "
+                "retiring worlds (obs/coverage.py)")
+        if faults is None:
+            raise ValueError(
+                "search= needs a fault-schedule template (faults=): the "
+                "mutation operators perturb within the template's fault "
+                "vocabulary — an empty schedule has nothing to evolve")
+    if search_corpus is not None and not search_on:
+        raise ValueError(
+            "search_corpus= seeds the guided-search parent corpus and "
+            "needs search=SearchConfig(...) — a plain sweep has no "
+            "corpus to seed")
+    if search_gen0 and not search_on:
+        raise ValueError("search_gen0= offsets the guided mutation "
+                         "streams and needs search=SearchConfig(...)")
+    if search_gen0 < 0:
+        raise ValueError("search_gen0 must be >= 0")
+    if search_lin_base and not search_on:
+        raise ValueError("search_lin_base= offsets the lineage entry-id "
+                         "space and needs search=SearchConfig(...)")
+    if search_lin_base < 0:
+        raise ValueError("search_lin_base must be >= 0")
+    lineage_on = bool(search_on and getattr(search, "lineage", False))
 
     # Batch width: plain sweeps hold every seed at once; recycled sweeps
     # hold batch_worlds slots and stream the rest. (On one device no
@@ -468,39 +546,138 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
     cov_hits = cov_first = None
     if cov_on:
         cov_hits, cov_first = ledger_zeros(cov_k, dev)
+    # -- the guided search's state -------------------------------------
+    # slot_sched: the (W, F, 4) schedule each slot runs, on the device,
+    # permuted and refilled with the state; slot_lin its lineage lanes.
+    # The corpus lives on the host (the fold runs there); op_produced, the
+    # operator table's produced row, on the device with the children it
+    # counts; novel and survived are credited on the host with the fold.
+    slot_sched = slot_lin = op_produced = None
+    retired_sched: List[np.ndarray] = []
+    retired_lin: List[tuple] = []
+    srch = {}
+    if search_on:
+        from ..obs.lineage import N_OPS, lanes_origin
 
-    def retire(obs_slice: Dict[str, np.ndarray], rows: np.ndarray) -> None:
+        f_rows = int(faults_p.shape[-2])
+        base0 = (faults_p[:w0] if per_world_faults
+                 else np.broadcast_to(faults_p, (w0,) + faults_p.shape))
+        slot_sched = torch.from_numpy(np.ascontiguousarray(base0)).to(dev)
+        k = int(search.corpus)
+        if search_corpus is not None:
+            if np.asarray(search_corpus.sched).shape != (k, f_rows, 4):
+                raise ValueError(
+                    f"search_corpus.sched must be (K, F, 4) = "
+                    f"({k}, {f_rows}, 4) for SearchConfig.corpus={k} and "
+                    f"the {f_rows}-row template; got "
+                    f"{np.asarray(search_corpus.sched).shape}")
+            for name in ("sig", "score", "filled", "entry", "depth"):
+                shp = np.asarray(getattr(search_corpus, name)).shape
+                if shp != (k,):
+                    raise ValueError(
+                        f"search_corpus.{name} must be ({k},) for "
+                        f"SearchConfig.corpus={k}; got {shp}")
+            corpus_h = HostCorpus(*(np.array(x, copy=True)
+                                    for x in search_corpus))
+        else:
+            corpus_h = host_corpus_init(k, normalize_schedule(
+                faults_p[0] if per_world_faults else faults_p))
+        srch = {"corpus": corpus_h, "gen": int(search_gen0), "inserted": 0,
+                "novel": np.zeros(N_OPS, np.int32),
+                "survived": np.zeros(N_OPS, np.int32)}
+        if lineage_on:
+            # The first batch runs the template itself: generation 0.
+            slot_lin = lanes_origin(w0, dev)
+            op_produced = torch.zeros((N_OPS,), dtype=torch.int32,
+                                      device=dev)
+
+    def retire(obs_slice: Dict[str, np.ndarray], rows: np.ndarray,
+               sched_slice: Optional[np.ndarray] = None,
+               lin_slice: Optional[tuple] = None) -> None:
         """Record the final observations of rows leaving the batch (dead
-        slots, retired earlier, are filtered out by their -1 id)."""
+        slots, retired earlier, are filtered out by their -1 id), and on a
+        guided sweep their schedules and lineage lanes."""
         nonlocal live_world_steps
         keep = rows >= 0
         if not keep.all():
             rows = rows[keep]
             obs_slice = {k: np.asarray(v)[keep] for k, v in obs_slice.items()}
+            if sched_slice is not None:
+                sched_slice = np.asarray(sched_slice)[keep]
+            if lin_slice is not None:
+                lin_slice = tuple(np.asarray(a)[keep] for a in lin_slice)
         if rows.size == 0:
             return
         live_world_steps += int(np.asarray(obs_slice["steps"]).sum())
         retired_rows.append(rows)
         for k, v in obs_slice.items():
             retired.setdefault(k, []).append(np.asarray(v))
+        if sched_slice is not None:
+            retired_sched.append(np.asarray(sched_slice, np.int32))
+        if lin_slice is not None:
+            retired_lin.append(tuple(np.asarray(a) for a in lin_slice))
 
-    def fetch_retire(handles) -> None:
-        """Pull a retiring tail's gathered rows (one ``_fetch``) and record
-        them."""
-        obs_t, idx_t, tail_len = handles
+    def pull_tail(handles):
+        """The retiring tail's one pull (``_fetch``): its gathered rows on
+        the host, cut to the tail's length."""
+        tree, tail_len = handles
         t0 = perf_counter()
-        obs_h, idx_h = _fetch((obs_t, idx_t))
+        obs_h, idx_h, sched_h, lin_h = _fetch(tree)
         perf["retire_wait_s"] += perf_counter() - t0
         perf["retire_fetches"] += 1
-        retire({k: np.asarray(v)[:tail_len] for k, v in obs_h.items()},
-               np.asarray(idx_h)[:tail_len])
+        return ({k: np.asarray(v)[:tail_len] for k, v in obs_h.items()},
+                np.asarray(idx_h)[:tail_len],
+                None if sched_h is None else np.asarray(sched_h)[:tail_len],
+                None if lin_h is None else tuple(np.asarray(a)[:tail_len]
+                                                 for a in lin_h))
+
+    def fetch_retire(handles) -> None:
+        """Record a retiring tail: pull its gathered rows unless the refill
+        already did."""
+        retire(*(handles if isinstance(handles[0], dict)
+                 else pull_tail(handles)))
+
+    def harvest(pulled):
+        """The guided fold of one refill, on the host: the retiring rows
+        that hold a seed and finished are scored against the corpus and
+        the novel ones inserted, in slot order; the operator table's
+        novel and survived rows are credited from their lineage lanes."""
+        obs_h, idx_h, sched_h, lin_h = pulled
+        if not search.guided:
+            return
+        from ..obs.lineage import host_credit
+
+        mask = (idx_h >= 0) & ~np.asarray(obs_h["active"], bool)
+        sigs = _host_signatures(obs_h)
+        entries = depths = None
+        if lineage_on:
+            entries = np.where(idx_h >= 0, search_lin_base + idx_h + 1,
+                               -1).astype(np.int32)
+            depths = lin_h[3]
+        srch["corpus"], n_ins, nov_m, ins_m = host_harvest_fold(
+            srch["corpus"], sched_h, sigs, mask, search.min_novelty,
+            entries=entries, depths=depths, with_masks=True)
+        srch["inserted"] += n_ins
+        if lineage_on:
+            srch["novel"] = host_credit(srch["novel"], lin_h[2], nov_m)
+            srch["survived"] = host_credit(srch["survived"], lin_h[2],
+                                           ins_m)
 
     def do_refill(n_act: int):
         """Recycling: compact active-first on the device, gather the frozen
         tail's observations, refill the tail with the next seeds from the
-        cursor. Only the n_act scalar shapes the refill mask."""
-        nonlocal state, idx, cursor, reordered
-        state, idx = _compactor(state, idx)
+        cursor. Only the n_act scalar shapes the refill mask.
+
+        A guided refill pulls the tail (its one ``_fetch``) before the
+        refill, with the tail's schedules and lineage lanes, folds it into
+        the corpus on the host, and refills the slots with children
+        generated on the device (``DeviceEngine.refill``'s device-schedule
+        path)."""
+        nonlocal state, idx, cursor, reordered, slot_sched, slot_lin, \
+            op_produced
+        extra = ((slot_sched,) + (tuple(slot_lin) if lineage_on else ())
+                 if search_on else ())
+        state, idx, *extra = _compactor(state, idx, extra=extra)
         reordered = True
         tail_len = w_cur - n_act
         rows = min(_pow2_at_least(tail_len), _pow2_at_least(w_cur))
@@ -513,22 +690,65 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
         mask = np.zeros(w_cur, bool)
         mask[n_act:n_act + take] = True
         fill_ids = np.maximum(repl, 0)
-        state = eng.refill(state, mask, seeds[fill_ids],
-                           faults=batch_faults(fill_ids))
+        handles = ((obs_t, idx_t, None, None), tail_len)
+        if search_on:
+            slot_sched = extra[0]
+            tail_g = [_rows_from(x, n_act, rows) for x in extra]
+            lin_t = None
+            if lineage_on:
+                slot_lin = type(slot_lin)(*extra[1:])
+                lin_t = tuple(tail_g[1:])
+            handles = pull_tail(((obs_t, idx_t, tail_g[0], lin_t),
+                                 tail_len))
+            harvest(handles)
+            mask_d = torch.from_numpy(mask).to(dev)
+            corpus_d = corpus_to_device(srch["corpus"], srch["gen"],
+                                        srch["inserted"], dev)
+            children = generate_children(
+                eng.cfg, search, corpus_d,
+                torch.from_numpy(fill_ids.astype(np.int32)).to(dev),
+                lineage_on)
+            srch["gen"] += 1
+            if lineage_on:
+                from ..obs.lineage import credit, ops_bits
+
+                children, child_lin = children
+                op_produced = credit(op_produced, ops_bits(child_lin.ops),
+                                     mask_d)
+                slot_lin = type(slot_lin)(*(
+                    torch.where(mask_d, c, s)
+                    for c, s in zip(child_lin, slot_lin)))
+            state = eng.refill(state, mask, seeds[fill_ids],
+                               faults=children)
+            slot_sched = torch.where(mask_d[:, None, None], children,
+                                     slot_sched)
+        else:
+            state = eng.refill(state, mask, seeds[fill_ids],
+                               faults=batch_faults(fill_ids))
         tail = torch.from_numpy(np.arange(w_cur) >= n_act).to(dev)
         idx = torch.where(tail, torch.from_numpy(repl).to(dev), idx)
-        return obs_t, idx_t, tail_len
+        return handles
 
     def do_shrink(new_w: int):
         """Shrink compaction: permute active-first, split off the frozen
-        tail and keep the head; returns the tail's observation handles."""
-        nonlocal state, idx, reordered, w_cur
-        (state, idx), (frozen, fidx) = _compactor(state, idx, new_w)
+        tail and keep the head (a guided sweep's schedules and lanes
+        split with it); returns the tail's observation handles."""
+        nonlocal state, idx, reordered, w_cur, slot_sched, slot_lin
+        extra = ((slot_sched,) + (tuple(slot_lin) if lineage_on else ())
+                 if search_on else ())
+        (state, idx, *live_x), (frozen, fidx, *frozen_x) = _compactor(
+            state, idx, new_w, extra=extra)
         reordered = True
         tail_len = w_cur - new_w
         w_cur = new_w
         obs_t, idx_t = _observer(eng, frozen, fidx)
-        return obs_t, idx_t, tail_len
+        fsched = flin = None
+        if search_on:
+            slot_sched, fsched = live_x[0], frozen_x[0]
+            if lineage_on:
+                slot_lin = type(slot_lin)(*live_x[1:])
+                flin = tuple(frozen_x[1:])
+        return (obs_t, idx_t, fsched, flin), tail_len
 
     runner = chunk_runner(eng, chunk_steps, cov_k if cov_on else None)
     while steps < max_steps:
@@ -583,11 +803,21 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
                                              idx, n, True)
 
     obs_live = eng.observe(state)
-    if cov_on:
+    sched_live_h = lin_live_h = op_produced_h = None
+    if cov_on and search_on:
+        # The search's per-slot state rides the final ledger pull.
+        (idx_h, cov_hits_h, cov_first_h, sched_live_h, lin_live_h,
+         op_produced_h) = _fetch((idx, cov_hits, cov_first, slot_sched,
+                                  slot_lin, op_produced))
+        idx_h, cov_hits_h, cov_first_h = (
+            np.asarray(x) for x in (idx_h, cov_hits_h, cov_first_h))
+        sched_live_h = np.asarray(sched_live_h, np.int32)
+    elif cov_on:
         idx_h, cov_hits_h, cov_first_h = (
             np.asarray(x) for x in _fetch((idx, cov_hits, cov_first)))
     else:
         idx_h = np.asarray(_fetch(idx))
+    sched_per_seed = lin_per_seed = None
     live_keep = idx_h >= 0
     live_world_steps += int(np.asarray(obs_live["steps"])[live_keep].sum())
     # Scatter whenever the live batch does not cover the id space in seed
@@ -602,8 +832,30 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
             out = np.zeros((n,) + merged.shape[1:], merged.dtype)
             out[rows] = merged
             obs[k] = out
+        if search_on:
+            merged_s = np.concatenate(
+                retired_sched + [sched_live_h[live_keep]], axis=0)
+            sched_per_seed = np.full((n,) + merged_s.shape[1:], -1, np.int32)
+            sched_per_seed[:, :, 1:] = 0     # canonical disabled rows
+            sched_per_seed[rows] = merged_s
+        if lin_live_h is not None:
+            # Never-admitted seeds read as generation 0.
+            lanes_out = []
+            for i, dflt in enumerate((-1, -1, 0, 0)):
+                merged_l = np.concatenate(
+                    [t[i] for t in retired_lin]
+                    + [np.asarray(lin_live_h[i])[live_keep]], axis=0)
+                out = np.full((n,), dflt, np.int32)
+                out[rows] = np.asarray(merged_l, np.int32)
+                lanes_out.append(out)
+            lin_per_seed = tuple(lanes_out)
     else:
         obs = obs_live
+        if search_on:
+            sched_per_seed = sched_live_h
+        if lin_live_h is not None:
+            lin_per_seed = tuple(np.asarray(a, np.int32)
+                                 for a in lin_live_h)
     util = (live_world_steps / issued_slot_steps if issued_slot_steps
             else 0.0)
     loop_stats = {
@@ -629,6 +881,14 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
     }
     coverage = (coverage_from_device(cov_k, cov_hits_h, cov_first_h,
                                      novelty_hist) if cov_on else None)
+    search_report = None
+    triage_faults = faults
+    if search_on:
+        search_report = _search_report(srch, sched_per_seed, lin_per_seed,
+                                       op_produced_h, obs["bug"],
+                                       search_gen0, search_lin_base)
+        # Triage replays the schedule each world actually ran.
+        triage_faults = sched_per_seed
     return SweepResult(seeds=seeds, bug=obs["bug"], observations=obs,
                        steps_run=steps, n_devices=1,
                        n_active_history=np.asarray(n_active_hist, np.int64),
@@ -638,4 +898,65 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
                        faults_sha256=(faults_sha256 if faults is not None
                                       else None),
                        coverage=coverage,
-                       triage_ctx=TriageContext(engine=eng, faults=faults))
+                       search=search_report,
+                       triage_ctx=TriageContext(engine=eng,
+                                                faults=triage_faults))
+
+
+def _host_signatures(obs: Dict[str, np.ndarray]) -> np.ndarray:
+    """The behavior signatures (uint32) of observation rows, from their
+    metrics block (``m_*``), as ``obs/coverage.behavior_signature``
+    computes them on the device."""
+    from types import SimpleNamespace
+
+    from ..obs.coverage import behavior_signature
+
+    mb = SimpleNamespace(**{
+        k[2:]: torch.from_numpy(np.ascontiguousarray(v))
+        for k, v in obs.items() if k.startswith("m_")})
+    return behavior_signature(mb).numpy().astype(np.uint32)
+
+
+def _search_report(srch, sched_per_seed, lin_per_seed, op_produced,
+                   bug, search_gen0: int, search_lin_base: int):
+    """The guided sweep's :class:`~madsim_tpu_torch.search.SearchReport`:
+    the host corpus, the per-seed schedules and lanes, and the operator
+    table with its bug row folded from the lanes."""
+    from ..search import SearchReport
+
+    lineage_rep = op_stats = None
+    if lin_per_seed is not None:
+        from ..obs.lineage import (
+            N_OPS,
+            SearchLineage,
+            host_credit,
+            operator_stats,
+        )
+
+        lineage_rep = SearchLineage(
+            parent1=lin_per_seed[0], parent2=lin_per_seed[1],
+            ops=lin_per_seed[2], depth=lin_per_seed[3],
+            entry_base=int(search_lin_base))
+        # A find that stopped the sweep, or sat live at its end, never
+        # crossed a harvest: the bug row folds over the per-seed lanes.
+        op_bug = host_credit(np.zeros(N_OPS, np.int32), lineage_rep.ops,
+                             np.asarray(bug, bool))
+        op_stats = operator_stats(np.asarray(op_produced), srch["novel"],
+                                  srch["survived"], op_bug)
+    c = srch["corpus"]
+    c_filled = np.asarray(c.filled, bool)
+    return SearchReport(
+        # Generations this sweep ran: search_gen0 shifts the key space.
+        generations=int(srch["gen"]) - int(search_gen0),
+        inserted=int(srch["inserted"]),
+        corpus_size=int(c_filled.sum()),
+        corpus_capacity=int(c_filled.shape[0]),
+        corpus_sched=np.asarray(c.sched, np.int32),
+        corpus_sig=np.asarray(c.sig, np.uint32),
+        corpus_score=np.asarray(c.score, np.int32),
+        corpus_filled=c_filled,
+        schedules=sched_per_seed,
+        corpus_entry=np.asarray(c.entry, np.int32),
+        corpus_depth=np.asarray(c.depth, np.int32),
+        lineage=lineage_rep,
+        operator_stats=op_stats)

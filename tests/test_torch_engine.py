@@ -189,26 +189,35 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take():
     _, eng = engines(dict(rk, log_cap=65), ck)
     with pytest.raises(ValueError, match="log_cap"):
         step_kernel.kernel_params(eng)
-    # Two-phase commit and primary-backup have policies in the kernel;
-    # Paxos and packed=False raise, naming their ROADMAP items.
+    # Two-phase commit, primary-backup, Paxos and both pair families have
+    # policies in the kernel; packed=False raises, naming its ROADMAP item.
     from madsim_tpu_torch.actorc.families.paxos import (PaxosActor,
                                                         PaxosConfig,
                                                         engine_config)
+    from madsim_tpu_torch.search.family import (GuidedPairActor,
+                                                GuidedPairConfig)
+    from madsim_tpu_torch.triage.synthetic import (PairRestartActor,
+                                                   PairRestartConfig)
     tck = dict(n_nodes=4, outbox_cap=5, queue_cap=64)
     pck = dict(n_nodes=3, outbox_cap=4, queue_cap=48)
+    xck = vars(engine_config(PaxosConfig()))
+    gck = dict(n_nodes=12, outbox_cap=2, queue_cap=64, metrics=True)
+    rck = dict(n_nodes=4, outbox_cap=2, queue_cap=64)
     for actor, ck2 in ((T.TPCActor(T.TPCDeviceConfig(n=4)), tck),
-                       (T.PBActor(T.PBDeviceConfig(n=3)), pck)):
+                       (T.PBActor(T.PBDeviceConfig(n=3)), pck),
+                       (PaxosActor(PaxosConfig()), xck),
+                       (GuidedPairActor(GuidedPairConfig(n=12)), gck),
+                       (PairRestartActor(PairRestartConfig()), rck)):
         eng = T.DeviceEngine(actor, T.EngineConfig(**ck2), device="cpu")
         assert step_kernel.kernel_params(eng)[3] == \
             step_kernel.family_of(actor).id
-        eng = T.DeviceEngine(actor, T.EngineConfig(**ck2, packed=False),
+        eng = T.DeviceEngine(actor, T.EngineConfig(**dict(ck2, packed=False)),
                              device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP Queue B f"):
             step_kernel.kernel_params(eng)
-    eng = T.DeviceEngine(PaxosActor(PaxosConfig()),
-                         engine_config(PaxosConfig()), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 8"):
-        step_kernel.kernel_params(eng)
+    # An actor the kernel has no policy for raises, naming the routes.
+    with pytest.raises(NotImplementedError, match="paxos, pair_restart"):
+        step_kernel.family_of(object())
 
 
 def test_config_and_init_validation_match_jax():
@@ -251,7 +260,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "madsim_tpu_torch.engine.tpc_actor, "
             "madsim_tpu_torch.engine.pb_actor, "
             "madsim_tpu_torch.engine.families, "
-            "madsim_tpu_torch.engine.step_kernel; "
+            "madsim_tpu_torch.engine.step_kernel, "
+            "madsim_tpu_torch.search, madsim_tpu_torch.search.hunts, "
+            "madsim_tpu_torch.search.generate, "
+            "madsim_tpu_torch.obs.lineage, "
+            "madsim_tpu_torch.triage.synthetic, "
+            "madsim_tpu_torch.kernel_ab; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'madsim_tpu' or "
             "m.startswith('madsim_tpu.')]; "

@@ -234,11 +234,13 @@ def test_family_golden_digests_recomputed_from_jax(name):
 
 
 def test_family_registry_matches_jax():
-    """The port's registry holds raft, pb, tpc and paxos with the JAX
-    registry's conformance shapes."""
+    """The port's registry holds every family of the JAX registry — raft,
+    pb, tpc, paxos and the guided search's pair_restart and guided_pair —
+    with its conformance shapes."""
     tf = tfamilies.actor_families()
     jf = j_families()
-    assert sorted(tf) == ["paxos", "pb", "raft", "tpc"]
+    assert sorted(tf) == sorted(jf) == ["guided_pair", "pair_restart",
+                                        "paxos", "pb", "raft", "tpc"]
     for name, fam in tf.items():
         assert [c.__name__ for c in fam.load()] == \
             [c.__name__ for c in jf[name].load()]
@@ -247,4 +249,4 @@ def test_family_registry_matches_jax():
         assert ta.num_kinds == ja.num_kinds
         assert getattr(ta, "kind_names", None) == \
             getattr(ja, "kind_names", None)
-    assert tfamilies.family("pair_restart") is None
+    assert tfamilies.family("no_such_family") is None

@@ -136,43 +136,67 @@ def test_access_widths_follow_the_rows_and_the_tensors():
 def test_launch_vector_matches_the_kernels_params():
     """W, the engine's parameters, the family's, and the tile plan: as many
     ints as the kernel's Params struct holds, the plan's block beside them.
-    Raft's, tpc's and pb's, each family's parameters in the order its
-    policy (``csrc/actor_*.cuh``) reads them."""
+    Each family's parameters in the order its policy
+    (``csrc/actor_*.cuh``) reads them: Raft's, tpc's, pb's, Paxos's, and
+    the two pair families' (the targets and the beacon flag)."""
+    from madsim_tpu_torch.actorc.families.paxos import (PaxosActor,
+                                                        PaxosConfig,
+                                                        engine_config)
+    from madsim_tpu_torch.search.family import (GuidedPairActor,
+                                                GuidedPairConfig)
+    from madsim_tpu_torch.triage.synthetic import (PairRestartActor,
+                                                   PairRestartConfig)
+
     src = (Path(step_kernel.__file__).resolve().parent.parent / "csrc"
            / "step_common.cuh").read_text()
     n_params = int(re.search(r"constexpr int N_PARAMS = (\d+);", src)[1])
+    n_fam = len(re.search(r"int (f0, .*);", src)[1].split(","))
+    assert n_fam == step_kernel.N_FAMILY_PARAMS == 8
     tpc = T.TPCDeviceConfig(n=4, n_txns=4, buggy_presumed_commit=True)
     pb = T.PBDeviceConfig(n=3, n_writes=4, buggy_commit_early=True)
+    px = PaxosConfig(buggy_forgetful_acceptor=True, contend_all=True)
     cases = [
-        (engine(*HEADLINE), 0, [4, 4, 150_000, 300_000, 50_000, 0, 0, 0], 7),
+        (engine(*HEADLINE), 0, [4, 4, 150_000, 300_000, 50_000, 0], 7, 16),
         (T.DeviceEngine(T.TPCActor(tpc), T.EngineConfig(
             n_nodes=4, outbox_cap=5, queue_cap=64), device="cpu"), 1,
-         [4, 50_000, 120_000, 60_000, 32, 1, 0, 0], 5),
+         [4, 50_000, 120_000, 60_000, 32, 1], 5, 16),
         (T.DeviceEngine(T.PBActor(pb), T.EngineConfig(
             n_nodes=3, outbox_cap=4, queue_cap=48), device="cpu"), 2,
-         [16, 50_000, 200_000, 400_000, 4, 100_000, 150_000, 1], 6),
+         [16, 50_000, 200_000, 400_000, 4, 100_000, 150_000, 1], 6, 16),
+        (T.DeviceEngine(PaxosActor(px), engine_config(px), device="cpu"), 3,
+         [3, 150_000, 400_000, 3, 40_000, 30_000, 1, 5_000], 7, 2),
+        (T.DeviceEngine(GuidedPairActor(GuidedPairConfig(n=12)),
+                        T.EngineConfig(n_nodes=12, outbox_cap=2,
+                                       queue_cap=64), device="cpu"), 4,
+         [1, 2, 1], 2, 16),
+        (T.DeviceEngine(PairRestartActor(PairRestartConfig(node_b=3)),
+                        T.EngineConfig(n_nodes=4, outbox_cap=2,
+                                       queue_cap=64), device="cpu"), 4,
+         [1, 3, 0], 1, 16),
     ]
-    for eng, family, fparams, kinds in cases:
+    for eng, family, fparams, kinds, pay_unit in cases:
+        fparams = fparams + [0] * (n_fam - len(fparams))
         leaves = tree_leaves(eng.init(np.arange(8)))
         block, ints = step_kernel.launch_ints(eng, leaves)
         plan = step_kernel.engine_plan(eng)
         cfg = eng.cfg
+        f0, t0 = 7, 7 + n_fam
         assert block == plan.block
         assert len(ints) == n_params
-        assert ints[0] == 8 and ints[1:15] == step_kernel.kernel_params(eng)
-        assert ints[1:8] == [cfg.n_nodes, cfg.queue_cap, cfg.payload_words,
-                             family, cfg.t_limit_us, 1, *fparams[:1]]
-        assert ints[7:15] == fparams
+        assert ints[0] == 8 and ints[1:t0] == step_kernel.kernel_params(eng)
+        assert ints[1:f0] == [cfg.n_nodes, cfg.queue_cap, cfg.payload_words,
+                              family, cfg.t_limit_us, 1]
+        assert ints[f0:t0] == fparams
         raft = family == 0
-        assert ints[15:28] == [plan.smem_bytes, plan.q_stride,
-                               plan.commit_stride, plan.log_stride, 16,
-                               plan.commit_unit, 4 if raft else 0, 16,
-                               plan.off_qm, plan.off_dirty, plan.off_commit,
-                               plan.off_lt, plan.off_lc]
+        assert ints[t0:t0 + 13] == [
+            plan.smem_bytes, plan.q_stride, plan.commit_stride,
+            plan.log_stride, 16, plan.commit_unit, 4 if raft else 0,
+            pay_unit, plan.off_qm, plan.off_dirty, plan.off_commit,
+            plan.off_lt, plan.off_lc]
         # The families beside Raft take no commit or log tiles.
         assert (plan.commit_stride > 0) == raft
         # The optional lanes: metrics off, the family's kinds, no ring.
-        assert ints[28:] == [0, kinds, 0]
+        assert ints[t0 + 13:] == [0, kinds, 0]
         # One pointer per leaf: the engine's 24, the actor's lanes, the
         # metrics block's 13 and the ring's 8 (null when off).
         ptrs = step_kernel.kernel_pointers(eng, leaves)

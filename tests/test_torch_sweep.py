@@ -96,7 +96,9 @@ def both(je, te, **kw):
 def assert_results_equal(jr, tr):
     np.testing.assert_array_equal(tr.seeds, jr.seeds)
     np.testing.assert_array_equal(tr.bug, jr.bug)
-    assert sorted(tr.observations) == sorted(jr.observations)
+    # The same keys in the same order (jax.device_get sorts a dict): the
+    # order decides ties in summary()'s drop-cause ranking.
+    assert list(tr.observations) == list(jr.observations)
     for k, v in jr.observations.items():
         assert tr.observations[k].dtype == v.dtype, k
         np.testing.assert_array_equal(tr.observations[k], v, err_msg=k)
@@ -113,7 +115,8 @@ def assert_results_equal(jr, tr):
     assert tr.repro_banner() == jr.repro_banner()
     assert (tr.metrics is None) == (jr.metrics is None)
     if tr.metrics is not None:
-        assert tr.metrics["aggregate"] == jr.metrics["aggregate"]
+        assert list(tr.metrics["aggregate"].items()) == \
+            list(jr.metrics["aggregate"].items())
     assert sorted(tr.loop_stats) == sorted(jr.loop_stats)
     for k in LOOP_COUNTS:
         assert tr.loop_stats[k] == jr.loop_stats[k], k
@@ -202,16 +205,27 @@ def test_refill_matches_jax_shared_and_per_slot(off_engines):
                 eng.refill(st, mask, new, faults=bad)
             msgs.append(str(err.value))
         assert msgs[0] == msgs[1]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        te.refill(ts, mask, new, faults=torch.from_numpy(per_slot))
+    # The per-slot schedule as a device tensor (the guided search's
+    # refill): equal to JAX's refill with a device array, and a refilled
+    # slot bitwise an independent init of its seed under its schedule.
+    per_slot[1::2, 1, 0] -= 100_000
+    js = je.refill(js, mask, new, faults=jax.numpy.asarray(per_slot))
+    ts = te.refill(ts, mask, new, faults=torch.from_numpy(per_slot))
+    jl = [np.asarray(x) for x in jax.tree.leaves(js)]
+    for name, a, b in zip(tree_paths(ts), jl, tree_leaves(ts)):
+        np.testing.assert_array_equal(b.numpy(), a, err_msg=name)
+    fresh = te.init(new, faults=per_slot)
+    for name, a, b in zip(tree_paths(ts), tree_leaves(ts),
+                          tree_leaves(fresh)):
+        np.testing.assert_array_equal(a.numpy()[mask], b.numpy()[mask],
+                                      err_msg=name)
 
 
 def test_unported_knobs_raise_naming_their_roadmap_item(off_engines):
     _je, te = off_engines
     cases = [(dict(pipeline=True), "item 7"), (dict(fused=True), "item 7"),
              (dict(checkpoint_path="ckpt.npz"), "item 6"),
-             (dict(resume=True), "item 6"), (dict(search=object()), "item 8"),
-             (dict(search_gen0=1), "item 8"), (dict(observe=print), "item 11"),
+             (dict(resume=True), "item 6"), (dict(observe=print), "item 11"),
              (dict(profile_dir="prof"), "item 11"),
              (dict(mesh=object()), "item 12")]
     for kw, item in cases:
@@ -229,6 +243,42 @@ def test_unported_knobs_raise_naming_their_roadmap_item(off_engines):
     with pytest.raises(ValueError, match="metrics=True"):
         tsweep_mod.sweep(None, te.cfg, SEEDS, engine=te, pipeline=False,
                          coverage_buckets=8)
+    # The guided search is ported: its knobs raise the JAX package's
+    # argument errors.
+    with pytest.raises(ValueError, match="search_gen0"):
+        tsweep_mod.sweep(None, te.cfg, SEEDS, engine=te, pipeline=False,
+                         search_gen0=1)
+    with pytest.raises(ValueError, match="recycle=True"):
+        tsweep_mod.sweep(None, te.cfg, SEEDS, engine=te, pipeline=False,
+                         search=object())
+
+
+def test_summary_breaks_drop_cause_ties_as_jax():
+    """The tie case of the observation key order: pb with the metrics
+    block and a 16-deep ring over seeds 0..23, where two drop causes count
+    24 each. JAX ranks them in sorted key order (jax.device_get sorts a
+    dict), and so must the port: the same summary() string."""
+    ck = dict(n_nodes=3, outbox_cap=4, queue_cap=48, t_limit_us=2_000_000,
+              loss_rate=0.3, stop_on_bug=False, metrics=True, blackbox=16)
+    faults = np.array([[130_000, J.FAULT_KILL, 0, 0],
+                       [400_000, J.FAULT_RESTART, 0, 0],
+                       [600_000, J.FAULT_SET_LOSS, 50_000, 0]], np.int32)
+    pcfg = dict(n=3, n_writes=4, buggy_commit_early=True)
+    je = J.DeviceEngine(J.PBActor(J.PBDeviceConfig(**pcfg)),
+                        J.EngineConfig(**ck))
+    te = T.DeviceEngine(T.PBActor(T.PBDeviceConfig(**pcfg)),
+                        T.EngineConfig(**ck), device="cpu")
+    kw = dict(faults=faults, chunk_steps=64, max_steps=2_000,
+              pipeline=False)
+    jr = jsweep_mod.sweep(None, je.cfg, np.arange(24), engine=je,
+                          mesh=MESH1, **kw)
+    tr = tsweep_mod.sweep(None, te.cfg, np.arange(24), engine=te, **kw)
+    assert_results_equal(jr, tr)
+    agg = tr.metrics["aggregate"]
+    assert agg["drop_out_of_time"] == agg["drop_stale"] == 24
+    assert tr.summary().endswith(
+        "top drop causes: loss=277, dead=74, out_of_time=24; black box: "
+        "last 16 events/world recorded.")
 
 
 def test_golden_digests_recomputed_from_jax():
