@@ -8,17 +8,20 @@ batched Raft engine — ``DeviceEngine(RaftActor(..), EngineConfig(..))``,
 it, then the compiled families two-phase commit and primary-backup
 (``DeviceEngine(TPCActor(..) | PBActor(..), ..)``) through their kernel
 policies, then the coverage-guided schedule search
-(``sweep(..., search=SearchConfig(..), pipeline=False)``) over the Paxos
-and pair-restart families through theirs. Phases, in order; any failure
-exits non-zero:
+(``sweep(..., search=SearchConfig(..))``) over the Paxos and pair-restart
+families through theirs, each sweep through the serial, the pipelined
+(the default) and the fused loop, and every family in the wide lane
+profile (``EngineConfig(packed=False)``) too. Phases, in order; any
+failure exits non-zero:
 
 1. card: name and power limit; uint32 <-> int64 round trip on CUDA tensors;
 2. build: one nvcc per source (``step_raft.cu``, ``step_tpc.cu``,
-   ``step_pb.cu``, ``step_paxos.cu``, ``step_pair.cu``), all started
-   together, with the ptxas register/spill report and the build time;
-   fails unless every instantiation ``step_kernel<A, N>`` (Raft, pb and
-   Paxos N = 1..8, tpc N = 2..8, pair N = 1..12) has a 0-byte stack frame
-   and no spills;
+   ``step_pb.cu``, ``step_paxos.cu``, ``step_pair.cu``, ``corpus_fold.cu``),
+   all started together, with the ptxas register/spill report and the
+   build time; fails unless every instantiation ``step_kernel<A, N>`` of
+   both lane profiles (Raft, pb and Paxos N = 1..8, tpc N = 2..8, pair
+   N = 1..12) and the corpus fold kernel has a 0-byte stack frame and no
+   spills;
 3. Threefry on the card: Random123 known answers and bitwise agreement with
    the plain torch version on 2^20 keys and counters;
 4. kernel vs plain step, whole runs: six configurations at W=4096 (two of
@@ -39,56 +42,71 @@ exits non-zero:
    n = 12 at their templates, pair-restart at n = 4 under
    ``pair_schedule``, and the guided pair and Paxos under per-slot
    ``(W, F, 4)`` schedules made by the port's ``make_children``, lanes off
-   and on, at W=4096 and (``main_*``) W=65,536;
+   and on, at W=4096 and (``main_*``) W=65,536; the wide lane profile of
+   every family (``:wide``: Raft under every fault op and at odd widths,
+   tpc, pb, Paxos, both pair families, lanes off and on) at W=4096, and
+   the Raft hunt at its full W, lanes off and on; then the corpus fold
+   kernel against its plain version at 8,192 and 32 slots, with its masks
+   and lineage lanes;
 5. held to JAX without JAX: observe() digests of seeds 0..63 equal the
    JAX-derived constants in ``madsim_tpu_torch/engine/golden.py``, with
    the lanes off and on, and so does the SweepResult of a small recycled
-   sweep with both on, the families' three deployments, and the guided
-   search's two deployments at their templates;
+   sweep with both on (through each of the three loops, the fused one's
+   ``world_utilization`` exempt), the families' three deployments, the
+   guided search's two deployments at their templates, and one
+   deployment of each family in the wide profile;
 6. the main path at full size: the headline deployment at W=524,288 and the
    bug hunt at W=65,536, init and run timed apart (best of 3), the kernel's
    launches counted; the kernel's device time per step over the same
    launches, held against the bytes this run's steps need (and PR 1's
    least-traffic count beside it), the share of active worlds in each
-   timed chunk, and the run's device idle share; then the same
+   timed chunk, and the run's device idle share, beside a run loop that
+   syncs with the host every 16 launches; then the same
    timing at 64, 128 and 256 worlds per block (where the tiles fit), each
    run's observations held to the main run's; then each family deployment
    at W=65,536 the same way (init and run best of 3, the launches, the
    kernel's time per step over the run's own launches against the bytes
    the family's steps need, the active share by chunk, the plain step),
    the guided search's two deployments (Paxos and the guided pair at
-   their templates) among them;
+   their templates) among them; then every deployment in the wide lane
+   profile (the kernel's time per step against its bound, the state
+   bytes per world beside the packed profile's);
 7. the bug hunt's sweep at full width (65,536 seeds), ``sweep(...,
-   pipeline=False)`` as bench.py's legs run it: (a) recycled through 8,192
-   slots, stopping at the first bug, timed, with its chunks' kernel device
-   time and the device idle share; (b) every seed swept to retirement with
-   metrics on, each observation equal to a monolithic ``init`` + ``run``
-   and the coverage ledger equal to the fold of its signatures; (c) the
-   monolithic hunt with a 64-deep ring: the bug vector of the off run, a
-   failing seed's decoded ring the suffix of ``trace()`` on the card, and
-   the kernel's time and needed-bytes bound with the ring and the metrics
-   off and on, and the state bytes per world they take; (d) the pb hunt
-   recycled to its first bug over 65,536 seeds, whose first failing seed
-   fails again in an independent ``init`` + ``run``;
-8. the guided hunts: (a) the three canonical hunts of bench.py's
-   guided_hunt leg (pair, raft, Paxos; ``search/hunts.py``) at 512 seeds,
-   guided and random, each held to the JAX pins of ``golden.HUNT_PINS``
-   (seeds to the first bug, bugs found, generations, corpus size,
-   ancestry depth, operator table, digest of the schedules and the
-   corpus), with its wall time, seeds/s, refills, the searcher's and the
-   fold's ms per refill and the device idle share; (b) the Paxos hunt at
-   the width of phase 7's sweeps (65,536 seeds through 8,192 slots),
-   guided, to its first bug, which fails again in an independent ``init``
-   + ``run`` under the schedule the search materialized for it.
+   pipeline=False)`` as bench.py's legs run it, and then through the
+   pipelined and the fused loop, each held to the serial run: (a)
+   recycled through 8,192 slots, stopping at the first bug, timed, with
+   its chunks' kernel device time and the device idle share; (b) every
+   seed swept to retirement with metrics on, each observation equal to a
+   monolithic ``init`` + ``run`` and the coverage ledger equal to the fold
+   of its signatures; (c) the monolithic hunt with a 64-deep ring: the bug
+   vector of the off run, a failing seed's decoded ring the suffix of
+   ``trace()`` on the card, and the kernel's time and needed-bytes bound
+   with the ring and the metrics off and on, and the state bytes per world
+   they take; (d) the pb hunt recycled to its first bug over 65,536
+   seeds, whose first failing seed fails again in an independent
+   ``init`` + ``run``;
+8. the guided hunts, each through the serial, the pipelined and the fused
+   loop: (a) the three canonical hunts of bench.py's guided_hunt leg
+   (pair, raft, Paxos; ``search/hunts.py``) at 512 seeds, guided and
+   random, each held to the JAX pins of ``golden.HUNT_PINS`` (seeds to the
+   first bug, bugs found, generations, corpus size, ancestry depth,
+   operator table, digest of the schedules and the corpus), with its wall
+   time, seeds/s, refills, ``_fetch`` calls, the searcher's and the fold
+   kernel's ms and the device idle share; (b) the Paxos hunt at the width
+   of phase 7's sweeps (65,536 seeds through 8,192 slots), guided, to its
+   first bug, which fails again in an independent ``init`` + ``run`` under
+   the schedule the search materialized for it.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it lists each kernel route (the step kernel with Raft's, tpc's,
-pb's, Paxos's and the pair families' policy) with its launches and times.
+pb's, Paxos's and the pair families' policy, in each lane profile, and the
+corpus fold kernel) with its launches and times.
 
 Usage: python3 chip_smoke.py   (from the root of the repository)
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -107,6 +125,9 @@ TIMED_STEPS = 100
 # A sleep the device runs while the host queues a chunk of timed launches
 # behind it: about 0.1 s at the H100's 1.98 GHz boost clock.
 SLEEP_CYCLES = 200_000_000
+# Worlds of the corpus fold kernel's comparisons: the wide hunt's slots
+# and the canonical hunts' (search/hunts.py).
+FOLD_WIDE, FOLD_NARROW = 8192, 32
 # Worlds per CUDA block timed against each other in phase 6.
 BLOCK_SWEEP = (64, 128, 256)
 
@@ -178,7 +199,9 @@ def main() -> int:
     from madsim_tpu_torch.parallel import sweep as sweep_mod
     from madsim_tpu_torch.parallel.sweep import sweep
     from madsim_tpu_torch.search import hunts
-    from madsim_tpu_torch.search.corpus import corpus_init
+    from madsim_tpu_torch.search import fold_kernel
+    from madsim_tpu_torch.search.corpus import (corpus_init, harvest_fold,
+                                                harvest_fold_plain)
     from madsim_tpu_torch.search.mutate import make_children
     from madsim_tpu_torch.triage.synthetic import pair_schedule
 
@@ -202,44 +225,60 @@ def main() -> int:
     # ---- 2. build ---------------------------------------------------------
     # One nvcc per source, all started together: the kernel with Raft's,
     # two-phase commit's, primary-backup's, Paxos's and the pair families'
-    # policy (one source per route).
+    # policy (one source per route, each in both lane profiles), and the
+    # corpus fold kernel.
     sources = {f.route: f.source for f in step_kernel.FAMILIES}
     least = {f.route: f.least_n for f in step_kernel.FAMILIES}
     most = {f.route: f.max_n for f in step_kernel.FAMILIES}
     t0 = time.perf_counter()
-    took = _build.build_all(list(sources.values()))
-    log(f"[2 build] nvcc of {', '.join(s + '.cu' for s in sources.values())}"
-        f" in parallel: " + ", ".join(f"{s} {took[s]:.1f} s"
-                                      for s in sources.values())
+    took = _build.build_all(list(sources.values()) + [fold_kernel.SOURCE])
+    log(f"[2 build] nvcc of {', '.join(s + '.cu' for s in took)} in "
+        f"parallel: " + ", ".join(f"{s} {t:.1f} s" for s, t in took.items())
         + f"; wall {time.perf_counter() - t0:.1f} s")
-    regs = {}
+
+    def no_local_memory(name, f):
+        check(f["stack"] == 0 and f["spill_stores"] == 0
+              and f["spill_loads"] == 0,
+              f"{name} uses local memory: {f['stack']} bytes stack "
+              f"frame, {f['spill_stores']} bytes spill stores, "
+              f"{f['spill_loads']} bytes spill loads")
+
     for fam, src in sources.items():
         report = _build.build_log.get(src, "")
         for line in report.splitlines():
             if "error" in line:
                 log(f"[2 build] {src}.cu: {line.strip()}")
-        # One instantiation per node count the family takes, each without
-        # local memory.
+        # One instantiation per node count the family takes and lane
+        # profile, each without local memory.
         least_n = least[fam]
-        want = most[fam] - least_n + 1
+        want = 2 * (most[fam] - least_n + 1)
         ptx = ptxas_report(report, "step_kernel")
         check(len(ptx) == want and all(len(f) == 4 for f in ptx.values()),
               f"ptxas reported {len(ptx)} step_kernel instantiations in "
               f"{src}.cu, expected {want} with registers, stack frame and "
               f"spills")
         for name, f in ptx.items():
-            check(f["stack"] == 0 and f["spill_stores"] == 0
-                  and f["spill_loads"] == 0,
-                  f"{name} uses local memory: {f['stack']} bytes stack "
-                  f"frame, {f['spill_stores']} bytes spill stores, "
-                  f"{f['spill_loads']} bytes spill loads")
-        by_n = {int(re.search(r"Li(\d+)E", name)[1]): f["registers"]
-                for name, f in ptx.items()}
-        regs[fam] = by_n
-        log(f"[2 build] {src}.cu: step_kernel<{fam}, N> for N={least_n}.."
-            f"{most[fam]}: 0 bytes stack frame and no spills in "
-            f"each; registers by N " + ", ".join(
-                f"{n}: {r}" for n, r in sorted(by_n.items())))
+            no_local_memory(name, f)
+        for prof in ("PackedProfile", "WideProfile"):
+            by_n = {int(re.search(r"Li(\d+)E", name)[1]): f["registers"]
+                    for name, f in ptx.items() if prof in name}
+            check(len(by_n) == want // 2, f"{src}.cu: step_kernel "
+                  f"instantiations of {prof} by N: {sorted(by_n)}")
+            log(f"[2 build] {src}.cu: step_kernel<{fam}, {prof}, N> for "
+                f"N={least_n}..{most[fam]}: 0 bytes stack frame and no "
+                f"spills in each; registers by N "
+                + ", ".join(f"{n}: {r}" for n, r in sorted(by_n.items())))
+    fold_ptx = ptxas_report(_build.build_log.get(fold_kernel.SOURCE, ""),
+                            "corpus_fold_kernel")
+    check(len(fold_ptx) == 1, f"ptxas reported {len(fold_ptx)} corpus fold "
+          f"kernels, expected 1")
+    fold_ptx.update(ptxas_report(
+        _build.build_log.get(fold_kernel.SOURCE, ""), "fold_chain_kernel"))
+    check(len(fold_ptx) == 2, "ptxas did not report the fold chain kernel")
+    for name, f in fold_ptx.items():
+        no_local_memory(name, f)
+        log(f"[2 build] corpus_fold.cu: {name}: 0 bytes stack frame and "
+            f"no spills, {f['registers']} registers")
 
     # ---- 3. Threefry on the card ------------------------------------------
     kat = [((0x00000000, 0x00000000), (0x00000000, 0x00000000),
@@ -459,7 +498,28 @@ def main() -> int:
     by_name = {c[0]: c for c in compare_cfgs}
     compare_cfgs += [with_lanes(c[0], c[0] + "+obs", c[5], **on)
                      for c in search_compare]
+    # The wide lane profile (packed=False, every narrow lane int32): each
+    # family's wide instantiations against the plain step, lanes off and
+    # on, under every fault op and at odd widths, and the Raft hunt at its
+    # full W (to the same depth as the packed profile's).
+    by_name = {c[0]: c for c in compare_cfgs}
+    wide_names = ["headline", "hunt_kill_restart", "overflow_q8+obs",
+                  "fault_mix", "n5_q30_p12+obs", "n4_l6",
+                  "inf_latency+metrics", "main_hunt", "main_hunt+obs",
+                  "tpc_crosscheck", "tpc_n3_q30_p12", "pb_hunt",
+                  "pb_hunt+obs", "pb_n5_q30_p12", "paxos_hunt",
+                  "paxos_hunt+obs", "paxos_children", "guided_pair",
+                  "guided_pair+obs", "guided_pair_children",
+                  "pair_restart_n4"]
+    compare_cfgs += [with_lanes(name, name + ":wide", by_name[name][5],
+                                packed=False) for name in wide_names]
     fam_err = {}
+
+    def route_key(eng):
+        """The kernel route an engine launches: its family's policy, and
+        ``:wide`` for the wide lane profile's instantiations."""
+        return (step_kernel.family_of(eng.actor).route
+                + ("" if eng.cfg.packed else ":wide"))
 
     def make_engine(cfgs, **over):
         """An engine on the card from (RaftDeviceConfig kwargs,
@@ -483,7 +543,7 @@ def main() -> int:
         cut = name in earlier_depth
         max_steps = earlier_depth.get(name, max_steps)
         eng = make_engine(cfgs)
-        fam = step_kernel.family_of(eng.actor).route
+        fam = route_key(eng)
         ks_state = eng.init(seeds, faults=faults)
         pl_state = eng.init(seeds, faults=faults)
         first, err = diff(ks_state, pl_state)
@@ -527,7 +587,7 @@ def main() -> int:
             f"equal (bug {int(obs['bug'].sum())}, overflow "
             f"{int(obs['overflow'].sum())}"
             + (f", elected {int(obs['leader_elected'].sum())}"
-               if fam == "raft" else "")
+               if fam.startswith("raft") else "")
             + f") in {time.perf_counter() - t0:.1f} s")
         del ks_state, pl_state
 
@@ -587,6 +647,86 @@ def main() -> int:
                          EngineConfig(**ck, **lanes), device=dev),
             w, faults))
 
+    # The corpus fold kernel against its plain version (harvest_fold's loop
+    # of torch ops), bitwise on the corpus, the insert count and the novel
+    # and inserted masks: the Paxos hunt's SearchConfig (corpus size and
+    # min_novelty), lineage lanes on, the rows' signatures those of a
+    # Paxos hunt batch with the metrics block after 200 steps, its
+    # retired worlds in the mask. Two folds at each width: from the
+    # template's corpus, and from the corpus the first left.
+    from madsim_tpu_torch.obs.coverage import behavior_signature
+    px_scfg = px_hunt.search(True)
+    fold_runs = {}
+    for w in (FOLD_WIDE, FOLD_NARROW):
+        eng = make_engine((px_fam, px_ak, px_ck))
+        state = eng.run_steps(eng.init(np.arange(w), faults=np.asarray(
+            px_t, np.int32)), 200)
+        sigs = behavior_signature(state.metrics)
+        mask = ~state.active | (torch.arange(w, device=dev) % 3 == 0)
+        sched = torch.from_numpy(children(px_hunt, w, 2)).to(dev)
+        entries = torch.arange(w, dtype=torch.int32, device=dev) + 1
+        depths = (torch.arange(w, dtype=torch.int32, device=dev) % 5)
+        corpus = corpus_init(px_scfg.corpus, np.asarray(px_t, np.int32), dev)
+        fold_ms, n_ins = [], []
+        for _rep in range(2):
+            args = (corpus, sched, sigs, mask, px_scfg.min_novelty, entries,
+                    depths)
+            times = []
+            for _t in range(5):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out_k = harvest_fold(*args, with_masks=True)
+                e1.record()
+                e1.synchronize()
+                times.append(e0.elapsed_time(e1))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out_p = harvest_fold_plain(*args, with_masks=True)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            for name, x, y in zip(corpus._fields, out_k[0], out_p[0]):
+                check(torch.equal(x, y), f"fold W={w}: the kernel's corpus "
+                      f"{name} differs from the plain fold's")
+            for name, x, y in zip(("n_ins", "novel", "inserted"), out_k[1:],
+                                  out_p[1:]):
+                check(torch.equal(x, y), f"fold W={w}: the kernel's {name} "
+                      f"differs from the plain fold's")
+            fold_ms.append(sorted(times)[len(times) // 2])
+            n_ins.append(int(out_k[1]))
+            corpus = out_k[0]
+        rows = int(mask.sum())
+        # Bytes a fold must move: the corpus's signature (int64 carrier),
+        # score and fill read once (K entries; the kernel stages them);
+        # every row's mask byte and its two output bytes; each masked row's
+        # signature; and per insert the schedule row read and written, its
+        # lineage entry and depth read, and the entry's signature, score,
+        # fill, entry and depth written. Each timing is the mean of the two
+        # folds, so the inserts are too.
+        k = px_scfg.corpus
+        row_bytes = sched[0].numel() * 4
+        fold_bytes = (k * 13 + 3 * w + rows * 8
+                      + sum(n_ins) / 2 * (2 * row_bytes + 8 + 21))
+        # The latency bound: the fold's dependent chain over as many rows
+        # (each row's target depends on the last row's insert), timed
+        # alone on the card.
+        chain = fold_kernel.chain_ms(rows, k, dev)
+        fold_runs[w] = dict(ms=sum(fold_ms) / 2, rows=rows, n_ins=n_ins,
+                            plain_ms=plain_ms,
+                            bound_ms=fold_bytes / HBM_BYTES_PER_S * 1e3,
+                            latency_bound_ms=chain)
+        log(f"[4 fold] corpus fold kernel vs plain, W={w}, K={k}, "
+            f"min_novelty {px_scfg.min_novelty}, lineage on: two folds "
+            f"bitwise equal ({rows} rows in the mask, inserts {n_ins}); "
+            f"kernel {fold_ms[0]:.3f} / {fold_ms[1]:.3f} ms per fold "
+            f"(median of 5), plain version {plain_ms:.1f} ms; bytes bound "
+            f"{fold_runs[w]['bound_ms'] * 1e3:.3f} us "
+            f"({fold_bytes:.0f} B); latency bound (the dependent chain of "
+            f"{rows} rows alone) {chain:.4f} ms = "
+            f"{chain / max(rows, 1) * 1e6:.1f} ns per row, share "
+            f"{chain / (sum(fold_ms) / 2):.3f} of the kernel's time")
+        del state
+
     # ---- 5. held to JAX without JAX ---------------------------------------
     for name, (rk, ck, faults, max_steps) in golden.CONFIGS.items():
         eng = DeviceEngine(RaftActor(RaftDeviceConfig(**rk)),
@@ -622,6 +762,37 @@ def main() -> int:
         f"({sp['kwargs']}, {sp['over']}): SweepResult digest equals the "
         f"JAX-derived constant ({len(res.failing_seeds)} failing, "
         f"{res.loop_stats['chunks']} chunks)")
+    # The same sweep through the pipelined and the fused loop, held to the
+    # same constant (JAX holds its loops equal); the fused loop never
+    # shrinks, so its world_utilization, and with it summary(), is the
+    # serial run's only once that one field is exempt.
+    for loop in ("pipeline", "fused"):
+        res_l = sweep(None, eng.cfg, sp["seeds"], faults=fa, engine=eng,
+                      **dict(sp["kwargs"], pipeline=loop == "pipeline",
+                             fused=loop == "fused"))
+        if loop == "fused":
+            res_l = dataclasses.replace(
+                res_l, world_utilization=res.world_utilization)
+        digest = golden.sweep_digest(res_l)
+        check(digest == golden.GOLDEN_SWEEP, f"{loop} recycled sweep "
+              f"digest {digest} != JAX-derived {golden.GOLDEN_SWEEP}")
+        log(f"[5 golden] the same sweep, {loop}: SweepResult digest equals "
+            f"the JAX-derived constant"
+            + (" (world_utilization exempt)" if loop == "fused" else "")
+            + f"; {res_l.loop_stats['dispatches']} dispatches")
+    for name in golden.WIDE_CONFIGS:
+        fam, ak, ck, faults, max_steps = golden.wide_config(name)
+        eng = make_engine((fam, ak, ck))
+        fa = None if faults is None else np.asarray(faults, np.int32)
+        obs = eng.observe(eng.run(eng.init(golden.SEEDS, faults=fa),
+                                  max_steps))
+        digest = golden.observe_digest(obs)
+        check(digest == golden.GOLDEN_WIDE[name],
+              f"{name} (wide): observe() digest {digest} != JAX-derived "
+              f"{golden.GOLDEN_WIDE[name]}")
+        log(f"[5 golden] {name} ({route_key(eng)}, packed=False): observe() "
+            f"digest equals the JAX-derived constant "
+            f"({int(obs['bug'].sum())} of 64 seeds failing)")
     for name, (fam, ak, ck, faults, max_steps) in \
             golden.FAMILY_CONFIGS.items():
         eng = make_engine((fam, ak, ck))
@@ -672,10 +843,12 @@ def main() -> int:
                 best_init = min(best_init, t1 - t0)
                 best_run = min(best_run, t2 - t1)
         obs = eng.observe(state)
+        stats = eng.last_run_stats()
         results[name] = dict(
             w=w, init_s=best_init, run_s=best_run, obs=obs,
             launches=step_kernel.launches - before,
-            run_launches=step_kernel.launches - n0,
+            run_launches=stats["launches"] - stats["noops"],
+            all_launches=stats["launches"], noops=stats["noops"],
             seeds=seeds, state_bytes=sum(x.numel() * x.element_size()
                                          for x in tree_leaves(state)))
         del state
@@ -693,7 +866,27 @@ def main() -> int:
 
     # Outside the counted main path: the kernel's device time over the
     # run's own launches, the plain step's time, and the bytes each step
-    # must move at the least.
+    # must move at the least; and the run loop as it was before this
+    # slice, for its launches and idle share.
+    def old_run_s(eng, w, max_steps, faults=None, every=16):
+        """Best of 3 walls of a run loop that syncs with the host every 16
+        launches (it tests active.any(), a device sync, before each 16),
+        and its launches: the loop ``DeviceEngine.run`` replaced."""
+        best = float("inf")
+        for _rep in range(3):
+            state = eng.init(np.arange(w), faults=faults)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            i = 0
+            while i < max_steps and bool(state.active.any()):
+                k = min(every, max_steps - i)
+                eng.run_steps(state, k)
+                i += k
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+            del state
+        return best, i
+
     def device_ms(eng, w, total, faults=None):
         """Device ms of each chunk of TIMED_STEPS launches, over the
         ``total`` launches a run made from a fresh init. Each chunk is
@@ -796,8 +989,11 @@ def main() -> int:
         counts (nothing for a frozen world)."""
         cfg, L = eng.cfg, eng.actor.rcfg.log_cap
         n, q, p = cfg.n_nodes, cfg.queue_cap, cfg.payload_words
-        frozen = 1 + 4 + 1 + 2 * n
-        active = (4 * q + 4 + 2 * p + n + 2 + 12 + 12 + 2 * n
+        # The payload, commit and log lanes' element: 2 bytes packed, 4
+        # wide.
+        e = 2 if cfg.packed else 4
+        frozen = 1 + 4 + 1 + e * n
+        active = (4 * q + 4 + e * p + n + 2 + 12 + 12 + e * n
                   + 2 * (1 + 4 + 4 + 4 + 4) + 1 + 4 + 4)
         off_diag = ~torch.eye(n, dtype=torch.bool, device=dev)
         state = eng.init(np.arange(w))
@@ -805,7 +1001,7 @@ def main() -> int:
         for _ in range(total):
             c = state.astate.commit.to(torch.int64).clamp(0, L)
             pair = torch.minimum(c[:, :, None], c[:, None, :]) * off_diag
-            log_b = 4 * pair.amax(2).sum(1) * ~state.bug
+            log_b = 2 * e * pair.amax(2).sum(1) * ~state.bug
             meta_b = 4 * (q - 1) * state.paused.any(1)
             step_b = (torch.where(state.active, active + meta_b, frozen)
                       + log_b)
@@ -850,6 +1046,7 @@ def main() -> int:
         r["least_bound_ms"] = r["least_bytes"] / HBM_BYTES_PER_S * 1e3
         r["plain_ms"] = plain_ms_per_step(eng, r["w"])
         r["full_state_ms"] = 2 * r["state_bytes"] / HBM_BYTES_PER_S * 1e3
+        r["old_run_s"], r["old_launches"] = old_run_s(eng, r["w"], 100_000)
         obs = r["obs"]
         bugs = np.flatnonzero(obs["bug"])
         log(f"[6 main] {name}: W={r['w']} init {r['init_s'] * 1e3:.2f} ms, "
@@ -869,6 +1066,14 @@ def main() -> int:
             f"({r['least_bytes'] / 1e6:.1f} MB/step; share "
             f"{r['least_bound_ms'] / r['kernel_ms']:.3f}); device idle "
             f"share of the run {1 - r['busy_ms'] / (r['run_s'] * 1e3):.3f}")
+        log(f"[6 run loop] {name}: DeviceEngine.run queued "
+            f"{r['all_launches']} launches ({r['noops']} no-ops past "
+            f"the last freeze, {steps_run} stepping), wall "
+            f"{r['run_s'] * 1e3:.2f} ms, idle share "
+            f"{1 - r['busy_ms'] / (r['run_s'] * 1e3):.3f}; the loop that "
+            f"syncs every 16 launches: {r['old_launches']} "
+            f"launches, wall {r['old_run_s'] * 1e3:.2f} ms, idle share "
+            f"{1 - r['busy_ms'] / (r['old_run_s'] * 1e3):.3f}")
         log(f"[6 main] {name}: kernel ms/step by chunk of {TIMED_STEPS} "
             f"launches: " + ", ".join(f"{ms / k:.4f}" for k, ms in chunks)
             + f"; first chunk bound {r['first_bound_ms']:.4f} ms; "
@@ -927,7 +1132,9 @@ def main() -> int:
         them."""
         cfg, fam = eng.cfg, step_kernel.family_of(eng.actor).route
         n, q, p = cfg.n_nodes, cfg.queue_cap, cfg.payload_words
-        active = (4 * q + 4 + 2 * p + n + 2 + 12 + 12
+        # The int8 and int16 lanes' elements: 1 and 2 bytes packed, 4 wide.
+        e1, e2 = (1, 2) if cfg.packed else (4, 4)
+        active = (4 * q + 4 + e2 * p + n + 2 + 12 + 12
                   + 2 * (1 + 4 + 4 + 4 + 4) + 1 + 4 + 4)
         frozen = 1 + 4 + 1
         state = eng.init(np.arange(w), faults=faults)
@@ -938,19 +1145,19 @@ def main() -> int:
             deliv0 = state.delivered.clone()
             meta_b = 4 * (q - 1) * state.paused.any(1)
             if fam == "tpc":
-                inv = n * eng.actor.tcfg.n_txns
-                handler = 7
+                inv = e1 * n * eng.actor.tcfg.n_txns
+                handler = 3 * e1 + 4
             elif fam == "paxos":
-                inv = 2 * n * eng.actor.xcfg.n_slots
-                handler = 12
+                inv = e2 * n * eng.actor.xcfg.n_slots
+                handler = 6 * e2
             elif fam == "pair":
                 inv = 8
                 handler = 0
             else:
                 cm = a0["committed_max"].to(torch.int64)
                 lim = cm.clamp(0, eng.actor.pcfg.log_cap)
-                inv = 2 + (cm > 0) * (2 * n + 2 + 4 * lim)
-                handler = 8
+                inv = e2 + (cm > 0) * (e2 * n + e2 + 2 * e2 * lim)
+                handler = 4 * e2
             before = lanes_of(state)
             eng.run_steps(state, 1)
             written = sum(
@@ -992,7 +1199,8 @@ def main() -> int:
                 best_run = min(best_run, t2 - t1)
         launched = step_kernel.launches
         fam_launches[fam] = fam_launches.get(fam, 0) + launched
-        steps_run = launched - n0
+        stats = eng.last_run_stats()
+        steps_run = stats["launches"] - stats["noops"]
         obs = eng.observe(state)
         del state
         check(launched > 0, f"{name}: the step kernel never launched")
@@ -1008,6 +1216,7 @@ def main() -> int:
         chunks = device_ms(eng, w, steps_run, fa)
         needed = family_needed_bytes(eng, w, steps_run, fa)
         busy = sum(ms for _k, ms in chunks)
+        old_s, old_launches = old_run_s(eng, w, max_steps, fa)
         r = dict(w=w, kernel_ms=busy / steps_run,
                  needed_bytes=sum(needed) / steps_run,
                  plain_ms=plain_ms_per_step(eng, w, faults=fa),
@@ -1039,6 +1248,13 @@ def main() -> int:
             f"share {r['bound_ms'] / r['kernel_ms']:.3f}); device idle "
             f"share of the run {1 - busy / (best_run * 1e3):.3f}; plain "
             f"step {r['plain_ms']:.3f} ms (no yardstick)")
+        log(f"[6 run loop] {name}: DeviceEngine.run queued "
+            f"{stats['launches']} launches ({stats['noops']} no-ops past "
+            f"the last freeze), wall {best_run * 1e3:.2f} ms, "
+            f"idle share {1 - busy / (best_run * 1e3):.3f}; the loop that "
+            f"syncs every 16 launches: {old_launches} launches, "
+            f"wall {old_s * 1e3:.2f} ms, idle share "
+            f"{1 - busy / (old_s * 1e3):.3f}")
         log(f"[6 family] {name}: kernel ms/step by chunk of {TIMED_STEPS} "
             f"launches: " + ", ".join(f"{ms / k:.4f}" for k, ms in chunks))
         log(f"[6 family] {name}: active-world share by chunk of "
@@ -1047,6 +1263,68 @@ def main() -> int:
         log(f"[6 family] {name}: bugs {len(bugs)}"
             + (f", first failing seed {int(bugs[0])}" if len(bugs) else "")
             + f"; overflow {int(obs['overflow'].sum())}")
+
+    # ---- 6, the wide lane profile: each deployment at full size ----------
+    # The headline, the hunt and every family deployment with
+    # packed=False: the kernel's time per step over the run's own
+    # launches against the bytes its steps need with the wide lanes'
+    # widths, and the state bytes per world beside the packed profile's.
+    wide_results, wide_launches = {}, {}
+    wide_cases = [(name, ("raft", *cfgs), faults, w, max_steps)
+                  for name, cfgs, faults, w, max_steps in mains]
+    wide_cases += [(name, (fam, ak, ck),
+                    None if faults is None else np.asarray(faults, np.int32),
+                    W_FAMILY, max_steps)
+                   for name, (fam, ak, ck, faults, max_steps) in
+                   {**golden.FAMILY_CONFIGS, **golden.SEARCH_CONFIGS}.items()]
+    for name, cfgs, fa, w, max_steps in wide_cases:
+        packed_eng = make_engine(cfgs)
+        eng = make_engine(cfgs, packed=False)
+        route = route_key(eng)
+        n0 = step_kernel.launches
+        best_run = float("inf")
+        for _rep in range(3):  # rep 0 warms up
+            state = eng.init(np.arange(w), faults=fa)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = eng.run(state, max_steps)
+            torch.cuda.synchronize()
+            if _rep:
+                best_run = min(best_run, time.perf_counter() - t0)
+        launched = step_kernel.launches - n0
+        wide_launches[route] = wide_launches.get(route, 0) + launched
+        check(launched > 0, f"{name} (wide): the step kernel never launched")
+        check(not bool(state.active.any()), f"{name} (wide): worlds left "
+              f"active")
+        stats = eng.last_run_stats()
+        steps_run = stats["launches"] - stats["noops"]
+        del state
+        chunks = device_ms(eng, w, steps_run, fa)
+        busy = sum(ms for _k, ms in chunks)
+        needed = (needed_bytes(eng, w, steps_run) if route.startswith("raft")
+                  else family_needed_bytes(eng, w, steps_run, fa))
+        r = dict(kernel_ms=busy / steps_run,
+                 needed_bytes=sum(needed) / steps_run, launches=launched)
+        r["bound_ms"] = r["needed_bytes"] / HBM_BYTES_PER_S * 1e3
+        if name in ("headline", "tpc_crosscheck", "pb_crosscheck",
+                    "paxos_hunt", "guided_pair"):
+            r["plain_ms"] = plain_ms_per_step(eng, min(w, W_FAMILY),
+                                              faults=fa)
+        wide_results[name] = r
+
+        def per_world(e):
+            return sum(int(np.prod(shape)) * torch.empty(
+                0, dtype=dtype).element_size()
+                for _n, dtype, shape in e.state_layout())
+
+        log(f"[6 wide] {name} ({route}): W={w}, {per_world(eng)} state "
+            f"B/world (packed {per_world(packed_eng)}); run "
+            f"{best_run * 1e3:.2f} ms (best of 2), {steps_run} stepping "
+            f"launches; kernel {r['kernel_ms']:.4f} ms/step against a "
+            f"bound of {r['bound_ms']:.4f} ms for the bytes its steps need "
+            f"({r['needed_bytes'] / 1e6:.2f} MB/step; share "
+            f"{r['bound_ms'] / r['kernel_ms']:.3f}); idle share "
+            f"{1 - busy / (best_run * 1e3):.3f}")
 
     # ---- 7. the bug hunt's sweep at full width -----------------------------
     # The bench's bug-hunt legs (bench.py bench_time_to_first_bug) on the
@@ -1072,12 +1350,12 @@ def main() -> int:
         times = []
         real = eng.run_steps
 
-        def run_steps(state, k):
+        def run_steps(state, k, gate=None):
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             torch.cuda._sleep(sleep_cycles)
             e0.record()
-            real(state, k)
+            real(state, k, gate=gate)
             e1.record()
             check(not e0.query(), "sweep timing: the device reached a "
                   "chunk's launches before they were all queued")
@@ -1087,6 +1365,112 @@ def main() -> int:
 
         eng.run_steps = run_steps
         return times
+
+    def untimed(eng):
+        """Undo :func:`chunk_device_ms`."""
+        del eng.run_steps
+
+    def count_fetches():
+        """Count the sweep module's ``_fetch`` calls; returns the list the
+        count lands in and a function that undoes it."""
+        n = [0]
+        real = sweep_mod._fetch
+
+        def fetch(tree):
+            n[0] += 1
+            return real(tree)
+
+        sweep_mod._fetch = fetch
+
+        def undo():
+            sweep_mod._fetch = real
+
+        return n, undo
+
+    def same_result(a, b, util=True):
+        """Whether two SweepResults agree on every result (and on
+        world_utilization unless ``util`` is False)."""
+        ok = (a.failing_seeds == b.failing_seeds
+              and a.steps_run == b.steps_run
+              and sorted(a.observations) == sorted(b.observations)
+              and all(np.array_equal(a.observations[k], b.observations[k])
+                      for k in a.observations)
+              and np.array_equal(a.n_active_history, b.n_active_history)
+              and np.array_equal(a.n_active_chunks, b.n_active_chunks))
+        if a.coverage is not None:
+            ok = ok and all(np.array_equal(getattr(a.coverage, f),
+                                           getattr(b.coverage, f))
+                            for f in ("hits", "first_seen_seed",
+                                      "novelty_curve"))
+        if a.search is not None:
+            ok = ok and (golden.search_digest(a.search)
+                         == golden.search_digest(b.search)
+                         and a.search.operator_stats
+                         == b.search.operator_stats)
+        if util:
+            ok = ok and a.world_utilization == b.world_utilization
+        return ok
+
+    def loop_legs(tag, eng, seeds, kw, ref, sleep=SLEEP_CYCLES // 10,
+                  admitted=None):
+        """The leg through the pipelined and the fused loop, each held to
+        the serial run ``ref`` (world_utilization exempt under fused),
+        with its wall, seeds/s, dispatches, ``_fetch`` calls, the device
+        flags the host read (each a wait on the device), the kernel's
+        device time over its chunks (a timed replay) and the device idle
+        share; the fused loop's epoch bodies' share of the wall. Returns
+        the step kernel's launches and the fold kernel's."""
+        launched = folds = 0
+        for loop in ("pipeline", "fused"):
+            lkw = dict(kw, pipeline=loop == "pipeline",
+                       fused=loop == "fused")
+            sweep(None, eng.cfg, seeds, engine=eng, **lkw)  # warm-up
+            n0, f0 = step_kernel.launches, fold_kernel.launches
+            fetches, undo = count_fetches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                res = sweep(None, eng.cfg, seeds, engine=eng, **lkw)
+                torch.cuda.synchronize()
+            finally:
+                undo()
+            wall = time.perf_counter() - t0
+            n_launch = step_kernel.launches - n0
+            launched += n_launch
+            folds += fold_kernel.launches - f0
+            check(same_result(ref, res, util=loop == "pipeline"),
+                  f"{tag} {loop}: the result differs from the serial "
+                  f"loop's")
+            fused_stats = dict(getattr(eng, "last_fused_stats", {}))
+            chunk_ms = chunk_device_ms(eng, sleep)
+            try:
+                res_t = sweep(None, eng.cfg, seeds, engine=eng, **lkw)
+            finally:
+                untimed(eng)
+            check(res_t.failing_seeds == res.failing_seeds,
+                  f"{tag} {loop}: the timed replay found other seeds")
+            n_in = (admitted(res) if admitted else len(seeds))
+            ls = res.loop_stats
+            extra = ""
+            if loop == "fused":
+                extra = (f"; {fused_stats['chunks_queued']} chunks queued, "
+                         f"epoch bodies {fused_stats['epoch_s'] * 1e3:.1f} "
+                         f"ms of host time = "
+                         f"{fused_stats['epoch_s'] / wall:.3f} of the wall")
+            log(f"[{tag}] {loop}: equal to the serial run"
+                + (" (world_utilization exempt)" if loop == "fused" else "")
+                + f"; wall {wall * 1e3:.2f} ms, {n_in} seeds = "
+                f"{n_in / wall:.0f} seeds/s; chunks {ls['chunks']}, "
+                f"dispatches {ls['dispatches']}, _fetch calls {fetches[0]} "
+                f"({ls['scalar_fetches']} scalar, {ls['retire_fetches']} "
+                f"retire), device flags read {ls['flag_reads']}; "
+                f"world_utilization {res.world_utilization:.4f}; "
+                f"step kernel launches {n_launch} (the chunks' "
+                f"{ls['chunks'] * ls['chunk_steps']} and the no-ops "
+                f"past a stop); kernel device time {sum(chunk_ms):.3f} ms, "
+                f"device idle share {1 - sum(chunk_ms) / (wall * 1e3):.3f}"
+                + extra)
+        return launched, folds
 
     # (a) the recycled hunt: stop at the first bug.
     eng_s = hunt_engine(stop_on_bug=True)
@@ -1105,6 +1489,7 @@ def main() -> int:
     admitted = int((res_a.observations["steps"] > 0).sum())
     chunk_ms = chunk_device_ms(eng_s)
     res_t = sweep(None, eng_s.cfg, seeds, engine=eng_s, **leg_a)
+    untimed(eng_s)
     check(res_t.failing_seeds == res_a.failing_seeds,
           "recycled hunt: the timed replay found other seeds")
     ls = res_a.loop_stats
@@ -1118,6 +1503,13 @@ def main() -> int:
         f"step kernel launches {sweep_launches}, device time "
         f"{sum(chunk_ms):.3f} ms, device idle share "
         f"{1 - sum(chunk_ms) / (wall_a * 1e3):.3f}")
+
+    def seeds_admitted(res):
+        return int((res.observations["steps"] > 0).sum())
+
+    n_loops, _ = loop_legs("7 sweep a", eng_s, seeds, leg_a, res_a,
+                           admitted=seeds_admitted)
+    sweep_launches += n_loops
 
     # (b) position independence: every seed swept to retirement, recycled,
     # metrics on, equals a monolithic init + run of the same seeds.
@@ -1151,10 +1543,11 @@ def main() -> int:
     check(set(res_a.failing_seeds) <= set(res_b.failing_seeds),
           "a seed the recycled hunt reported does not fail")
     del mono
+    leg_b = dict(chunk_steps=64, max_steps=1_000_000, recycle=True,
+                 batch_worlds=batch_w, pipeline=False)
     chunk_ms = chunk_device_ms(eng_m)
-    sweep(None, eng_m.cfg, seeds, engine=eng_m, chunk_steps=64,
-          max_steps=1_000_000, recycle=True, batch_worlds=batch_w,
-          pipeline=False)
+    sweep(None, eng_m.cfg, seeds, engine=eng_m, **leg_b)
+    untimed(eng_m)
     ls = res_b.loop_stats
     log(f"[7 sweep b] {w} seeds recycled through {batch_w} slots to "
         f"retirement with metrics on: every observation (m_* included) "
@@ -1168,6 +1561,8 @@ def main() -> int:
         f"step kernel device time {sum(chunk_ms):.3f} ms over "
         f"{len(chunk_ms)} chunks, device idle share "
         f"{1 - sum(chunk_ms) / (wall_b * 1e3):.3f}")
+    n_loops, _ = loop_legs("7 sweep b", eng_m, seeds, leg_b, res_b)
+    sweep_launches += n_loops
 
     # (c) the flight recorder: the monolithic hunt with the 64-deep ring,
     # and the kernel's price for the ring and the metrics.
@@ -1240,6 +1635,7 @@ def main() -> int:
     admitted = int((res_d.observations["steps"] > 0).sum())
     chunk_ms = chunk_device_ms(eng_pb)
     res_t = sweep(None, eng_pb.cfg, seeds, engine=eng_pb, **leg_d)
+    untimed(eng_pb)
     check(res_t.failing_seeds == res_d.failing_seeds,
           "pb sweep: the timed replay found other seeds")
     ls = res_d.loop_stats
@@ -1253,156 +1649,215 @@ def main() -> int:
         f"{ls['dispatches']}; step kernel launches {pb_sweep_launches}, "
         f"device time {sum(chunk_ms):.3f} ms, device idle share "
         f"{1 - sum(chunk_ms) / (wall_d * 1e3):.3f}")
+    n_loops, _ = loop_legs("7 sweep d", eng_pb, seeds, leg_d, res_d,
+                           admitted=seeds_admitted)
+    fam_launches["pb"] += n_loops
 
     # ---- 8. the guided hunts ----------------------------------------------
     # (a) bench.py's guided_hunt leg (search/hunts.py): each canonical hunt
-    # at 512 seeds, guided and random, through the guided sweep, held to
-    # the JAX pins; then a replay of the same hunt that times its chunks
-    # (chunk_device_ms), its searcher and its fold, and must give the same
-    # pins. Each chunk waits behind a longer sleep than phase 7's (about
-    # 50 ms, not 10): a raft hunt chunk's 64 launches once took longer to
-    # queue than 10 ms, which the timing's check refuses.
+    # at 512 seeds, guided and random, through the serial, the pipelined
+    # and the fused loop, each held to the JAX pins (JAX holds its loops
+    # equal); then a replay of the same hunt in the same loop that times
+    # its chunks (chunk_device_ms), its searcher and its fold, and must
+    # give the same pins. Each chunk waits behind a longer sleep than phase
+    # 7's (about 50 ms, not 10): a raft hunt chunk's 64 launches once took
+    # longer to queue than 10 ms, which the timing's check refuses.
     hunt_sleep = SLEEP_CYCLES // 2
+
     def timed_search():
-        """Make the sweep's searcher (the children's generation on the
-        card, between a CUDA event pair, host launch gaps included) and
-        its fold (on the host) time themselves; returns the two lists the
-        ms land in, and a function that undoes it."""
+        """Make the sweep's searcher (the fold of the retiring worlds, then
+        the children, on the card) and its fold (the corpus fold kernel)
+        time themselves, each between a CUDA event pair (the searcher's
+        holds the host's launch gaps); returns the two lists the ms land
+        in, and a function that undoes it."""
         gen_ms, fold_ms = [], []
-        real_gen = sweep_mod.generate_children
-        real_fold = sweep_mod.host_harvest_fold
+        real_searcher = sweep_mod.searcher
+        real_fold = fold_kernel.harvest_fold_cuda
 
-        def gen(*a, **k):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            out = real_gen(*a, **k)
-            e1.record()
-            e1.synchronize()
-            gen_ms.append(e0.elapsed_time(e1))
-            return out
+        def timed(fn, out):
+            def call(*a, **k):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                res = fn(*a, **k)
+                e1.record()
+                e1.synchronize()
+                out.append(e0.elapsed_time(e1))
+                return res
+            return call
 
-        def fold(*a, **k):
-            t0 = time.perf_counter()
-            out = real_fold(*a, **k)
-            fold_ms.append((time.perf_counter() - t0) * 1e3)
-            return out
+        def searcher(*a, **k):
+            return timed(real_searcher(*a, **k), gen_ms)
 
         def undo():
-            sweep_mod.generate_children = real_gen
-            sweep_mod.host_harvest_fold = real_fold
+            sweep_mod.searcher = real_searcher
+            fold_kernel.harvest_fold_cuda = real_fold
 
-        sweep_mod.generate_children = gen
-        sweep_mod.host_harvest_fold = fold
+        sweep_mod.searcher = searcher
+        fold_kernel.harvest_fold_cuda = timed(real_fold, fold_ms)
         return gen_ms, fold_ms, undo
 
     def mean(xs):
         return sum(xs) / len(xs) if xs else 0.0
 
     hunt_launches = {}
+    fold_launches = 0
+    fold_kernel.launches = 0
     for hname in ("pair", "raft", "paxos"):
         hunt = getattr(hunts, f"{hname}_hunt")()
         route = step_kernel.family_of(hunt.actor).route
         for mode in ("guided", "random"):
-            kw = dict(faults=hunt.template, pipeline=False,
-                      stop_on_first_bug=golden.HUNT_STOP_FIRST[hname],
-                      search=hunt.search(mode == "guided"), **hunt.sweep_kw)
-            seeds = np.arange(golden.HUNT_BUDGET)
-            eng = DeviceEngine(hunt.actor, hunt.cfg, device=dev)
-            step_kernel.launches = 0
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = sweep(None, hunt.cfg, seeds, engine=eng, **kw)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launched = step_kernel.launches
-            check(launched > 0, f"hunt {hname} {mode}: the step kernel "
-                  f"never launched")
-            hunt_launches[route] = hunt_launches.get(route, 0) + launched
-            pins = golden.hunt_pins(res)
-            want = golden.HUNT_PINS[hname][mode]
-            check(pins == want, f"hunt {hname} {mode}: {pins} differ from "
-                  f"the JAX pins {want}")
-            eng_t = DeviceEngine(hunt.actor, hunt.cfg, device=dev)
-            chunk_ms = chunk_device_ms(eng_t, hunt_sleep)
-            gen_ms, fold_ms, undo = timed_search()
-            try:
-                res_t = sweep(None, hunt.cfg, seeds, engine=eng_t, **kw)
-            finally:
-                undo()
-            check(golden.hunt_pins(res_t) == pins, f"hunt {hname} {mode}: "
-                  f"the timed replay gave other pins")
-            admitted = int((res.observations["steps"] > 0).sum())
-            ls = res.loop_stats
-            log(f"[8 hunt a] {hname} {mode} ({route} kernel, "
-                f"{golden.HUNT_BUDGET} seeds, batch "
-                f"{hunt.sweep_kw['batch_worlds']}, chunks of "
-                f"{hunt.sweep_kw['chunk_steps']}): the JAX pins hold "
-                f"(seeds to bug {pins['seeds_to_bug']}, bugs "
-                f"{pins['bugs_found']}, generations {pins['generations']}, "
-                f"corpus {pins['corpus_size']}, depth "
-                f"{pins['lineage_depth']}); wall {wall * 1e3:.2f} ms, "
-                f"{admitted} seeds admitted = {admitted / wall:.0f} seeds/s, "
-                f"{res.search.generations} refills, chunks {ls['chunks']}, "
-                f"{launched} launches; searcher {mean(gen_ms):.3f} ms and "
-                f"fold {mean(fold_ms):.3f} ms per refill (replay; "
-                f"{sum(gen_ms) + sum(fold_ms):.1f} ms of the hunt); kernel "
-                f"device time {sum(chunk_ms):.3f} ms, device idle share "
-                f"{1 - sum(chunk_ms) / (wall * 1e3):.3f}")
+            for loop in ("serial", "pipeline", "fused"):
+                kw = dict(faults=hunt.template, pipeline=loop == "pipeline",
+                          fused=loop == "fused",
+                          stop_on_first_bug=golden.HUNT_STOP_FIRST[hname],
+                          search=hunt.search(mode == "guided"),
+                          **hunt.sweep_kw)
+                seeds = np.arange(golden.HUNT_BUDGET)
+                eng = DeviceEngine(hunt.actor, hunt.cfg, device=dev)
+                n0, f0 = step_kernel.launches, fold_kernel.launches
+                fetches, undo = count_fetches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                try:
+                    res = sweep(None, hunt.cfg, seeds, engine=eng, **kw)
+                    torch.cuda.synchronize()
+                finally:
+                    undo()
+                wall = time.perf_counter() - t0
+                launched = step_kernel.launches - n0
+                folds = fold_kernel.launches - f0
+                fold_launches += folds
+                check(launched > 0, f"hunt {hname} {mode} {loop}: the step "
+                      f"kernel never launched")
+                check(mode == "random" or folds > 0, f"hunt {hname} "
+                      f"{mode} {loop}: the fold kernel never launched")
+                hunt_launches[route] = hunt_launches.get(route, 0) + launched
+                pins = golden.hunt_pins(res)
+                want = golden.HUNT_PINS[hname][mode]
+                check(pins == want, f"hunt {hname} {mode} {loop}: {pins} "
+                      f"differ from the JAX pins {want}")
+                fused_stats = dict(getattr(eng, "last_fused_stats", {}))
+                eng_t = DeviceEngine(hunt.actor, hunt.cfg, device=dev)
+                chunk_ms = chunk_device_ms(eng_t, hunt_sleep)
+                gen_ms, fold_ms, undo = timed_search()
+                try:
+                    res_t = sweep(None, hunt.cfg, seeds, engine=eng_t, **kw)
+                finally:
+                    undo()
+                check(golden.hunt_pins(res_t) == pins, f"hunt {hname} "
+                      f"{mode} {loop}: the timed replay gave other pins")
+                admitted = int((res.observations["steps"] > 0).sum())
+                ls = res.loop_stats
+                extra = ""
+                if loop == "fused":
+                    extra = (f"; {fused_stats['chunks_queued']} chunks "
+                             f"queued, epoch bodies (queued per trigger) "
+                             f"{fused_stats['epoch_s'] * 1e3:.1f} ms of host "
+                             f"time = {fused_stats['epoch_s'] / wall:.3f} of "
+                             f"the wall")
+                log(f"[8 hunt a] {hname} {mode} {loop} ({route} kernel, "
+                    f"{golden.HUNT_BUDGET} seeds, batch "
+                    f"{hunt.sweep_kw['batch_worlds']}, chunks of "
+                    f"{hunt.sweep_kw['chunk_steps']}): the JAX pins hold "
+                    f"(seeds to bug {pins['seeds_to_bug']}, bugs "
+                    f"{pins['bugs_found']}, generations "
+                    f"{pins['generations']}, corpus {pins['corpus_size']}, "
+                    f"depth {pins['lineage_depth']}); wall "
+                    f"{wall * 1e3:.2f} ms, {admitted} seeds admitted = "
+                    f"{admitted / wall:.0f} seeds/s, "
+                    f"{res.search.generations} refills, chunks "
+                    f"{ls['chunks']}, dispatches {ls['dispatches']}, _fetch "
+                    f"calls {fetches[0]}, device flags read "
+                    f"{ls['flag_reads']}, {launched} step launches, {folds} "
+                    f"fold launches; searcher {mean(gen_ms):.3f} ms over "
+                    f"{len(gen_ms)} calls and fold kernel "
+                    f"{mean(fold_ms):.3f} ms over {len(fold_ms)} (replay; "
+                    f"{sum(gen_ms):.1f} ms of the hunt); kernel device time "
+                    f"{sum(chunk_ms):.3f} ms, device idle share "
+                    f"{1 - sum(chunk_ms) / (wall * 1e3):.3f}" + extra)
     # (b) the Paxos hunt at the width of phase 7's sweeps: 65,536 seeds
-    # through 8,192 slots, guided, to its first bug; that seed fails again
-    # in an independent init + run under the schedule the search
-    # materialized for it.
+    # through 8,192 slots, guided, to its first bug, in each loop; that
+    # seed fails again in an independent init + run under the schedule the
+    # search materialized for it.
     hunt = hunts.paxos_hunt()
-    wide = dict(faults=hunt.template, search=hunt.search(True),
-                recycle=True, batch_worlds=8192, chunk_steps=64,
-                max_steps=50_000_000, stop_on_first_bug=True,
-                pipeline=False)
     seeds = np.arange(W_FAMILY)
-    eng = DeviceEngine(hunt.actor, hunt.cfg, device=dev)
-    step_kernel.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = sweep(None, hunt.cfg, seeds, engine=eng, **wide)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launched = step_kernel.launches
-    hunt_launches["paxos"] += launched
-    check(launched > 0, "wide Paxos hunt: the step kernel never launched")
-    check(res.failing_seeds, "wide Paxos hunt: no bug found")
-    first = int(res.failing_seeds[0])
-    sched = res.search.schedules[first]
-    alone = eng.observe(eng.run(eng.init(np.array([first]), faults=sched),
-                                100_000))
-    check(bool(alone["bug"][0]), f"wide Paxos hunt: seed {first} does not "
-          f"fail in an independent init + run under its schedule")
-    eng_t = DeviceEngine(hunt.actor, hunt.cfg, device=dev)
-    chunk_ms = chunk_device_ms(eng_t, hunt_sleep)
-    gen_ms, fold_ms, undo = timed_search()
-    try:
-        res_t = sweep(None, hunt.cfg, seeds, engine=eng_t, **wide)
-    finally:
-        undo()
-    check(res_t.failing_seeds == res.failing_seeds
-          and golden.search_digest(res_t.search)
-          == golden.search_digest(res.search),
-          "wide Paxos hunt: the timed replay differs")
-    admitted = int((res.observations["steps"] > 0).sum())
-    chain = res.search.ancestry(first)
-    log(f"[8 hunt b] Paxos guided, {W_FAMILY} seeds through 8192 slots, "
-        f"chunks of 64, stop at the first bug: wall {wall * 1e3:.2f} ms, "
-        f"{admitted} seeds admitted = {admitted / wall:.0f} seeds/s; "
-        f"failing {res.failing_seeds[:8]} ({len(res.failing_seeds)}); seed "
-        f"{first} fails again alone under its schedule (bug at "
-        f"{int(alone['bug_time_us'][0])} us; ancestry depth "
-        f"{len(chain) - 1}, operators "
-        f"{sorted({op for node in chain for op in node['ops']})}); "
-        f"{res.search.generations} refills, corpus "
-        f"{res.search.corpus_size}/{res.search.corpus_capacity}, "
-        f"{res.search.inserted} inserts; {launched} launches; searcher "
-        f"{mean(gen_ms):.3f} ms and fold {mean(fold_ms):.3f} ms per refill "
-        f"(replay); kernel device time {sum(chunk_ms):.3f} ms, device idle "
-        f"share {1 - sum(chunk_ms) / (wall * 1e3):.3f}")
+    ref = None
+    for loop in ("serial", "pipeline", "fused"):
+        wide = dict(faults=hunt.template, search=hunt.search(True),
+                    recycle=True, batch_worlds=8192, chunk_steps=64,
+                    max_steps=50_000_000, stop_on_first_bug=True,
+                    pipeline=loop == "pipeline", fused=loop == "fused")
+        eng = DeviceEngine(hunt.actor, hunt.cfg, device=dev)
+        n0, f0 = step_kernel.launches, fold_kernel.launches
+        fetches, undo = count_fetches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            res = sweep(None, hunt.cfg, seeds, engine=eng, **wide)
+            torch.cuda.synchronize()
+        finally:
+            undo()
+        wall = time.perf_counter() - t0
+        launched = step_kernel.launches - n0
+        folds = fold_kernel.launches - f0
+        fold_launches += folds
+        hunt_launches["paxos"] += launched
+        check(launched > 0 and folds > 0, f"wide Paxos hunt {loop}: a "
+              f"kernel never launched")
+        check(res.failing_seeds, f"wide Paxos hunt {loop}: no bug found")
+        if ref is None:
+            ref = res
+            first = int(res.failing_seeds[0])
+            sched = res.search.schedules[first]
+            alone = eng.observe(eng.run(eng.init(np.array([first]),
+                                                 faults=sched), 100_000))
+            check(bool(alone["bug"][0]), f"wide Paxos hunt: seed {first} "
+                  f"does not fail in an independent init + run under its "
+                  f"schedule")
+            chain = res.search.ancestry(first)
+        else:
+            check(same_result(ref, res, util=loop == "pipeline"),
+                  f"wide Paxos hunt {loop}: the result differs from the "
+                  f"serial loop's")
+        fused_stats = dict(getattr(eng, "last_fused_stats", {}))
+        eng_t = DeviceEngine(hunt.actor, hunt.cfg, device=dev)
+        chunk_ms = chunk_device_ms(eng_t, hunt_sleep)
+        gen_ms, fold_ms, undo = timed_search()
+        try:
+            res_t = sweep(None, hunt.cfg, seeds, engine=eng_t, **wide)
+        finally:
+            undo()
+        check(res_t.failing_seeds == res.failing_seeds
+              and golden.search_digest(res_t.search)
+              == golden.search_digest(res.search),
+              f"wide Paxos hunt {loop}: the timed replay differs")
+        admitted = int((res.observations["steps"] > 0).sum())
+        ls = res.loop_stats
+        extra = ""
+        if loop == "fused":
+            extra = (f"; {fused_stats['chunks_queued']} chunks queued, epoch "
+                     f"bodies {fused_stats['epoch_s'] * 1e3:.1f} ms of host "
+                     f"time = {fused_stats['epoch_s'] / wall:.3f} of the "
+                     f"wall")
+        log(f"[8 hunt b] Paxos guided {loop}, {W_FAMILY} seeds through 8192 "
+            f"slots, chunks of 64, stop at the first bug: wall "
+            f"{wall * 1e3:.2f} ms, {admitted} seeds admitted = "
+            f"{admitted / wall:.0f} seeds/s; failing {res.failing_seeds[:8]} "
+            f"({len(res.failing_seeds)}); seed {first} fails again alone "
+            f"under its schedule (bug at {int(alone['bug_time_us'][0])} us; "
+            f"ancestry depth {len(chain) - 1}, operators "
+            f"{sorted({op for node in chain for op in node['ops']})}); "
+            f"{res.search.generations} refills, corpus "
+            f"{res.search.corpus_size}/{res.search.corpus_capacity}, "
+            f"{res.search.inserted} inserts; chunks {ls['chunks']}, "
+            f"dispatches {ls['dispatches']}, _fetch calls {fetches[0]}, "
+            f"device flags read {ls['flag_reads']}; {launched} step "
+            f"launches, {folds} fold launches; searcher "
+            f"{mean(gen_ms):.3f} ms over {len(gen_ms)} calls and fold "
+            f"kernel {mean(fold_ms):.3f} ms over {len(fold_ms)} (replay); "
+            f"kernel device time {sum(chunk_ms):.3f} ms, device idle share "
+            f"{1 - sum(chunk_ms) / (wall * 1e3):.3f}" + extra)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(card)
@@ -1435,6 +1890,44 @@ def main() -> int:
             "bound_by": "bytes",
             "library_ms": None,
         })
+    # The wide lane profile's instantiations of each route, timed on the
+    # deployment of phase 6 (wide) that the packed entry above names.
+    for fam, main in (("raft", "headline"), ("tpc", "tpc_crosscheck"),
+                      ("pb", "pb_crosscheck"), ("paxos", "paxos_hunt"),
+                      ("pair", "guided_pair")):
+        r = wide_results[main]
+        kernels.append({
+            "name": f"step_kernel:{fam}:wide",
+            "route": "cuda",
+            "source": f"madsim_tpu_torch/csrc/step_{fam}.cu",
+            "replaces": "madsim_tpu/engine/pallas_step.py:132",
+            "launches": wide_launches[fam + ":wide"],
+            "max_abs_err": fam_err[fam + ":wide"],
+            "ms": r["kernel_ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+        })
+    # The corpus fold (the search's harvest_fold, an XLA program in the
+    # JAX package), timed at the wide hunt's 8,192 slots.
+    fr = fold_runs[FOLD_WIDE]
+    kernels.append({
+        "name": "corpus_fold",
+        "route": "cuda",
+        "source": "madsim_tpu_torch/csrc/corpus_fold.cu",
+        "replaces": "madsim_tpu/search/corpus.py:131",
+        "launches": fold_launches,
+        "max_abs_err": 0.0,
+        "ms": fr["ms"],
+        "plain_ms": fr["plain_ms"],
+        "bound_ms": fr["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        # The sequential rows bound it, not bytes: the dependent chain of
+        # this many rows alone, timed on the card.
+        "latency_bound_ms": fr["latency_bound_ms"],
+    })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

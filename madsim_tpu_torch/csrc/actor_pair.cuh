@@ -26,8 +26,10 @@ namespace {
 
 constexpr int PAIR_BEACON_KIND = 1;
 
+template <class Pf>
 struct PairLanes {
-  int32_t* restarts;  // (W, N)
+  using Profile = Pf;
+  int32_t* restarts;  // (W, N), int32 in both profiles
 };
 
 // Params::f0..f2 (step_kernel.py kernel_params): node_a, node_b, beacon.
@@ -36,15 +38,17 @@ struct PairView {
   int32_t* restarts;
   int a, b;
 
-  __device__ __forceinline__ PairView(const PairLanes& l, size_t w,
+  template <class Lanes>
+  __device__ __forceinline__ PairView(const Lanes& l, size_t w,
                                       const Params& p)
       : restarts(l.restarts + w * N), a(p.f0), b(p.f1) {}
 };
 
 struct PairRow {};
 
-struct Pair {
-  using Lanes = PairLanes;
+template <class Pf>
+struct PairP {
+  using Lanes = PairLanes<Pf>;
   template <int N>
   using View = PairView<N>;
   using Row = PairRow;
@@ -136,5 +140,7 @@ struct Pair {
            p.log_stride == 0 && p.commit_unit == 0 && p.log_unit == 0;
   }
 };
+using Pair = PairP<PackedProfile>;
+using PairWide = PairP<WideProfile>;
 
 }  // namespace

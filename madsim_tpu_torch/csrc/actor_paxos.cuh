@@ -39,20 +39,22 @@ constexpr int PX_CMD = 0, PX_PREPARE = 1, PX_PROMISE = 2, PX_ACCEPT = 3,
 // The spec's lanes in leaf order (sorted names, as JAX flattens a dict),
 // at their packed dtypes (lane_dtype: hi <= 32767 -> int16; bitmasks and
 // counters int32). Node tables are (W, N, S), counters (W,).
+template <class Pf>
 struct PaxosLanes {
-  int16_t* acc_bal;
-  int16_t* acc_val;
+  using Profile = Pf;
+  typename Pf::slot_t* acc_bal;
+  typename Pf::slot_t* acc_val;
   int32_t* accepts;
-  int16_t* chosen;
+  typename Pf::slot_t* chosen;
   int32_t* chosen_count;
-  int16_t* promised;
+  typename Pf::slot_t* promised;
   int32_t* promises;
-  int16_t* prop_bal;
-  int16_t* prop_val;
+  typename Pf::slot_t* prop_bal;
+  typename Pf::slot_t* prop_val;
   int32_t* proposals;
   int32_t* retries;
-  int16_t* seen_bal;
-  int16_t* seen_val;
+  typename Pf::slot_t* seen_bal;
+  typename Pf::slot_t* seen_val;
 };
 
 // Params::f0..f7 (step_kernel.py kernel_params): S = n_slots,
@@ -65,24 +67,24 @@ __device__ __forceinline__ bool px_forgetful(const Params& p) {
 }
 
 // One world's lanes in device memory.
-template <int N>
+template <int N, class Pf>
 struct PaxosView {
   int S;
-  int16_t* acc_bal;
-  int16_t* acc_val;
+  typename Pf::slot_t* acc_bal;
+  typename Pf::slot_t* acc_val;
   int32_t* accepts;
-  int16_t* chosen;
+  typename Pf::slot_t* chosen;
   int32_t* chosen_count;
-  int16_t* promised;
+  typename Pf::slot_t* promised;
   int32_t* promises;
-  int16_t* prop_bal;
-  int16_t* prop_val;
+  typename Pf::slot_t* prop_bal;
+  typename Pf::slot_t* prop_val;
   int32_t* proposals;
   int32_t* retries;
-  int16_t* seen_bal;
-  int16_t* seen_val;
+  typename Pf::slot_t* seen_bal;
+  typename Pf::slot_t* seen_val;
 
-  __device__ __forceinline__ PaxosView(const PaxosLanes& a, size_t w, int s)
+  __device__ __forceinline__ PaxosView(const PaxosLanes<Pf>& a, size_t w, int s)
       : S(s),
         acc_bal(a.acc_bal + w * N * s),
         acc_val(a.acc_val + w * N * s),
@@ -101,8 +103,8 @@ struct PaxosView {
 
 // Consistency: every nonzero learned value of a slot equals the slot's
 // largest.
-template <int N>
-__device__ __forceinline__ bool px_invariant(const PaxosView<N>& v) {
+template <int N, class Pf>
+__device__ __forceinline__ bool px_invariant(const PaxosView<N, Pf>& v) {
   for (int s = 0; s < v.S; s++) {
     int32_t mx = v.chosen[s];
 #pragma unroll
@@ -120,10 +122,13 @@ __device__ __forceinline__ bool px_invariant(const PaxosView<N>& v) {
 
 struct PaxosRow {};
 
-struct Paxos {
-  using Lanes = PaxosLanes;
+template <class Pf>
+struct PaxosP {
+  using Lanes = PaxosLanes<Pf>;
+  using slot_t = typename Pf::slot_t;
+  using code_t = typename Pf::code_t;
   template <int N>
-  using View = PaxosView<N>;
+  using View = PaxosView<N, Pf>;
   using Row = PaxosRow;
   static constexpr int FAMILY = FAMILY_PAXOS;
   // Node counts up to 8; the outbox is a message per node and the timer.
@@ -139,10 +144,10 @@ struct Paxos {
                                                   int) {}
 
   template <int N>
-  static __device__ __forceinline__ PaxosView<N> view(const State<Lanes>& s,
+  static __device__ __forceinline__ PaxosView<N, Pf> view(const State<Lanes>& s,
                                                       const Params& p,
                                                       size_t w, char*, int) {
-    return PaxosView<N>(s.a, w, px_S(p));
+    return PaxosView<N, Pf>(s.a, w, px_S(p));
   }
 
   template <int N>
@@ -154,11 +159,11 @@ struct Paxos {
   static __device__ __forceinline__ bool frozen_bug(const State<Lanes>& s,
                                                     const Params& p, size_t w,
                                                     int) {
-    return px_invariant(PaxosView<N>(s.a, w, px_S(p)));
+    return px_invariant(PaxosView<N, Pf>(s.a, w, px_S(p)));
   }
 
   template <int N>
-  static __device__ __forceinline__ PaxosRow load_row(const PaxosView<N>&,
+  static __device__ __forceinline__ PaxosRow load_row(const PaxosView<N, Pf>&,
                                                       int) {
     return PaxosRow{};
   }
@@ -167,7 +172,7 @@ struct Paxos {
   // node resets to 0; no hook, no sends, no draw.
   template <int N>
   static __device__ __forceinline__ void on_restart(const Params& p,
-                                                    const PaxosView<N>& v,
+                                                    const PaxosView<N, Pf>& v,
                                                     int node, uint32_t,
                                                     uint32_t, uint32_t&,
                                                     Sends&) {
@@ -175,16 +180,16 @@ struct Paxos {
     const int me = clampi(node, 0, N - 1);
     for (int s = 0; s < v.S; s++) {
       const int at = me * v.S + s;
-      store_if<int16_t>(v.promised + at, v.promised[at], 0);
-      store_if<int16_t>(v.acc_bal + at, v.acc_bal[at], 0);
-      store_if<int16_t>(v.acc_val + at, v.acc_val[at], 0);
+      store_if<slot_t>(v.promised + at, v.promised[at], 0);
+      store_if<slot_t>(v.acc_bal + at, v.acc_bal[at], 0);
+      store_if<slot_t>(v.acc_val + at, v.acc_val[at], 0);
     }
   }
 
   // The merged handler: every kind's transition, gated by the kind.
   template <int N>
   static __device__ __forceinline__ void handle(
-      const Params& p, const PaxosView<N>& v, int ev_kind, int ev_dst,
+      const Params& p, const PaxosView<N, Pf>& v, int ev_kind, int ev_dst,
       const Payload pay, const PaxosRow, int32_t, uint32_t, uint32_t,
       uint32_t& ctr, Sends& sd, bool& hbug) {
     const int S = v.S;
@@ -214,7 +219,7 @@ struct Paxos {
       go = prop_bal0 == 0 && chosen0 == 0;
       bal = me + 1;
       if (go) {
-        store_if<int16_t>(v.prop_val + at, prop_val0, sat16(pay.w1));
+        store_if<slot_t>(v.prop_val + at, prop_val0, narrow<slot_t>(pay.w1));
         count(v.proposals, 0, 1);
       }
     } else if (kind == PX_RETRY) {
@@ -225,15 +230,16 @@ struct Paxos {
     if (kind == PX_CMD || kind == PX_RETRY) {
       if (go) {
         const bool self_ok = bal > promised0;
-        if (self_ok) store_if<int16_t>(v.promised + at, promised0, sat16(bal));
-        store_if<int16_t>(v.prop_bal + at, prop_bal0, sat16(bal));
+        if (self_ok)
+          store_if<slot_t>(v.promised + at, promised0, narrow<slot_t>(bal));
+        store_if<slot_t>(v.prop_bal + at, prop_bal0, narrow<slot_t>(bal));
         const int32_t pm1 = self_ok ? (int32_t)(1u << me) : 0;
         if (v.promises[at] != pm1) v.promises[at] = pm1;
         if (v.accepts[at] != 0) v.accepts[at] = 0;
-        store_if<int16_t>(v.seen_bal + at, v.seen_bal[at],
-                          (int16_t)(self_ok ? acc_bal0 : 0));
-        store_if<int16_t>(v.seen_val + at, v.seen_val[at],
-                          (int16_t)(self_ok ? acc_val0 : 0));
+        store_if<slot_t>(v.seen_bal + at, v.seen_bal[at],
+                         (slot_t)(self_ok ? acc_bal0 : 0));
+        store_if<slot_t>(v.seen_val + at, v.seen_val[at],
+                         (slot_t)(self_ok ? acc_val0 : 0));
         sd.msg_mask = others;
         sd.msg_kind = PX_PREPARE;
         sd.w0 = bal;
@@ -249,7 +255,7 @@ struct Paxos {
       // Acceptor: promise a higher ballot, reporting what it accepted.
       const int32_t b = pay.w0;
       if (b > promised0) {
-        store_if<int16_t>(v.promised + at, promised0, sat16(b));
+        store_if<slot_t>(v.promised + at, promised0, narrow<slot_t>(b));
         sd.msg_mask = 1u << clampi(pmod(b - 1, N), 0, N - 1);
         sd.msg_kind = PX_PROMISE;
         sd.w0 = b;
@@ -275,11 +281,11 @@ struct Paxos {
       const bool sok = cross && b >= promised0;
       if (live) {
         if (pm2 != pm) v.promises[at] = pm2;
-        store_if<int16_t>(v.seen_bal + at, sb, sat16(sb2));
-        store_if<int16_t>(v.seen_val + at, sv, sat16(sv2));
+        store_if<slot_t>(v.seen_bal + at, sb, narrow<slot_t>(sb2));
+        store_if<slot_t>(v.seen_val + at, sv, narrow<slot_t>(sv2));
       }
       if (cross) {
-        store_if<int16_t>(v.prop_val + at, prop_val0, sat16(val));
+        store_if<slot_t>(v.prop_val + at, prop_val0, narrow<slot_t>(val));
         const int32_t am1 = sok ? (int32_t)(1u << me) : 0;
         if (v.accepts[at] != am1) v.accepts[at] = am1;
         sd.msg_mask = others;
@@ -289,17 +295,17 @@ struct Paxos {
         sd.w2 = val;
       }
       if (sok) {
-        store_if<int16_t>(v.promised + at, promised0, sat16(b));
-        store_if<int16_t>(v.acc_bal + at, acc_bal0, sat16(b));
-        store_if<int16_t>(v.acc_val + at, acc_val0, sat16(val));
+        store_if<slot_t>(v.promised + at, promised0, narrow<slot_t>(b));
+        store_if<slot_t>(v.acc_bal + at, acc_bal0, narrow<slot_t>(b));
+        store_if<slot_t>(v.acc_val + at, acc_val0, narrow<slot_t>(val));
       }
     } else if (kind == PX_ACCEPT) {
       // Acceptor: accept a value at or above the promised ballot.
       const int32_t b = pay.w0;
       if (b >= promised0) {
-        store_if<int16_t>(v.promised + at, promised0, sat16(b));
-        store_if<int16_t>(v.acc_bal + at, acc_bal0, sat16(b));
-        store_if<int16_t>(v.acc_val + at, acc_val0, sat16(pay.w2));
+        store_if<slot_t>(v.promised + at, promised0, narrow<slot_t>(b));
+        store_if<slot_t>(v.acc_bal + at, acc_bal0, narrow<slot_t>(b));
+        store_if<slot_t>(v.acc_val + at, acc_val0, narrow<slot_t>(pay.w2));
         sd.msg_mask = 1u << clampi(pmod(b - 1, N), 0, N - 1);
         sd.msg_kind = PX_ACCEPTED;
         sd.w0 = b;
@@ -318,7 +324,7 @@ struct Paxos {
                          __popc((uint32_t)am) < q;
       if (live && am2 != am) v.accepts[at] = am2;
       if (cross) {
-        store_if<int16_t>(v.chosen + at, chosen0, sat16(pay.w3));
+        store_if<slot_t>(v.chosen + at, chosen0, narrow<slot_t>(pay.w3));
         count(v.chosen_count, 0, 1);
         sd.msg_mask = others;
         sd.msg_kind = PX_CHOSEN;
@@ -328,19 +334,20 @@ struct Paxos {
     } else {  // PX_CHOSEN
       // Learner: adopt the chosen value; a conflicting choice is the bug.
       hbug = chosen0 > 0 && chosen0 != pay.w1;
-      if (chosen0 == 0) store_if<int16_t>(v.chosen + at, 0, sat16(pay.w1));
+      if (chosen0 == 0)
+        store_if<slot_t>(v.chosen + at, 0, narrow<slot_t>(pay.w1));
     }
   }
 
   template <int N>
-  static __device__ __forceinline__ bool invariant(const PaxosView<N>& v) {
+  static __device__ __forceinline__ bool invariant(const PaxosView<N, Pf>& v) {
     return px_invariant<N>(v);
   }
 
   // Words w0..w3, and PROMISE's fifth, the voter (the handling node).
   template <int N>
   static __device__ __forceinline__ Payload message(const Params&,
-                                                    const PaxosView<N>&,
+                                                    const PaxosView<N, Pf>&,
                                                     const Sends& sd, int) {
     return Payload{sd.w0, sd.w1, sd.w2, sd.w3,
                    sd.msg_kind == PX_PROMISE ? sd.me : 0, 0, 0, 0};
@@ -358,5 +365,8 @@ struct Paxos {
            p.log_stride == 0 && p.commit_unit == 0 && p.log_unit == 0;
   }
 };
+
+using Paxos = PaxosP<PackedProfile>;
+using PaxosWide = PaxosP<WideProfile>;
 
 }  // namespace

@@ -33,16 +33,18 @@ constexpr int PB_WRITE = 0, PB_REPLICATE = 1, PB_ACK = 2, PB_COMMIT = 3,
 // The spec's lanes in leaf order (sorted names, as JAX flattens a dict),
 // at their packed dtypes (lane_dtype: hi <= 32767 -> int16; bitmasks and
 // counters int32).
+template <class Pf>
 struct PbLanes {
+  using Profile = Pf;
   int32_t* acks;           // (W, N, L)
-  int16_t* commit;         // (W, N)
-  int16_t* committed_cmd;  // (W, L)
-  int16_t* committed_max;  // (W,)
-  int16_t* log_cmd;        // (W, N, L)
-  int16_t* log_len;        // (W, N)
-  int16_t* view;           // (W, N)
+  typename Pf::slot_t* commit;         // (W, N)
+  typename Pf::slot_t* committed_cmd;  // (W, L)
+  typename Pf::slot_t* committed_max;  // (W,)
+  typename Pf::slot_t* log_cmd;        // (W, N, L)
+  typename Pf::slot_t* log_len;        // (W, N)
+  typename Pf::slot_t* view;           // (W, N)
   int32_t* views_changed;  // (W,)
-  int16_t* wd_epoch;       // (W, N)
+  typename Pf::slot_t* wd_epoch;       // (W, N)
   int32_t* writes_done;    // (W,)
 };
 
@@ -58,21 +60,21 @@ __device__ __forceinline__ int pb_buggy_commit_early(const Params& p) {
 }
 
 // One world's lanes in device memory.
-template <int N>
+template <int N, class Pf>
 struct PbView {
   int L;
   int32_t* acks;
-  int16_t* commit;
-  int16_t* committed_cmd;
-  int16_t* committed_max;
-  int16_t* log_cmd;
-  int16_t* log_len;
-  int16_t* view;
+  typename Pf::slot_t* commit;
+  typename Pf::slot_t* committed_cmd;
+  typename Pf::slot_t* committed_max;
+  typename Pf::slot_t* log_cmd;
+  typename Pf::slot_t* log_len;
+  typename Pf::slot_t* view;
   int32_t* views_changed;
-  int16_t* wd_epoch;
+  typename Pf::slot_t* wd_epoch;
   int32_t* writes_done;
 
-  __device__ __forceinline__ PbView(const PbLanes& a, size_t w, int l)
+  __device__ __forceinline__ PbView(const PbLanes<Pf>& a, size_t w, int l)
       : L(l),
         acks(a.acks + w * N * l),
         commit(a.commit + w * N),
@@ -88,8 +90,8 @@ struct PbView {
 
 // Durability: the current primary's log holds every entry ever reported
 // committed, verbatim. Nothing to compare until committed_max > 0.
-template <int N>
-__device__ __forceinline__ bool pb_invariant(const PbView<N>& v) {
+template <int N, class Pf>
+__device__ __forceinline__ bool pb_invariant(const PbView<N, Pf>& v) {
   const int32_t cm = v.committed_max[0];
   if (cm <= 0) return false;
   int32_t vmax = v.view[0];
@@ -97,7 +99,7 @@ __device__ __forceinline__ bool pb_invariant(const PbView<N>& v) {
   for (int i = 1; i < N; i++) vmax = max(vmax, (int32_t)v.view[i]);
   const int primary = pmod(vmax, N);
   const int32_t plen = v.log_len[primary];
-  const int16_t* plog = v.log_cmd + primary * v.L;
+  const typename Pf::slot_t* plog = v.log_cmd + primary * v.L;
   const int lim = min(cm, (int32_t)v.L);
   for (int k = 0; k < lim; k++)
     if (k >= plen || plog[k] != v.committed_cmd[k]) return true;
@@ -109,10 +111,13 @@ struct PbRow {
   int32_t view, log_len, commit, wd_epoch;
 };
 
-struct Pb {
-  using Lanes = PbLanes;
+template <class Pf>
+struct PbP {
+  using Lanes = PbLanes<Pf>;
+  using slot_t = typename Pf::slot_t;
+  using code_t = typename Pf::code_t;
   template <int N>
-  using View = PbView<N>;
+  using View = PbView<N, Pf>;
   using Row = PbRow;
   static constexpr int FAMILY = FAMILY_PB;
   // Node counts up to 8; the outbox is a message per node and the timer.
@@ -128,10 +133,10 @@ struct Pb {
                                                   int) {}
 
   template <int N>
-  static __device__ __forceinline__ PbView<N> view(const State<Lanes>& s,
+  static __device__ __forceinline__ PbView<N, Pf> view(const State<Lanes>& s,
                                                    const Params& p, size_t w,
                                                    char*, int) {
-    return PbView<N>(s.a, w, pb_L(p));
+    return PbView<N, Pf>(s.a, w, pb_L(p));
   }
 
   template <int N>
@@ -143,11 +148,11 @@ struct Pb {
   static __device__ __forceinline__ bool frozen_bug(const State<Lanes>& s,
                                                     const Params& p, size_t w,
                                                     int) {
-    return pb_invariant(PbView<N>(s.a, w, pb_L(p)));
+    return pb_invariant(PbView<N, Pf>(s.a, w, pb_L(p)));
   }
 
   template <int N>
-  static __device__ __forceinline__ PbRow load_row(const PbView<N>& v,
+  static __device__ __forceinline__ PbRow load_row(const PbView<N, Pf>& v,
                                                    int me) {
     return PbRow{v.view[me], v.log_len[me], v.commit[me], v.wd_epoch[me]};
   }
@@ -157,7 +162,7 @@ struct Pb {
   // context's draw advances the cursor unconditionally).
   template <int N>
   static __device__ __forceinline__ void on_restart(const Params&,
-                                                    const PbView<N>& v,
+                                                    const PbView<N, Pf>& v,
                                                     int node, uint32_t,
                                                     uint32_t, uint32_t& ctr,
                                                     Sends& sd) {
@@ -167,7 +172,7 @@ struct Pb {
       if (acks_me[k] != 0) acks_me[k] = 0;
     const int32_t epoch_me = v.wd_epoch[me];
     const int32_t epoch2 = epoch_me + 1;
-    store_if<int16_t>(v.wd_epoch + me, epoch_me, sat16(epoch2));
+    store_if<slot_t>(v.wd_epoch + me, epoch_me, narrow<slot_t>(epoch2));
     sd.me = me;
     sd.t_valid = true;
     sd.t_kind = PB_WATCHDOG;
@@ -182,7 +187,7 @@ struct Pb {
   // The merged handler: every kind's transition, gated by the kind.
   template <int N>
   static __device__ __forceinline__ void handle(
-      const Params& p, const PbView<N>& v, int ev_kind, int ev_dst,
+      const Params& p, const PbView<N, Pf>& v, int ev_kind, int ev_dst,
       const Payload pay, const PbRow row, int32_t, uint32_t, uint32_t,
       uint32_t& ctr, Sends& sd, bool& hbug) {
     const int L = v.L;
@@ -203,8 +208,8 @@ struct Pb {
         const int pos_w = clampi(llen, 0, L - 1);
         const int32_t llen_w = llen + 1;
         const int32_t cmd = pay.w0;
-        store_if<int16_t>(v.log_len + me, llen, sat16(llen_w));
-        v.log_cmd[me * L + pos_w] = sat16(cmd);
+        store_if<slot_t>(v.log_len + me, llen, narrow<slot_t>(llen_w));
+        v.log_cmd[me * L + pos_w] = narrow<slot_t>(cmd);
         v.acks[me * L + pos_w] = (int32_t)(1u << me);
         count(v.writes_done, 0, 1);
         sd.msg_mask = others;
@@ -220,18 +225,18 @@ struct Pb {
       const int32_t view_rep = max(view_me, v_rep);
       const bool in_order = current && idx_rep == llen + 1 && idx_rep <= L;
       const int32_t epoch2 = epoch_me + (current ? 1 : 0);
-      store_if<int16_t>(v.view + me, view_me, sat16(view_rep));
+      store_if<slot_t>(v.view + me, view_me, narrow<slot_t>(view_rep));
       if (in_order) {
         const int pos_r = clampi(idx_rep - 1, 0, L - 1);
-        v.log_cmd[me * L + pos_r] = sat16(cmd_rep);
-        store_if<int16_t>(v.log_len + me, llen, sat16(idx_rep));
+        v.log_cmd[me * L + pos_r] = narrow<slot_t>(cmd_rep);
+        store_if<slot_t>(v.log_len + me, llen, narrow<slot_t>(idx_rep));
         sd.msg_mask = 1u << clampi(pmod(view_rep, N), 0, N - 1);
         sd.msg_kind = PB_ACK;
         sd.w0 = view_rep;
         sd.w1 = idx_rep;
         sd.w2 = me;
       }
-      store_if<int16_t>(v.wd_epoch + me, epoch_me, sat16(epoch2));
+      store_if<slot_t>(v.wd_epoch + me, epoch_me, narrow<slot_t>(epoch2));
       if (current) {
         sd.t_valid = true;
         sd.t_kind = PB_WATCHDOG;
@@ -259,7 +264,7 @@ struct Pb {
       const int32_t commit_a = committed ? idx : commit_me;
       const int32_t cm0 = v.committed_max[0];
       if (acks2 != acks0) v.acks[me * L + pos_a] = acks2;
-      store_if<int16_t>(v.commit + me, commit_me, sat16(commit_a));
+      store_if<slot_t>(v.commit + me, commit_me, narrow<slot_t>(commit_a));
       if (committed) {
         // committed_cmd takes the pre-step log row over [commit_me, idx).
         const int lo = max(commit_me, 0), hi = min(idx, (int32_t)L);
@@ -270,14 +275,14 @@ struct Pb {
         sd.w0 = view_me;
         sd.w1 = commit_a;
       }
-      store_if<int16_t>(v.committed_max, cm0,
-                        sat16(max(cm0, committed ? idx : 0)));
+      store_if<slot_t>(v.committed_max, cm0,
+                       narrow<slot_t>(max(cm0, committed ? idx : 0)));
     } else if (kind == PB_COMMIT) {
       // Backup: adopt the commit index, capped at its log length.
       const bool cm_current = pay.w0 >= view_me;
       const int32_t commit2 =
           cm_current ? max(commit_me, min(pay.w1, llen)) : commit_me;
-      store_if<int16_t>(v.commit + me, commit_me, sat16(commit2));
+      store_if<slot_t>(v.commit + me, commit_me, narrow<slot_t>(commit2));
     } else if (kind == PB_HEARTBEAT) {
       // The primary's liveness beacon: an idx-0 Replicate to every backup.
       const bool live = pay.w0 == view_me && is_primary;
@@ -300,8 +305,8 @@ struct Pb {
       const int32_t view_wd = fire ? max(cand, view_me + 1) : view_me;
       const bool became_primary = fire && me == pmod(view_wd, N);
       const int32_t epoch2 = epoch_me + (fire ? 1 : 0);
-      store_if<int16_t>(v.view + me, view_me, sat16(view_wd));
-      store_if<int16_t>(v.wd_epoch + me, epoch_me, sat16(epoch2));
+      store_if<slot_t>(v.view + me, view_me, narrow<slot_t>(view_wd));
+      store_if<slot_t>(v.wd_epoch + me, epoch_me, narrow<slot_t>(epoch2));
       count(v.views_changed, 0, fire ? 1 : 0);
       if (became_primary) {
         sd.msg_mask = others;
@@ -325,13 +330,13 @@ struct Pb {
   }
 
   template <int N>
-  static __device__ __forceinline__ bool invariant(const PbView<N>& v) {
+  static __device__ __forceinline__ bool invariant(const PbView<N, Pf>& v) {
     return pb_invariant<N>(v);
   }
 
   template <int N>
   static __device__ __forceinline__ Payload message(const Params&,
-                                                    const PbView<N>&,
+                                                    const PbView<N, Pf>&,
                                                     const Sends& sd, int) {
     return plain_message(sd);
   }
@@ -348,5 +353,8 @@ struct Pb {
            p.log_stride == 0 && p.commit_unit == 0 && p.log_unit == 0;
   }
 };
+
+using Pb = PbP<PackedProfile>;
+using PbWide = PbP<WideProfile>;
 
 }  // namespace

@@ -18,19 +18,22 @@ constexpr int FOLLOWER = 0, CANDIDATE = 1, LEADER = 2;
 constexpr int WON = 4;
 constexpr int MAX_L = 64;
 
-// RaftState's leaves, in their order.
+// RaftState's leaves, in their order, at the profile's types (slot lanes:
+// terms, indices, epochs; node: voted_for; code: role; payload: log_cmd).
+template <class Pf>
 struct RaftLanes {
-  int16_t* term;
-  int8_t* voted_for;
-  int8_t* role;
+  using Profile = Pf;
+  typename Pf::slot_t* term;
+  typename Pf::node_t* voted_for;
+  typename Pf::code_t* role;
   int32_t* votes;
-  int16_t* commit;
-  int16_t* log_len;
-  int16_t* log_term;
-  int16_t* log_cmd;
-  int16_t* next_idx;
-  int16_t* match_idx;
-  int16_t* elect_epoch;
+  typename Pf::slot_t* commit;
+  typename Pf::slot_t* log_len;
+  typename Pf::slot_t* log_term;
+  typename Pf::pay_t* log_cmd;
+  typename Pf::slot_t* next_idx;
+  typename Pf::slot_t* match_idx;
+  typename Pf::slot_t* elect_epoch;
   int32_t* first_leader_time;
   int32_t* elections_won;
   int32_t* won_terms;
@@ -57,33 +60,31 @@ __device__ __forceinline__ int raft_buggy_double_vote(const Params& p) {
 // Per-world views of the state rows. The node count N is a template
 // parameter throughout: every per-node loop has a constant trip count.
 // ---------------------------------------------------------------------------
-// ---------------------------------------------------------------------------
-// Per-world views of the state rows. The node count N is a template
-// parameter throughout: every per-node loop has a constant trip count.
-// ---------------------------------------------------------------------------
-template <int N>
+template <int N, class Pf>
 struct World {
+  using slot_t = typename Pf::slot_t;
+  using pay_t = typename Pf::pay_t;
   int L;
-  int16_t* term;
-  int8_t* voted_for;
-  int8_t* role;
+  slot_t* term;
+  typename Pf::node_t* voted_for;
+  typename Pf::code_t* role;
   int32_t* votes;
-  int16_t* log_len;
-  int16_t* elect_epoch;
-  int16_t* next_idx;   // (N, N)
-  int16_t* match_idx;  // (N, N)
+  slot_t* log_len;
+  slot_t* elect_epoch;
+  slot_t* next_idx;    // (N, N)
+  slot_t* match_idx;   // (N, N)
   int32_t* won_terms;  // (N, WON)
   int32_t* first_leader_time;
   int32_t* elections_won;
-  int16_t* commit;     // device memory, (N,)
-  int16_t* log_term;   // device memory, (N, L)
-  int16_t* log_cmd;
-  int16_t* commit_s;   // this world's rows of the shared tiles
-  int16_t* log_term_s;
-  int16_t* log_cmd_s;
+  slot_t* commit;      // device memory, (N,)
+  slot_t* log_term;    // device memory, (N, L)
+  pay_t* log_cmd;
+  slot_t* commit_s;    // this world's rows of the shared tiles
+  slot_t* log_term_s;
+  pay_t* log_cmd_s;
 
-  __device__ __forceinline__ World(const RaftLanes& s, size_t w, int l,
-                                   int16_t* cs, int16_t* lts, int16_t* lcs)
+  __device__ __forceinline__ World(const RaftLanes<Pf>& s, size_t w, int l,
+                                   slot_t* cs, slot_t* lts, pay_t* lcs)
       : L(l),
         term(s.term + w * N), voted_for(s.voted_for + w * N),
         role(s.role + w * N), votes(s.votes + w * N),
@@ -96,14 +97,14 @@ struct World {
         log_cmd(s.log_cmd + w * N * l),
         commit_s(cs), log_term_s(lts), log_cmd_s(lcs) {}
 
-  __device__ __forceinline__ void set_commit(int i, int16_t x) const {
+  __device__ __forceinline__ void set_commit(int i, slot_t x) const {
     if (commit_s[i] != x) {
       commit_s[i] = x;
       commit[i] = x;
     }
   }
-  __device__ __forceinline__ void set_log(int i, int k, int16_t t,
-                                          int16_t c) const {
+  __device__ __forceinline__ void set_log(int i, int k, slot_t t,
+                                          pay_t c) const {
     const int at = i * L + k;
     if (log_term_s[at] != t) {
       log_term_s[at] = t;
@@ -118,8 +119,8 @@ struct World {
 
 // Raft invariant: log matching on the committed prefix of every node pair,
 // over the shared tiles.
-template <int N>
-__device__ __forceinline__ bool raft_invariant(const World<N>& v) {
+template <int N, class Pf>
+__device__ __forceinline__ bool raft_invariant(const World<N, Pf>& v) {
   const int L = v.L;
 #pragma unroll
   for (int i = 0; i < N; i++) {
@@ -128,8 +129,10 @@ __device__ __forceinline__ bool raft_invariant(const World<N>& v) {
       int ci = v.commit_s[i], cj = v.commit_s[j];
       int lim = ci < cj ? ci : cj;
       if (lim > L) lim = L;
-      const int16_t *ti = v.log_term_s + i * L, *tj = v.log_term_s + j * L;
-      const int16_t *mi = v.log_cmd_s + i * L, *mj = v.log_cmd_s + j * L;
+      const typename Pf::slot_t *ti = v.log_term_s + i * L,
+                                *tj = v.log_term_s + j * L;
+      const typename Pf::pay_t *mi = v.log_cmd_s + i * L,
+                               *mj = v.log_cmd_s + j * L;
       for (int k = 0; k < lim; k++)
         if (ti[k] != tj[k] || mi[k] != mj[k]) return true;
     }
@@ -143,8 +146,11 @@ struct RaftRow {
   Packed16 next_idx, match_idx;
 };
 
-template <int N>
-__device__ __forceinline__ RaftRow raft_load_row(const World<N>& v, int me) {
+// The next and match rows hold indices in 1..L+1 in either profile, so they
+// travel as packed int16s.
+template <int N, class Pf>
+__device__ __forceinline__ RaftRow raft_load_row(const World<N, Pf>& v,
+                                                 int me) {
   RaftRow r;
   r.term = v.term[me];
   r.voted_for = v.voted_for[me];
@@ -169,21 +175,23 @@ __device__ __forceinline__ RaftRow raft_load_row(const World<N>& v, int me) {
 }
 
 // RaftActor.on_restart: volatile state resets, a fresh election timer.
-template <int N>
-__device__ __forceinline__ void raft_on_restart(const World<N>& v, int node,
-                                                uint32_t& ctr, Sends& sd) {
+template <int N, class Pf>
+__device__ __forceinline__ void raft_on_restart(const World<N, Pf>& v,
+                                                int node, uint32_t& ctr,
+                                                Sends& sd) {
+  using slot_t = typename Pf::slot_t;
   const int me = clampi(node, 0, N - 1);
   const int32_t epoch_me = v.elect_epoch[me];
   const int32_t epoch2 = epoch_me + 1;
-  store_if<int8_t>(v.role + me, v.role[me], FOLLOWER);
+  store_if<typename Pf::code_t>(v.role + me, v.role[me], FOLLOWER);
   store_if<int32_t>(v.votes + me, v.votes[me], 0);
   v.set_commit(me, 0);
 #pragma unroll
   for (int j = 0; j < N; j++) {
-    store_if<int16_t>(v.next_idx + me * N + j, v.next_idx[me * N + j], 1);
-    store_if<int16_t>(v.match_idx + me * N + j, v.match_idx[me * N + j], 0);
+    store_if<slot_t>(v.next_idx + me * N + j, v.next_idx[me * N + j], 1);
+    store_if<slot_t>(v.match_idx + me * N + j, v.match_idx[me * N + j], 0);
   }
-  store_if(v.elect_epoch + me, epoch_me, sat16(epoch2));
+  store_if(v.elect_epoch + me, epoch_me, narrow<slot_t>(epoch2));
   sd.t_valid = true;
   sd.t_kind = K_ELECTION;
   sd.t_dst = me;
@@ -194,7 +202,8 @@ __device__ __forceinline__ void raft_on_restart(const World<N>& v, int node,
 }
 
 // A node's log term at 1-based index idx (0 before the log).
-__device__ __forceinline__ int32_t row_term_at(const int16_t* row, int L,
+template <typename T>
+__device__ __forceinline__ int32_t row_term_at(const T* row, int L,
                                                int32_t idx) {
   return idx <= 0 ? 0 : (int32_t)row[clampi(idx - 1, 0, L - 1)];
 }
@@ -202,12 +211,18 @@ __device__ __forceinline__ int32_t row_term_at(const int16_t* row, int L,
 // RaftActor.handle: the merged handler of every event kind. Reads the
 // popped payload from registers, writes row `me` in place, and leaves the
 // sends in `sd`.
-template <int N>
-__device__ __forceinline__ void raft_handle(const Params& p, const World<N>& v,
+template <int N, class Pf>
+__device__ __forceinline__ void raft_handle(const Params& p,
+                                            const World<N, Pf>& v,
                                             int ev_kind, int ev_dst,
-                                            const Payload pay, const RaftRow row,
-                                            int32_t now, uint32_t& ctr,
-                                            Sends& sd, bool& hist_bug) {
+                                            const Payload pay,
+                                            const RaftRow row, int32_t now,
+                                            uint32_t& ctr, Sends& sd,
+                                            bool& hist_bug) {
+  using slot_t = typename Pf::slot_t;
+  using pay_t = typename Pf::pay_t;
+  using node_t = typename Pf::node_t;
+  using code_t = typename Pf::code_t;
   const int L = v.L;
   const int kind = clampi(ev_kind, 0, NUM_KINDS - 1);
   const int me = clampi(ev_dst, 0, N - 1);
@@ -228,15 +243,15 @@ __device__ __forceinline__ void raft_handle(const Params& p, const World<N>& v,
   const bool higher = sd_kind && t > term_pre;
   const bool demote =
       higher || (is_ap && t == term_pre && role_pre == CANDIDATE);
-  const int32_t term_me = sat16(higher ? t : term_pre);
-  const int32_t voted_me = sat8(higher ? -1 : voted_pre);
-  const int32_t role_me = sat8(demote ? FOLLOWER : role_pre);
+  const int32_t term_me = narrow<slot_t>(higher ? t : term_pre);
+  const int32_t voted_me = narrow<node_t>(higher ? -1 : voted_pre);
+  const int32_t role_me = narrow<code_t>(demote ? FOLLOWER : role_pre);
   const int32_t votes_me = row.votes;
   const int32_t commit_me = v.commit_s[me];
   const int32_t llen_me = row.log_len;
   const int32_t epoch_me = row.elect_epoch;
-  const int16_t* lt_row = v.log_term_s + me * L;
-  const int16_t* lc_row = v.log_cmd_s + me * L;
+  const slot_t* lt_row = v.log_term_s + me * L;
+  const pay_t* lc_row = v.log_cmd_s + me * L;
   const int32_t my_last_term = row_term_at(lt_row, L, llen_me);
   const bool reject = t < term_me;
 
@@ -307,8 +322,8 @@ __device__ __forceinline__ void raft_handle(const Params& p, const World<N>& v,
   const bool live_ar = is_ar && role_me == LEADER && t == term_me;
   const bool ok_ar = live_ar && pay.w1 != 0;
   const bool fail_ar = live_ar && pay.w1 == 0;
-  int16_t* match_me = v.match_idx + me * N;
-  int16_t* next_me = v.next_idx + me * N;
+  slot_t* match_me = v.match_idx + me * N;
+  slot_t* next_me = v.next_idx + me * N;
   const int32_t cur_match = row.match_idx.get(follower);
   const int32_t cur_next = row.next_idx.get(follower);
   const int32_t match2 = max(cur_match, (int32_t)pay.w2);
@@ -343,8 +358,8 @@ __device__ __forceinline__ void raft_handle(const Params& p, const World<N>& v,
     else
       nr = n0;
     match_row[i] = mr;
-    store_if(match_me + i, m0, sat16(mr));
-    store_if(next_me + i, n0, sat16(nr));
+    store_if(match_me + i, m0, narrow<slot_t>(mr));
+    store_if(next_me + i, n0, narrow<slot_t>(nr));
     sd.next |= (uint64_t)clampi(nr, 1, L + 1) << (8 * i);
   }
 
@@ -397,11 +412,11 @@ __device__ __forceinline__ void raft_handle(const Params& p, const World<N>& v,
                                           : (is_hb ? pay.w0 : term_me));
 
   // -- final state of row `me`, each field written where it changes --
-  store_if(v.term + me, term_pre, sat16(fire ? term2 : term_me));
+  store_if(v.term + me, term_pre, narrow<slot_t>(fire ? term2 : term_me));
   store_if(v.voted_for + me, voted_pre,
-           sat8(fire ? me : (grant ? cand : voted_me)));
+           narrow<node_t>(fire ? me : (grant ? cand : voted_me)));
   store_if(v.role + me, role_pre,
-           sat8(fire ? CANDIDATE : (win ? LEADER : role_me)));
+           narrow<code_t>(fire ? CANDIDATE : (win ? LEADER : role_me)));
   store_if<int32_t>(v.votes + me, votes_me,
                     fire ? (int32_t)(1u << me) : (is_vr ? votes2 : votes_me));
   if (win) {
@@ -409,10 +424,10 @@ __device__ __forceinline__ void raft_handle(const Params& p, const World<N>& v,
     *wt = (int32_t)((uint32_t)*wt | bit);
   }
   store_if(v.elect_epoch + me, epoch_me,
-           sat16((grant || (is_ap && !reject)) ? epoch2 : epoch_me));
-  v.set_log(me, pos, sat16(lt_new), sat16(lc_new));
-  store_if(v.log_len + me, llen_me, sat16(llen_me2));
-  v.set_commit(me, sat16(commit_me2));
+           narrow<slot_t>((grant || (is_ap && !reject)) ? epoch2 : epoch_me));
+  v.set_log(me, pos, narrow<slot_t>(lt_new), narrow<pay_t>(lc_new));
+  store_if(v.log_len + me, llen_me, narrow<slot_t>(llen_me2));
+  v.set_commit(me, narrow<slot_t>(commit_me2));
   if (win) {
     if (now < *v.first_leader_time) *v.first_leader_time = now;
     *v.elections_won += 1;
@@ -420,10 +435,16 @@ __device__ __forceinline__ void raft_handle(const Params& p, const World<N>& v,
 }
 
 // The policy the kernel skeleton calls.
-struct Raft {
-  using Lanes = RaftLanes;
+template <class Pf>
+struct RaftP {
+  using Lanes = RaftLanes<Pf>;
   template <int N>
-  using View = World<N>;
+  using View = World<N, Pf>;
+  using slot_t = typename Pf::slot_t;
+  using pay_t = typename Pf::pay_t;
+  // The commit and log tiles' element: int16 packed, int32 wide.
+  static constexpr int E = (int)sizeof(slot_t);
+  static_assert(sizeof(slot_t) == sizeof(pay_t), "log tile elements");
   using Row = RaftRow;
   static constexpr int FAMILY = FAMILY_RAFT;
   // Node counts up to 8; the outbox is a message per node and the timer.
@@ -441,8 +462,8 @@ struct Raft {
                                                   int first, int step,
                                                   int at) {
     const int L = raft_L(p);
-    const int c_row = N * 2, c_stride = p.commit_stride * 2;
-    const int l_row = N * L * 2, l_stride = p.log_stride * 2;
+    const int c_row = N * E, c_stride = p.commit_stride * E;
+    const int l_row = N * L * E, l_stride = p.log_stride * E;
     tile_in_any(p.log_unit, smem + p.off_lt + at * l_stride, s.a.log_term,
                 row0, n, l_row, l_stride, first, step);
     tile_in_any(p.log_unit, smem + p.off_lc + at * l_stride, s.a.log_cmd,
@@ -453,15 +474,16 @@ struct Raft {
 
   // An active world's view: its rows of the tiles.
   template <int N>
-  static __device__ __forceinline__ World<N> view(const State<Lanes>& s,
-                                                  const Params& p, size_t w,
-                                                  char* smem, int tid) {
-    return World<N>(
+  static __device__ __forceinline__ World<N, Pf> view(const State<Lanes>& s,
+                                                      const Params& p,
+                                                      size_t w, char* smem,
+                                                      int tid) {
+    return World<N, Pf>(
         s.a, w, raft_L(p),
-        reinterpret_cast<int16_t*>(smem + p.off_commit +
-                                   tid * p.commit_stride * 2),
-        reinterpret_cast<int16_t*>(smem + p.off_lt + tid * p.log_stride * 2),
-        reinterpret_cast<int16_t*>(smem + p.off_lc + tid * p.log_stride * 2));
+        reinterpret_cast<slot_t*>(smem + p.off_commit +
+                                  tid * p.commit_stride * E),
+        reinterpret_cast<slot_t*>(smem + p.off_lt + tid * p.log_stride * E),
+        reinterpret_cast<pay_t*>(smem + p.off_lc + tid * p.log_stride * E));
   }
 
   // A frozen world's hint, read with its active flag: nodes that have
@@ -481,20 +503,20 @@ struct Raft {
                                                     int hint) {
     const int L = raft_L(p);
     return hint >= 2 &&
-           raft_invariant(World<N>(s.a, w, L, s.a.commit + w * N,
-                                   s.a.log_term + w * N * L,
-                                   s.a.log_cmd + w * N * L));
+           raft_invariant(World<N, Pf>(s.a, w, L, s.a.commit + w * N,
+                                       s.a.log_term + w * N * L,
+                                       s.a.log_cmd + w * N * L));
   }
 
   template <int N>
-  static __device__ __forceinline__ RaftRow load_row(const World<N>& v,
+  static __device__ __forceinline__ RaftRow load_row(const World<N, Pf>& v,
                                                      int me) {
     return raft_load_row<N>(v, me);
   }
 
   template <int N>
   static __device__ __forceinline__ void on_restart(const Params&,
-                                                    const World<N>& v,
+                                                    const World<N, Pf>& v,
                                                     int node, uint32_t,
                                                     uint32_t, uint32_t& ctr,
                                                     Sends& sd) {
@@ -503,21 +525,21 @@ struct Raft {
 
   template <int N>
   static __device__ __forceinline__ void handle(
-      const Params& p, const World<N>& v, int ev_kind, int ev_dst,
+      const Params& p, const World<N, Pf>& v, int ev_kind, int ev_dst,
       const Payload pay, const RaftRow row, int32_t now, uint32_t, uint32_t,
       uint32_t& ctr, Sends& sd, bool& hbug) {
     raft_handle<N>(p, v, ev_kind, ev_dst, pay, row, now, ctr, sd, hbug);
   }
 
   template <int N>
-  static __device__ __forceinline__ bool invariant(const World<N>& v) {
+  static __device__ __forceinline__ bool invariant(const World<N, Pf>& v) {
     return raft_invariant<N>(v);
   }
 
   // Message i's payload: the append row for node i (bcast), else w0..w3.
   template <int N>
   static __device__ __forceinline__ Payload message(const Params& p,
-                                                    const World<N>& v,
+                                                    const World<N, Pf>& v,
                                                     const Sends& sd, int i) {
     Payload e = plain_message(sd);
     if (sd.bcast) {
@@ -525,8 +547,8 @@ struct Raft {
       const int32_t nxt = (int32_t)((sd.next >> (8 * i)) & 0xFFu);
       const int32_t prev = nxt - 1;
       const bool have = nxt <= sd.llen;
-      const int16_t* lt_row = v.log_term_s + sd.me * L;
-      const int16_t* lc_row = v.log_cmd_s + sd.me * L;
+      const slot_t* lt_row = v.log_term_s + sd.me * L;
+      const pay_t* lc_row = v.log_cmd_s + sd.me * L;
       const int pe = clampi(nxt - 1, 0, L - 1);
       e = {sd.term, sd.me, prev, row_term_at(lt_row, L, prev),
            have ? 1 : 0, have ? (int32_t)lt_row[pe] : 0,
@@ -546,12 +568,14 @@ struct Raft {
     const int L = p.f0;
     return p.N >= 1 && L >= 1 && L <= MAX_L && p.f1 == WON &&
            p.commit_stride >= p.N && p.log_stride >= p.N * L &&
-           (p.commit_unit == 2 || p.commit_unit == 4) &&
-           (p.log_unit == 2 || p.log_unit == 4) &&
-           (p.N * 2) % p.commit_unit == 0 && (p.N * L * 2) % p.log_unit == 0 &&
-           !(p.commit_unit == 4 && p.commit_stride % 2) &&
-           !(p.log_unit == 4 && p.log_stride % 2);
+           (p.commit_unit == E || p.commit_unit == 4) &&
+           (p.log_unit == E || p.log_unit == 4) &&
+           (p.N * E) % p.commit_unit == 0 && (p.N * L * E) % p.log_unit == 0 &&
+           (p.commit_stride * E) % p.commit_unit == 0 &&
+           (p.log_stride * E) % p.log_unit == 0;
   }
 };
+using Raft = RaftP<PackedProfile>;
+using RaftWide = RaftP<WideProfile>;
 
 }  // namespace

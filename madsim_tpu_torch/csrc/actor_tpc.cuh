@@ -33,13 +33,15 @@ constexpr int TPC_COORD = 0;
 // The spec's lanes in leaf order (sorted names, as JAX flattens a dict),
 // at their packed dtypes (lane_dtype: hi=2 -> int8; bitmasks and counters
 // int32).
+template <class Pf>
 struct TpcLanes {
+  using Profile = Pf;
   int32_t* aborts;     // (W,)
   int32_t* commits;    // (W,)
-  int8_t* decided;     // (W, T)
-  int8_t* decision;    // (W, N, T)
+  typename Pf::code_t* decided;     // (W, T)
+  typename Pf::code_t* decision;    // (W, N, T)
   int32_t* txns_seen;  // (W,)
-  int8_t* voted;       // (W, N, T)
+  typename Pf::code_t* voted;       // (W, N, T)
   int32_t* votes_yes;  // (W, T)
 };
 
@@ -58,18 +60,18 @@ __device__ __forceinline__ int tpc_buggy_presumed_commit(const Params& p) {
 }
 
 // One world's lanes in device memory.
-template <int N>
+template <int N, class Pf>
 struct TpcView {
   int T;
-  int8_t* decided;
-  int8_t* decision;
-  int8_t* voted;
+  typename Pf::code_t* decided;
+  typename Pf::code_t* decision;
+  typename Pf::code_t* voted;
   int32_t* votes_yes;
   int32_t* txns_seen;
   int32_t* commits;
   int32_t* aborts;
 
-  __device__ __forceinline__ TpcView(const TpcLanes& a, size_t w, int t)
+  __device__ __forceinline__ TpcView(const TpcLanes<Pf>& a, size_t w, int t)
       : T(t),
         decided(a.decided + w * t),
         decision(a.decision + w * N * t),
@@ -81,8 +83,8 @@ struct TpcView {
 };
 
 // Atomicity: no txn column holds both a COMMIT and an ABORT.
-template <int N>
-__device__ __forceinline__ bool tpc_invariant(const TpcView<N>& v) {
+template <int N, class Pf>
+__device__ __forceinline__ bool tpc_invariant(const TpcView<N, Pf>& v) {
   for (int t = 0; t < v.T; t++) {
     bool committed = false, aborted = false;
 #pragma unroll
@@ -98,10 +100,13 @@ __device__ __forceinline__ bool tpc_invariant(const TpcView<N>& v) {
 
 struct TpcRow {};
 
-struct Tpc {
-  using Lanes = TpcLanes;
+template <class Pf>
+struct TpcP {
+  using Lanes = TpcLanes<Pf>;
+  using slot_t = typename Pf::slot_t;
+  using code_t = typename Pf::code_t;
   template <int N>
-  using View = TpcView<N>;
+  using View = TpcView<N, Pf>;
   using Row = TpcRow;
   static constexpr int FAMILY = FAMILY_TPC;
   // Node counts up to 8; the outbox is a message per node and the timer.
@@ -117,10 +122,10 @@ struct Tpc {
                                                   int) {}
 
   template <int N>
-  static __device__ __forceinline__ TpcView<N> view(const State<Lanes>& s,
+  static __device__ __forceinline__ TpcView<N, Pf> view(const State<Lanes>& s,
                                                     const Params& p, size_t w,
                                                     char*, int) {
-    return TpcView<N>(s.a, w, tpc_T(p));
+    return TpcView<N, Pf>(s.a, w, tpc_T(p));
   }
 
   template <int N>
@@ -132,11 +137,12 @@ struct Tpc {
   static __device__ __forceinline__ bool frozen_bug(const State<Lanes>& s,
                                                     const Params& p, size_t w,
                                                     int) {
-    return tpc_invariant(TpcView<N>(s.a, w, tpc_T(p)));
+    return tpc_invariant(TpcView<N, Pf>(s.a, w, tpc_T(p)));
   }
 
   template <int N>
-  static __device__ __forceinline__ TpcRow load_row(const TpcView<N>&, int) {
+  static __device__ __forceinline__ TpcRow load_row(const TpcView<N, Pf>&,
+                                                    int) {
     return TpcRow{};
   }
 
@@ -144,7 +150,7 @@ struct Tpc {
   // bitmasks of the txns it has not decided. No sends, no draw.
   template <int N>
   static __device__ __forceinline__ void on_restart(const Params&,
-                                                    const TpcView<N>& v,
+                                                    const TpcView<N, Pf>& v,
                                                     int node, uint32_t,
                                                     uint32_t, uint32_t&,
                                                     Sends&) {
@@ -156,7 +162,7 @@ struct Tpc {
   // The merged handler: every kind's transition, gated by the kind.
   template <int N>
   static __device__ __forceinline__ void handle(
-      const Params& p, const TpcView<N>& v, int ev_kind, int ev_dst,
+      const Params& p, const TpcView<N, Pf>& v, int ev_kind, int ev_dst,
       const Payload pay, const TpcRow, int32_t, uint32_t k0, uint32_t k1,
       uint32_t& ctr, Sends& sd, bool& hbug) {
     const int T = v.T;
@@ -202,7 +208,7 @@ struct Tpc {
         const uint32_t u = draw1(k0, k1, ctr0);
         const bool vote_no = (int32_t)(u % 256u) < tpc_no_vote_num(p);
         const int32_t vote_val = vote_no ? TPC_ABORT : TPC_COMMIT;
-        v.voted[at] = (int8_t)vote_val;
+        v.voted[at] = (code_t)vote_val;
         if (vote_no) v.decision[at] = TPC_ABORT;
         sd.msg_mask = 1u << TPC_COORD;
         sd.msg_kind = TPC_VOTE;
@@ -227,7 +233,7 @@ struct Tpc {
       // Participant: apply the coordinator's decision unless it already
       // applied one.
       const bool apply_dec = !is_coord && my_dec == TPC_NONE;
-      if (apply_dec) v.decision[at] = sat8(pay.w1);
+      if (apply_dec) v.decision[at] = narrow<code_t>(pay.w1);
     } else {  // TPC_TIMEOUT
       // Coordinator: decide for the stragglers -- ABORT, or COMMIT under
       // the presumed-commit bug.
@@ -236,8 +242,8 @@ struct Tpc {
     }
     if (decide) {
       // The shared decision tail: record, count, broadcast.
-      v.decided[txn] = (int8_t)val;
-      v.decision[at] = (int8_t)val;
+      v.decided[txn] = (code_t)val;
+      v.decision[at] = (code_t)val;
       count(val == TPC_COMMIT ? v.commits : v.aborts, 0, 1);
       sd.msg_mask = participants;
       sd.msg_kind = TPC_DECIDE;
@@ -247,13 +253,13 @@ struct Tpc {
   }
 
   template <int N>
-  static __device__ __forceinline__ bool invariant(const TpcView<N>& v) {
+  static __device__ __forceinline__ bool invariant(const TpcView<N, Pf>& v) {
     return tpc_invariant<N>(v);
   }
 
   template <int N>
   static __device__ __forceinline__ Payload message(const Params&,
-                                                    const TpcView<N>&,
+                                                    const TpcView<N, Pf>&,
                                                     const Sends& sd, int) {
     return plain_message(sd);
   }
@@ -270,5 +276,8 @@ struct Tpc {
            p.log_stride == 0 && p.commit_unit == 0 && p.log_unit == 0;
   }
 };
+
+using Tpc = TpcP<PackedProfile>;
+using TpcWide = TpcP<WideProfile>;
 
 }  // namespace

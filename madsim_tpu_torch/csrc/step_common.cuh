@@ -33,21 +33,43 @@ constexpr int FAULT_KILL = 0, FAULT_RESTART = 1, FAULT_CLOG_NODE = 2,
 constexpr int FAMILY_RAFT = 0, FAMILY_TPC = 1, FAMILY_PB = 2,
               FAMILY_PAXOS = 3, FAMILY_PAIR = 4;
 
+// The lane profiles (engine/lanes.py PACKED and WIDE): the at-rest types
+// of the narrow lane categories. Packed: node ids and codes int8, slots and
+// payload words int16, every write saturating (narrow below); wide: every
+// such lane int32, writes plain (the JAX narrow is a plain cast there).
+// Time, counter and bitmask lanes are int32 in both.
+struct PackedProfile {
+  static constexpr bool WIDE = false;
+  using node_t = int8_t;
+  using code_t = int8_t;
+  using slot_t = int16_t;
+  using pay_t = int16_t;
+};
+struct WideProfile {
+  static constexpr bool WIDE = true;
+  using node_t = int32_t;
+  using code_t = int32_t;
+  using slot_t = int32_t;
+  using pay_t = int32_t;
+};
+
 // State leaves, in the order of madsim_tpu_torch.engine.core.tree_leaves:
 // the engine's lanes, with the actor's lanes (the family's Lanes struct of
 // typed pointers, in its leaf order) between clog_link and active, then the
-// optional write-only lanes.
+// optional write-only lanes. The narrow lanes' types are the profile's,
+// Lanes::Profile.
 template <class Lanes>
 struct State {
+  using Pf = typename Lanes::Profile;
   int32_t* now;
   int32_t* q_time;
   int32_t* q_meta;
-  int16_t* q_payload;
+  typename Pf::pay_t* q_payload;
   uint32_t* k0;
   uint32_t* k1;
   uint32_t* counter;
   uint8_t* alive;
-  int8_t* gen;
+  typename Pf::code_t* gen;
   uint8_t* paused;
   uint8_t* clog_node;
   uint8_t* clog_link;
@@ -57,8 +79,8 @@ struct State {
   int32_t* delivered;
   int32_t* dropped;
   uint8_t* overflow;
-  int16_t* qdepth;
-  int16_t* qmax;
+  typename Pf::slot_t* qdepth;
+  typename Pf::slot_t* qmax;
   uint8_t* bug;
   int32_t* bug_time;
   int32_t* lat_min;
@@ -81,13 +103,13 @@ struct State {
   int32_t* m_fault_hist;  // (W, NUM_FAULT_KINDS)
   int32_t* m_kind_hist;   // (W, num_kinds)
   int32_t* bb_pos;
-  int16_t* bb_step_lo;    // (W, K) each
-  int16_t* bb_t_lo;
-  int16_t* bb_t_hi;
-  int8_t* bb_kind;
-  int8_t* bb_src;
-  int8_t* bb_dst;
-  int8_t* bb_flags;
+  typename Pf::slot_t* bb_step_lo;  // (W, K) each
+  typename Pf::pay_t* bb_t_lo;
+  typename Pf::pay_t* bb_t_hi;
+  typename Pf::code_t* bb_kind;
+  typename Pf::code_t* bb_src;
+  typename Pf::code_t* bb_dst;
+  typename Pf::code_t* bb_flags;
 };
 // Engine leaves before the actor's, after them, and the optional lanes.
 constexpr int N_PRE_LEAVES = 12, N_POST_LEAVES = 12, N_METRICS = 13,
@@ -128,6 +150,27 @@ __device__ __forceinline__ int16_t sat16(int32_t x) {
 }
 __device__ __forceinline__ int8_t sat8(int32_t x) {
   return (int8_t)clampi(x, -128, 127);
+}
+// A narrow lane's write (engine/lanes.py narrow): saturating into int8 or
+// int16, plain into int32.
+template <typename T>
+__device__ __forceinline__ T narrow(int32_t x) {
+  if constexpr (sizeof(T) == 1)
+    return sat8(x);
+  else if constexpr (sizeof(T) == 2)
+    return sat16(x);
+  else
+    return (T)x;
+}
+// A write that wraps (engine/lanes.py narrow_wrap): the low bits.
+template <typename T>
+__device__ __forceinline__ T wrap(int32_t x) {
+  if constexpr (sizeof(T) == 1)
+    return (T)(int8_t)(uint8_t)((uint32_t)x & 0xFFu);
+  else if constexpr (sizeof(T) == 2)
+    return (T)(int16_t)(uint16_t)((uint32_t)x & 0xFFFFu);
+  else
+    return (T)x;
 }
 
 // ---------------------------------------------------------------------------
@@ -206,26 +249,30 @@ __device__ __forceinline__ void count(int32_t* lane, size_t at, int32_t d) {
 }
 
 // One ring record of world w at slot pos % K. steps is the pre-step count
-// (wrapped to int16), t the event's time or, for a marker, the clock.
+// (wrapped to the step lane's width), t the event's time or, for a marker,
+// the clock, split into its sign-extended low 16 bits and its high bits
+// (engine/lanes.py split_wide).
 template <class Lanes>
 __device__ __forceinline__ void ring_record(const State<Lanes>& s,
                                             const Params& p,
                                             size_t w, int32_t steps,
                                             int32_t t, int kind, int src,
                                             int dst, int flags) {
+  using Pf = typename Lanes::Profile;
   const int k = p.bb_k;
   const int32_t pos = s.bb_pos[w];
   int slot = pos % k;
   if (slot < 0) slot += k;
   const size_t at = w * (size_t)k + slot;
   s.bb_pos[w] = (int32_t)((uint32_t)pos + 1u);
-  s.bb_step_lo[at] = (int16_t)(uint16_t)((uint32_t)steps & 0xFFFFu);
-  s.bb_t_lo[at] = (int16_t)(uint16_t)((uint32_t)t & 0xFFFFu);
-  s.bb_t_hi[at] = (int16_t)(t >> 16);
-  s.bb_kind[at] = sat8(kind);
-  s.bb_src[at] = sat8(src);
-  s.bb_dst[at] = sat8(dst);
-  s.bb_flags[at] = (int8_t)flags;
+  s.bb_step_lo[at] = wrap<typename Pf::slot_t>(steps);
+  s.bb_t_lo[at] = (typename Pf::pay_t)(int16_t)(uint16_t)((uint32_t)t &
+                                                          0xFFFFu);
+  s.bb_t_hi[at] = (typename Pf::pay_t)(t >> 16);
+  s.bb_kind[at] = narrow<typename Pf::code_t>(kind);
+  s.bb_src[at] = narrow<typename Pf::code_t>(src);
+  s.bb_dst[at] = narrow<typename Pf::code_t>(dst);
+  s.bb_flags[at] = (typename Pf::code_t)flags;
 }
 
 // ---------------------------------------------------------------------------
@@ -466,6 +513,31 @@ __device__ __forceinline__ Payload load_payload(const int16_t* row, int P,
   }
   return p;
 }
+// The wide profile's int32 rows: two 16-byte vectors where vec (P a
+// multiple of 4, P >= 8).
+template <bool SHORT>
+__device__ __forceinline__ Payload load_payload(const int32_t* row, int P,
+                                                bool vec) {
+  Payload p;
+  if (vec) {
+    const int4 a = reinterpret_cast<const int4*>(row)[0];
+    const int4 b = reinterpret_cast<const int4*>(row)[1];
+    p = Payload{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  } else if constexpr (!SHORT) {
+    p = Payload{row[0], row[1], row[2], row[3],
+                row[4], row[5], row[6], row[7]};
+  } else {
+    p.w0 = row[0];
+    p.w1 = P > 1 ? row[1] : 0;
+    p.w2 = P > 2 ? row[2] : 0;
+    p.w3 = P > 3 ? row[3] : 0;
+    p.w4 = P > 4 ? row[4] : 0;
+    p.w5 = P > 5 ? row[5] : 0;
+    p.w6 = P > 6 ? row[6] : 0;
+    p.w7 = P > 7 ? row[7] : 0;
+  }
+  return p;
+}
 
 __device__ __forceinline__ int32_t pack2(int32_t lo, int32_t hi) {
   return (int32_t)(((uint32_t)(uint16_t)sat16(lo)) |
@@ -504,6 +576,37 @@ __device__ __forceinline__ void store_payload(int16_t* row, int P, bool vec,
   }
 }
 
+// The wide profile's int32 rows: words 0..7 plain, the rest zero.
+template <bool SHORT>
+__device__ __forceinline__ void store_payload(int32_t* row, int P, bool vec,
+                                              const Payload e) {
+  if (vec) {
+    int4* out = reinterpret_cast<int4*>(row);
+    out[0] = make_int4(e.w0, e.w1, e.w2, e.w3);
+    out[1] = make_int4(e.w4, e.w5, e.w6, e.w7);
+    for (int k = 2; k < P / 4; k++) out[k] = make_int4(0, 0, 0, 0);
+  } else if constexpr (!SHORT) {
+    row[0] = e.w0;
+    row[1] = e.w1;
+    row[2] = e.w2;
+    row[3] = e.w3;
+    row[4] = e.w4;
+    row[5] = e.w5;
+    row[6] = e.w6;
+    row[7] = e.w7;
+    for (int k = 8; k < P; k++) row[k] = 0;
+  } else {
+    row[0] = e.w0;
+    if (P > 1) row[1] = e.w1;
+    if (P > 2) row[2] = e.w2;
+    if (P > 3) row[3] = e.w3;
+    if (P > 4) row[4] = e.w4;
+    if (P > 5) row[5] = e.w5;
+    if (P > 6) row[6] = e.w6;
+    if (P > 7) row[7] = e.w7;
+  }
+}
+
 // A world's scalar lanes and small per-node rows, in registers. The first
 // batch (every world, with its active flag) holds what a frozen world needs;
 // an active world's rest is read while the block's tile copies are in
@@ -511,11 +614,12 @@ __device__ __forceinline__ void store_payload(int16_t* row, int P, bool vec,
 // packed bytes (gen: nodes 0..7 in gen, 8..11 in gen_hi, which only an
 // instantiation with N > 8 touches), so that a runtime index needs no
 // array.
+template <class Pf>
 struct Pre {
   int32_t now, lat_min, lat_max, steps, delivered, dropped;
   uint32_t k0, k1, ctr;
   float loss;
-  int16_t qdepth, qmax;
+  typename Pf::slot_t qdepth, qmax;
   bool bug, overflow;
   int hint;  // the family's frozen-world hint (Raft: nodes with commit > 0)
   uint32_t alive, paused, clog_node;
@@ -546,7 +650,7 @@ struct Pre {
 
 template <int N, class Lanes>
 __device__ __forceinline__ void load_rest(const State<Lanes>& s, size_t w,
-                                          Pre& r) {
+                                          Pre<typename Lanes::Profile>& r) {
   r.lat_min = s.lat_min[w];
   r.lat_max = s.lat_max[w];
   r.steps = s.steps[w];

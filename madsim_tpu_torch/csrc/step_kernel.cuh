@@ -114,12 +114,14 @@ namespace {
 template <class A, int N>
 __device__ __forceinline__ uint64_t active_step(
     const State<typename A::Lanes>& s, const Params& p, size_t w,
-    const typename A::template View<N>& v, Pre& r, int32_t* qt, int32_t* qm) {
+    const typename A::template View<N>& v, Pre<typename A::Lanes::Profile>& r,
+    int32_t* qt, int32_t* qm) {
+  using Pf = typename A::Lanes::Profile;
   // The outbox's entries (the family's: N messages and a timer, or the
   // pair family's two rows); the step draws 2 M times.
   constexpr int M = A::m(N);
   const int Q = p.Q, P = p.P;
-  int16_t* qp = s.q_payload + w * Q * P;
+  typename Pf::pay_t* qp = s.q_payload + w * Q * P;
   const bool pay_vec = p.pay_unit == 16;
 
   // ---- pop: lowest slot holding the minimum time among eligible slots,
@@ -177,7 +179,7 @@ __device__ __forceinline__ uint64_t active_step(
   const typename A::Row row = A::template load_row<N>(v, dst);
   const bool is_fault = (ev_flags & FLAG_FAULT) != 0;
   const bool is_timer = (ev_flags & FLAG_TIMER) != 0;
-  const bool stale = is_timer && ev_gen != r.gen_of<N>(dst);
+  const bool stale = is_timer && ev_gen != r.template gen_of<N>(dst);
   const bool dead = !((r.alive >> dst) & 1u);
   const bool deliver = found && in_time && !is_fault && !stale && !dead;
   const bool do_fault = found && in_time && is_fault;
@@ -213,10 +215,15 @@ __device__ __forceinline__ uint64_t active_step(
       r.alive = set_bit(r.alive, a, alive1);
       r.paused = set_bit(r.paused, a, paused1);
       r.clog_node = set_bit(r.clog_node, a, clog1);
-      if (is_kill || is_restart) {  // the generation wraps mod 256
-        const int g1 = (r.gen_of<N>(a) + 1) & 0xFF;
-        s.gen[at] = (int8_t)(uint8_t)g1;
-        r.set_gen<N>(a, g1);
+      if (is_kill || is_restart) {
+        // The generation lane wraps at its width (mod 256 packed, 2^32
+        // wide); events carry and compare its low byte (GEN_MASK).
+        const int g1 = (r.template gen_of<N>(a) + 1) & 0xFF;
+        if constexpr (Pf::WIDE)
+          s.gen[at] = (int32_t)((uint32_t)s.gen[at] + 1u);
+        else
+          s.gen[at] = (int8_t)(uint8_t)g1;
+        r.template set_gen<N>(a, g1);
       }
       if (b < N) {  // a == src: the row of links the sends read
         const bool link0 = (links >> b) & 1u;
@@ -228,10 +235,11 @@ __device__ __forceinline__ uint64_t active_step(
         }
       }
     }
-    // Net-config params: join_wide of payload words 0-3 (packed profile;
-    // the kernel takes P >= 8).
-    const int32_t pa = join_wide(pay.w0, pay.w1);
-    const int32_t pb = join_wide(pay.w2, pay.w3);
+    // Net-config params: join_wide of payload words 0-3 in the packed
+    // profile, words 0 and 1 whole in the wide one (the kernel takes
+    // P >= 5).
+    const int32_t pa = Pf::WIDE ? pay.w0 : join_wide(pay.w0, pay.w1);
+    const int32_t pb = Pf::WIDE ? pay.w1 : join_wide(pay.w2, pay.w3);
     if (op == FAULT_SET_LATENCY) {
       r.lat_min = pa;
       r.lat_max = pb;
@@ -288,7 +296,7 @@ __device__ __forceinline__ uint64_t active_step(
       return;
     }
     qt[cursor] = t_ev;
-    qm[cursor] = pack_meta(kind, flags, src, d, r.gen_of<N>(d));
+    qm[cursor] = pack_meta(kind, flags, src, d, r.template gen_of<N>(d));
     store_payload<A::SHORT_PAYLOAD>(qp + cursor * P, P, pay_vec, e);
     dirty |= 1ull << (cursor >> 2);
     cursor++;
@@ -335,7 +343,8 @@ __device__ __forceinline__ uint64_t active_step(
   ctr += 2u * (uint32_t)M;
 
   if (ovf && !r.overflow) s.overflow[w] = 1;
-  const int16_t qdepth = (int16_t)(r.qdepth - (found ? 1 : 0) + n_ins);
+  const typename Pf::slot_t qdepth =
+      wrap<typename Pf::slot_t>(r.qdepth - (found ? 1 : 0) + n_ins);
   if (qdepth != r.qdepth) s.qdepth[w] = qdepth;
   if (qdepth > r.qmax) s.qmax[w] = qdepth;
 
@@ -394,8 +403,10 @@ __device__ __forceinline__ uint64_t active_step(
   return dirty;
 }
 
+// One step of every world of this block: the body of both kernels below.
 template <class A, int N>
-__global__ void step_kernel(State<typename A::Lanes> s, Params p) {
+__device__ __forceinline__ void step_block(const State<typename A::Lanes>& s,
+                                           const Params& p, const int* gate) {
   extern __shared__ __align__(16) char smem[];
   const int B = blockDim.x, tid = threadIdx.x;
   const size_t w0 = (size_t)blockIdx.x * B;
@@ -409,7 +420,7 @@ __global__ void step_kernel(State<typename A::Lanes> s, Params p) {
 
   // What every world needs, frozen or not, in one batch with its flag.
   const bool act = mine && s.active[w];
-  Pre r = {};
+  Pre<typename A::Lanes::Profile> r = {};
   if (mine) {
     r.now = s.now[w];
     r.qdepth = s.qdepth[w];
@@ -417,6 +428,10 @@ __global__ void step_kernel(State<typename A::Lanes> s, Params p) {
     r.bug = s.bug[w];
     r.hint = A::template frozen_hint<N>(s, w);
   }
+  // A set gate: the launch changes nothing. Read beside the world's
+  // scalars, so that its latency hides behind theirs; the same for every
+  // thread, so the block returns whole, before its first barrier.
+  if (__ldg(gate) != 0) return;
   // Block-uniform: every __syncthreads below is reached by every thread.
   const int n_active = __syncthreads_count(act);
   // Only active worlds read tiles. Where most of the block is active, the
@@ -477,13 +492,24 @@ __global__ void step_kernel(State<typename A::Lanes> s, Params p) {
   }
 }
 
+// One engine step of every world, behind a gate word in device memory:
+// where *gate is nonzero the launch reads each world's scalars, returns
+// and changes nothing. The device-side loops (the pipelined superstep, the
+// fused hunt) set the gate between launches, so that launches queued past
+// their stop point are no-ops; every other launch points it at a zero word.
+template <class A, int N>
+__global__ void step_kernel(State<typename A::Lanes> s, Params p,
+                            const int* gate) {
+  step_block<A, N>(s, p, gate);
+}
+
 bool unit_ok(int u, int lo) { return u >= lo && u <= 16 && (u & (u - 1)) == 0; }
 
 // Launches step_kernel<A, N>. Above 48 KB a block's dynamic shared memory
 // needs the function's limit raised, once per instantiation and device.
 template <class A, int N>
 int launch_step(const State<typename A::Lanes>& s, const Params& p,
-                int block, void* stream) {
+                int block, void* stream, const int* gate) {
   static int smem_limit[64] = {0};
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -497,8 +523,8 @@ int launch_step(const State<typename A::Lanes>& s, const Params& p,
     smem_limit[device] = p.smem_bytes;
   }
   const int grid = (p.W + block - 1) / block;
-  step_kernel<A, N><<<grid, block, p.smem_bytes,
-                      static_cast<cudaStream_t>(stream)>>>(s, p);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  step_kernel<A, N><<<grid, block, p.smem_bytes, st>>>(s, p, gate);
   return (int)cudaGetLastError();
 }
 
@@ -507,33 +533,39 @@ int launch_step(const State<typename A::Lanes>& s, const Params& p,
 // family); other N are refused.
 template <class A, int N0>
 int launch_n(const State<typename A::Lanes>& s, const Params& p, int block,
-             void* stream) {
+             void* stream, const int* gate) {
   constexpr int NX = A::MAX_NODES;
   static_assert(NX >= 8 && NX <= MAX_N, "a policy's MAX_NODES");
   switch (p.N) {
     case 1:
-      if constexpr (N0 <= 1) return launch_step<A, 1>(s, p, block, stream);
+      if constexpr (N0 <= 1)
+        return launch_step<A, 1>(s, p, block, stream, gate);
       break;
     case 2:
-      if constexpr (N0 <= 2) return launch_step<A, 2>(s, p, block, stream);
+      if constexpr (N0 <= 2)
+        return launch_step<A, 2>(s, p, block, stream, gate);
       break;
-    case 3: return launch_step<A, 3>(s, p, block, stream);
-    case 4: return launch_step<A, 4>(s, p, block, stream);
-    case 5: return launch_step<A, 5>(s, p, block, stream);
-    case 6: return launch_step<A, 6>(s, p, block, stream);
-    case 7: return launch_step<A, 7>(s, p, block, stream);
-    case 8: return launch_step<A, 8>(s, p, block, stream);
+    case 3: return launch_step<A, 3>(s, p, block, stream, gate);
+    case 4: return launch_step<A, 4>(s, p, block, stream, gate);
+    case 5: return launch_step<A, 5>(s, p, block, stream, gate);
+    case 6: return launch_step<A, 6>(s, p, block, stream, gate);
+    case 7: return launch_step<A, 7>(s, p, block, stream, gate);
+    case 8: return launch_step<A, 8>(s, p, block, stream, gate);
     case 9:
-      if constexpr (NX >= 9) return launch_step<A, 9>(s, p, block, stream);
+      if constexpr (NX >= 9)
+        return launch_step<A, 9>(s, p, block, stream, gate);
       break;
     case 10:
-      if constexpr (NX >= 10) return launch_step<A, 10>(s, p, block, stream);
+      if constexpr (NX >= 10)
+        return launch_step<A, 10>(s, p, block, stream, gate);
       break;
     case 11:
-      if constexpr (NX >= 11) return launch_step<A, 11>(s, p, block, stream);
+      if constexpr (NX >= 11)
+        return launch_step<A, 11>(s, p, block, stream, gate);
       break;
     case 12:
-      if constexpr (NX >= 12) return launch_step<A, 12>(s, p, block, stream);
+      if constexpr (NX >= 12)
+        return launch_step<A, 12>(s, p, block, stream, gate);
       break;
     default: break;
   }
@@ -544,11 +576,12 @@ int launch_n(const State<typename A::Lanes>& s, const Params& p, int block,
 // count is N0. ptrs: the State's pointers in its order (the engine's 12
 // leaves, the family's lanes, the engine's 12 after them, then the metrics
 // block's 13 and the ring's 8 lanes, null when off); n_ptrs their count;
-// params: the Params fields (N_PARAMS ints); block: worlds per block.
-// Returns the CUDA status of the launch.
+// params: the Params fields (N_PARAMS ints); block: worlds per block; gate:
+// the device int that gates the launch (see step_kernel). Returns the CUDA
+// status of the launch.
 template <class A, int N0>
 int step_entry(void* const* ptrs, int n_ptrs, const int* params, int block,
-               void* stream) {
+               void* stream, const int* gate) {
   using S = State<typename A::Lanes>;
   constexpr int n_lanes = (int)(sizeof(typename A::Lanes) / sizeof(void*));
   constexpr int n_base = N_PRE_LEAVES + n_lanes + N_POST_LEAVES;
@@ -573,27 +606,32 @@ int step_entry(void* const* ptrs, int n_ptrs, const int* params, int block,
   for (int i = 0; i < N_RING; i++)
     if ((ptrs[n_base + N_METRICS + i] != nullptr) != (p.bb_k > 0))
       return (int)cudaErrorInvalidValue;
-  if (p.family != A::FAMILY || !A::params_ok(p) || p.W <= 0 || p.N < N0 ||
+  if (gate == nullptr || p.family != A::FAMILY || !A::params_ok(p) ||
+      p.W <= 0 || p.N < N0 ||
       p.N > A::MAX_NODES || p.P < (A::SHORT_PAYLOAD ? 1 : 8) ||
       p.P > MAX_P || p.Q < 1 || p.Q > MAX_Q ||
       block <= 0 || block > MAX_BLOCK || p.smem_bytes <= 0 ||
       p.smem_bytes > SMEM_MAX || p.q_stride < p.Q || p.q_stride % 4 ||
       !unit_ok(p.q_unit, 4) || (p.pay_unit != 16 && p.pay_unit != 2) ||
-      (p.Q * 4) % p.q_unit || (p.pay_unit == 16 && p.P % 8) ||
+      (p.Q * 4) % p.q_unit ||
+      (p.pay_unit == 16 &&
+       (A::Lanes::Profile::WIDE ? (p.P % 4 || p.P < 8) : p.P % 8)) ||
       p.metrics < 0 || p.metrics > 1 || p.num_kinds < 1 ||
       p.num_kinds > 64 || p.bb_k < 0)
     return (int)cudaErrorInvalidValue;
-  // The tiles: 16-byte aligned, in order, apart, within the block's bytes.
+  // The tiles: 16-byte aligned, in order, apart, within the block's bytes
+  // (the commit and log tiles' elements are the profile's slot lane).
   const long b = block;
+  constexpr long E = sizeof(typename A::Lanes::Profile::slot_t);
   if ((p.off_qm | p.off_dirty | p.off_commit | p.off_lt | p.off_lc) % 16 ||
       p.off_qm < b * p.q_stride * 4 ||
       p.off_dirty < p.off_qm + b * p.q_stride * 4 ||
       p.off_commit < p.off_dirty + b * 8 ||
-      p.off_lt < p.off_commit + b * p.commit_stride * 2 ||
-      p.off_lc < p.off_lt + b * p.log_stride * 2 ||
-      p.smem_bytes < p.off_lc + b * p.log_stride * 2)
+      p.off_lt < p.off_commit + b * p.commit_stride * E ||
+      p.off_lc < p.off_lt + b * p.log_stride * E ||
+      p.smem_bytes < p.off_lc + b * p.log_stride * E)
     return (int)cudaErrorInvalidValue;
-  return launch_n<A, N0>(s, p, block, stream);
+  return launch_n<A, N0>(s, p, block, stream, gate);
 }
 
 }  // namespace

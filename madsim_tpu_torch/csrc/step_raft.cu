@@ -17,10 +17,16 @@ __global__ void threefry_kernel(const uint32_t* k0, const uint32_t* k1,
 
 }  // namespace
 
-// One engine step of every world, in place (see step_entry).
-extern "C" int madsim_step(void* const* ptrs, int n_ptrs, const int* params,
-                           int block, void* stream) {
-  return step_entry<Raft, 1>(ptrs, n_ptrs, params, block, stream);
+// One engine step of every world, in place (see step_entry), behind the
+// gate word at gate, in the packed (wide = 0) or the wide lane profile.
+extern "C" int madsim_step_ex(void* const* ptrs, int n_ptrs,
+                              const int* params, int block, void* stream,
+                              const void* gate, int wide) {
+  const int* g = static_cast<const int*>(gate);
+  if (wide)
+    return step_entry<RaftWide, 1>(ptrs, n_ptrs, params, block, stream,
+                                   g);
+  return step_entry<Raft, 1>(ptrs, n_ptrs, params, block, stream, g);
 }
 
 // Threefry-2x32/20 of n (key, counter) pairs: the kernel's own device

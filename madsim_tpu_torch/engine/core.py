@@ -310,6 +310,73 @@ def _resolve_device(device) -> torch.device:
     return torch.device(device)
 
 
+#: :meth:`DeviceEngine.run`'s launch windows on CUDA: the first two of
+#: 16 launches, every later one of 32. The host reads one window's flag
+#: while the next window runs, so up to two windows of no-ops are queued
+#: past the last freeze.
+RUN_WINDOWS = (16, 16, 32)
+
+
+class Lookahead:
+    """The host's view of device flags, some units of work behind.
+
+    The device-side loops queue work ahead of the host's knowledge: after
+    each unit of work (a window, a chunk) they :meth:`push` an int32 or
+    bool scalar computed on the device (a stop flag, a pending epoch),
+    which is copied to pinned host memory behind the work. :meth:`read`
+    returns the flags of all but the last ``depth`` units, waiting for the
+    oldest where needed, so the device has ``depth`` units queued while the
+    host waits and does not idle on the read. Work queued past a stop is a
+    gated no-op, so reading late changes no result; the reads only bound
+    how many no-ops are queued. On the CPU every flag is read at once.
+    """
+
+    #: Pinned host slots the flags land in, reused in turn (at most
+    #: ``depth + 1`` are unread at a time).
+    SLOTS = 8
+    #: Flags the host has read so far, over every instance: on CUDA each
+    #: read waits on the device (an event) and reads pinned memory, so
+    #: this counts the host's waits that ``_fetch`` does not.
+    host_reads = 0
+
+    def __init__(self, cuda: bool, depth: int = 1):
+        self.cuda = cuda
+        self.depth = depth if cuda else 0
+        self.pending: list = []
+        self.pushed = 0
+        self.host = (torch.empty((self.SLOTS,), dtype=torch.int32,
+                                 pin_memory=True) if cuda else None)
+
+    def push(self, flag: torch.Tensor) -> None:
+        idx = self.pushed
+        self.pushed += 1
+        if not self.cuda:
+            self.pending.append((idx, int(flag), None))
+            return
+        slot = self.host[idx % self.SLOTS]
+        slot.copy_(flag.to(torch.int32), non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        self.pending.append((idx, slot, ev))
+
+    def read(self, every: bool = False) -> list:
+        """``(index, value)`` of each flag now readable, oldest first;
+        with ``every``, of every flag pushed (waiting for the last)."""
+        out = []
+        while len(self.pending) > (0 if every else self.depth):
+            idx, host, ev = self.pending.pop(0)
+            Lookahead.host_reads += 1
+            if ev is not None:
+                ev.synchronize()
+                host = int(host)
+            out.append((idx, host))
+        return out
+
+    def stopped(self, every: bool = False) -> bool:
+        """Whether a flag read now is set (see :meth:`read`)."""
+        return any(v for _i, v in self.read(every))
+
+
 class DeviceEngine:
     """Batched simulation of W worlds of one actor under one config.
 
@@ -571,6 +638,31 @@ class DeviceEngine:
             dst.copy_(where_worlds(mask, src, dst))
         return state
 
+    def refill_traced(self, state: WorldState, slot_mask: torch.Tensor,
+                      seeds_lo: torch.Tensor, seeds_hi: torch.Tensor,
+                      faults: torch.Tensor) -> WorldState:
+        """:meth:`refill` from device tensors alone, the in-loop form (the
+        JAX ``refill_traced``): ``slot_mask`` (W,) bool, the seeds' uint32
+        halves ``seeds_lo``/``seeds_hi`` (W,), a per-slot ``(W, F, 4)``
+        int32 schedule block. No host validation and no host read;
+        latency and loss come from the engine config. A refilled slot is
+        bitwise an independent :meth:`init` of its seed under its
+        schedule. ``state`` is updated in place and returned."""
+        w = slot_mask.shape[0]
+        dev = slot_mask.device
+        cfg = self.cfg
+        fresh = self._init_batched(
+            seeds_lo, seeds_hi, faults.to(torch.int32),
+            torch.full((w,), int(cfg.latency_min_us), dtype=torch.int32,
+                       device=dev),
+            torch.full((w,), int(cfg.latency_max_us), dtype=torch.int32,
+                       device=dev),
+            torch.full((w,), float(np.float32(cfg.loss_rate)),
+                       dtype=torch.float32, device=dev))
+        for dst, src in zip(tree_leaves(state), tree_leaves(fresh)):
+            dst.copy_(where_worlds(slot_mask, src, dst))
+        return state
+
     # ------------------------------------------------------------------
     # The plain step (JAX _build_step, batched over the world axis)
     # ------------------------------------------------------------------
@@ -808,37 +900,147 @@ class DeviceEngine:
         """One step of every world, in place (see :meth:`run_steps`)."""
         return self.run_steps(state, 1)
 
-    def run_steps(self, state: WorldState, k: int) -> WorldState:
+    def run_steps(self, state: WorldState, k: int,
+                  gate: Optional[torch.Tensor] = None) -> WorldState:
         """Advance every world by exactly ``k`` masked steps.
 
         On a CUDA device each step is one launch of the hand-written
         kernel (:mod:`.step_kernel`); on the CPU it is :meth:`step_plain`.
-        ``state`` is updated in place and returned — the port's analogue
-        of the JAX run loops donating their input buffers.
+        ``gate``: an int32 scalar tensor on the state's device; where it
+        is nonzero when a step runs, the step changes nothing (the
+        kernel reads it; on the CPU the steps are skipped). ``state`` is updated in
+        place and returned — the port's analogue of the JAX run loops
+        donating their input buffers.
         """
         from . import step_kernel
 
-        return step_kernel.run_steps(self, state, k)
+        return step_kernel.run_steps(self, state, k, gate=gate)
 
-    #: The run loop tests ``active.any()`` (a device sync) once per this
-    #: many steps. Extra steps of an all-frozen batch are bit-exact no-ops.
+    #: How many steps :meth:`trace` takes between its tests of whether its
+    #: world froze.
     check_every = 16
 
     def run(self, state: WorldState, max_steps: int = 100_000) -> WorldState:
         """Step until every world is inactive, or ``max_steps`` steps.
 
         A host loop of step launches that stops at exactly ``max_steps``.
-        It tests ``active.any()`` only every :attr:`check_every` steps;
-        that is safe because a step of a frozen world changes no leaf.
-        ``state`` is updated in place and returned (the analogue of the
-        JAX loop's buffer donation).
+        The launches go out in windows (:data:`RUN_WINDOWS`); after each
+        window a device flag says whether every world is frozen. The host
+        reads the first window's flag at once (the loop's one sync) and
+        every later window's only after it has queued the next window
+        (:class:`Lookahead`), so the device does not wait on the host, and
+        stops once a flag it reads is set. A step of a frozen world
+        changes no leaf, so the launches queued past the last freeze are
+        no-ops: :meth:`last_run_stats` counts them. ``state`` is updated
+        in place and returned (the analogue of the JAX loop's buffer
+        donation). On the CPU every window is the first window's size and
+        every flag is read at once (there is no device to wait on).
         """
-        i = 0
-        while i < max_steps and bool(state.active.any()):
-            k = min(self.check_every, max_steps - i)
-            state = self.run_steps(state, k)
+        cuda = state.active.device.type == "cuda"
+        steps0 = state.steps.clone()
+        ahead = Lookahead(cuda)
+        i = n = 0
+        while i < max_steps:
+            window = RUN_WINDOWS[min(n, len(RUN_WINDOWS) - 1) if cuda else 0]
+            k = min(window, max_steps - i)
+            self.run_steps(state, k)
             i += k
+            n += 1
+            # "Every world frozen" after this window, read once the next
+            # window is queued (on the CPU at once); the first window's at
+            # once, so that a run that ends in it queues no second one.
+            ahead.push(~state.active.any())
+            if ahead.stopped(every=n == 1):
+                break
+        # The steps the longest-lived world took: a world steps while it
+        # is active, and none turns active during a run.
+        stepped = ((state.steps - steps0).max() if steps0.numel()
+                   else torch.zeros((), dtype=torch.int32))
+        self.last_run = {"launches": i, "stepped": stepped}
         return state
+
+    def superstep(self, state: WorldState, stop_threshold: int,
+                  stop_on_bug: bool, k_chunks: int, *, chunk_steps: int,
+                  k_max: int, min_one: bool = False, cov=None):
+        """Up to ``k_chunks`` chunks of ``chunk_steps`` steps behind one host
+        decision: the counterpart of the JAX ``_superstep_impl``.
+
+        The early exits run on the device: after each chunk a device op
+        closes the gate of every later chunk once the active count is at
+        most ``stop_threshold``, or, with ``stop_on_bug``, once a bug is
+        seen. The condition is tested before the first chunk too, so a
+        superstep whose entry condition is false changes no bit: every one
+        of its launches is a gated no-op. ``min_one`` runs the first chunk
+        whatever the condition (the first dispatch of an occupancy
+        epoch). Up to ``min(k_chunks, k_max)`` chunks are queued: the host
+        reads each chunk's gate a chunk later (:class:`Lookahead`), so it
+        stops queuing a chunk after the gate closes without the device
+        waiting on it; on the CPU it stops at the first closed gate.
+
+        ``cov``: ``(hits, first_seen, idx, n_real)``, the coverage ledger,
+        the slot→seed index and the real seed count: after each chunk the
+        worlds whose active flag fell in it, holding a real seed id, fold
+        into the ledger (a chunk behind a closed gate changes no flag, so
+        it folds nothing).
+
+        Returns ``(state, any_bug, n_active, k_done, hist)`` as device
+        tensors, ``hist[j]`` the active count after chunk ``j`` (-1 for a
+        chunk that did not run), and with ``cov`` also ``((hits,
+        first_seen), cov_hist)``, the cumulative distinct count after each
+        chunk run. ``state`` is updated in place.
+        """
+        from ..obs.coverage import distinct_count, fold_retired
+
+        dev = state.active.device
+        cuda = dev.type == "cuda"
+        any_bug = state.bug.any()
+        n_act = state.active.sum(dtype=torch.int32)
+        hist = torch.full((k_max,), -1, dtype=torch.int32, device=dev)
+        k_done = torch.zeros((), dtype=torch.int32, device=dev)
+        running = torch.ones((), dtype=torch.bool, device=dev)
+        cov_hist = None
+        if cov is not None:
+            hits, first, idx, n_real = cov
+            cov_hist = torch.full((k_max,), -1, dtype=torch.int32,
+                                  device=dev)
+        ahead = Lookahead(cuda)
+        for i in range(min(int(k_chunks), int(k_max))):
+            if not (min_one and i == 0):
+                go = n_act > stop_threshold
+                if stop_on_bug:
+                    go = go & ~any_bug
+                running = running & go
+            # Past a stop every chunk is a gated no-op: stop queuing them
+            # once the host sees it (a chunk behind on CUDA).
+            ahead.push(~running)
+            if ahead.stopped():
+                break
+            act0 = state.active.clone() if cov is not None else None
+            self.run_steps(state, chunk_steps,
+                           gate=(~running).to(torch.int32))
+            any_bug = state.bug.any()
+            n_act = state.active.sum(dtype=torch.int32)
+            hist[i] = torch.where(running, n_act, -1)
+            k_done = k_done + running.to(torch.int32)
+            if cov is not None:
+                mask = act0 & ~state.active & (idx >= 0) & (idx < n_real)
+                hits, first = fold_retired(hits, first, state.metrics, mask,
+                                           idx)
+                cov_hist[i] = torch.where(running, distinct_count(hits), -1)
+        if cov is not None:
+            return state, any_bug, n_act, k_done, hist, (hits, first), \
+                cov_hist
+        return state, any_bug, n_act, k_done, hist
+
+    def last_run_stats(self) -> Dict[str, int]:
+        """What the last :meth:`run` did: its launches, and of them the
+        no-ops queued past the last world's freeze (one device read, made
+        here and not in the run)."""
+        r = getattr(self, "last_run", None)
+        if r is None:
+            return {"launches": 0, "noops": 0}
+        return {"launches": int(r["launches"]),
+                "noops": int(r["launches"]) - int(r["stepped"])}
 
     # ------------------------------------------------------------------
     # Single-seed tracing (repro tooling)

@@ -13,6 +13,9 @@ reproduces them. ``tests/test_torch_engine.py``, ``tests/test_torch_sweep.py``
 and ``tests/test_torch_families.py`` recompute every digest from the JAX
 package on the CPU, so the constants cannot drift from it.
 
+:data:`GOLDEN_WIDE` holds the digests of one deployment of each family in
+the wide lane profile (:data:`WIDE_CONFIGS`, ``packed=False``).
+
 The guided search's constants: :data:`GOLDEN_SEARCH`, the ``observe()``
 digests of its two deployments at their templates (:data:`SEARCH_CONFIGS`),
 and the pins of the three canonical guided hunts (:data:`HUNT_PINS` at the
@@ -146,6 +149,52 @@ GOLDEN_SEARCH = {
     "guided_pair": (
         "16b4d97fa70a76168a2bb13aee3381230ec659e7077aebe183b8bbc661472118"),
 }
+
+#: The wide lane profile (``EngineConfig(packed=False)``, every narrow lane
+#: int32): deployments of CONFIGS, FAMILY_CONFIGS and SEARCH_CONFIGS run
+#: with ``packed=False`` added to their EngineConfig kwargs, name -> (the
+#: dict holding it). One per family: Raft's two, tpc, pb, Paxos and the
+#: guided pair.
+WIDE_CONFIGS = {
+    "headline": "CONFIGS", "hunt_faults": "CONFIGS",
+    "tpc_crosscheck": "FAMILY_CONFIGS", "pb_hunt": "FAMILY_CONFIGS",
+    "paxos_hunt": "SEARCH_CONFIGS", "guided_pair": "SEARCH_CONFIGS",
+}
+
+#: SHA-256 of observe() for SEEDS under each of WIDE_CONFIGS, wide. Computed
+#: with the JAX package on the CPU (``JAX_PLATFORMS=cpu``): its
+#: DeviceEngine with the deployment's actor and
+#: ``EngineConfig(**kwargs, packed=False)``, ``observe(run(init(SEEDS,
+#: faults), max_steps))``, :func:`observe_digest`;
+#: ``tests/test_torch_wide.py`` recomputes them the same way.
+GOLDEN_WIDE = {
+    "headline": (
+        "20db8bc3788a6f32cc5ca39fa4c0941d0413f4d2093b49d2a66dfcc0e587a06e"),
+    "hunt_faults": (
+        "5514afaadda736b70222732f54281e73650eff05da6aed8898fa0c34c4466fe4"),
+    "tpc_crosscheck": (
+        "b7681a99da86615523e93462d9617630aa6183caecbe8f1494c1c85561f2b11b"),
+    "pb_hunt": (
+        "559c9afef709b223f2b45db9b3f1c6b28622652c4c06bddf480c75eb5983c9fc"),
+    "paxos_hunt": (
+        "e5a28169590dca0381da1df42bb90c3761e25de55653c0b15fae87d6adc2e97b"),
+    "guided_pair": (
+        "f7caef8ab05466f7a52d4b003c15112a9b445ecfbb1c01b339eadc985a4bbee0"),
+}
+
+
+def wide_config(name: str):
+    """``(family, config kwargs, EngineConfig kwargs, fault rows,
+    max_steps)`` of a WIDE_CONFIGS deployment, ``packed=False`` added;
+    Raft's family is ``"raft"``."""
+    src = globals()[WIDE_CONFIGS[name]]
+    if src is CONFIGS:
+        rk, ck, faults, max_steps = CONFIGS[name]
+        fam, ak = "raft", rk
+    else:
+        fam, ak, ck, faults, max_steps = src[name]
+    return fam, ak, dict(ck, packed=False), faults, max_steps
+
 
 #: The guided hunts as bench.py's guided_hunt leg runs them: 512 seeds,
 #: stopping at the first bug except for raft (bugs at the budget).

@@ -12,8 +12,16 @@ by hand per family: Raft (``csrc/actor_raft.cuh``), two-phase commit
 search (``actor_pair.cuh``, one policy with the beacon as a parameter),
 each built from its own source (``csrc/step_{raft,tpc,pb,paxos,pair}.cu``)
 into a library of its own. :data:`FAMILIES` holds one record per family.
-``packed=False`` has no kernel yet: :func:`kernel_params` raises, naming
-the ROADMAP item.
+Every policy is instantiated in both lane profiles (``EngineConfig.packed``):
+packed (int8 node ids and codes, int16 slots and payload words, saturating
+writes) and wide (every such lane int32, plain writes); the skeleton and
+the policies are templates on the profile.
+
+Every launch reads a gate word (an int32 on the device) and returns at
+once, changing nothing, where it is set: the device-side loops
+(:meth:`DeviceEngine.superstep`, the fused hunt) set the gate between
+launches so that launches queued past their stop point change nothing;
+every other launch points it at a zero word of its device.
 Like the Pallas kernel (``input_output_aliases``), it **updates the state
 tensors in place**: :func:`run_steps` returns the state it was given.
 
@@ -75,6 +83,8 @@ from .tpc_actor import TPCActor
 
 #: Kernel launches so far (the step kernel); a plain integer.
 launches = 0
+#: One int32 zero per device: the gate of a launch that is never gated.
+_open_gates: dict = {}
 
 # Static maxima of the kernel (csrc/step_common.cuh; MAX_L is Raft's log,
 # csrc/actor_raft.cuh). Each family takes up to its record's max_n nodes.
@@ -95,9 +105,10 @@ class TilePlan(NamedTuple):
 
     Strides are per world row, in elements: ``q_stride`` int32 of the
     q_time and q_meta tiles (an odd number of 16-byte chunks, which the pop
-    reads four slots at a time), ``commit_stride`` int16 of the commit
-    tile, ``log_stride`` int16 of each of the log_term and log_cmd tiles
-    (2 mod 4, an odd number of 4-byte words). The ``*_unit`` fields are
+    reads four slots at a time), ``commit_stride`` of the commit tile and
+    ``log_stride`` of each of the log_term and log_cmd tiles in the
+    profile's slot elements: int16 packed (2 mod 4, an odd number of
+    4-byte words), int32 wide (odd). The ``*_unit`` fields are
     the widest global access, in bytes, that a lane's rows allow (the
     launch narrows them to the tensors' alignment); a ``pay_unit`` of 16
     moves payload rows as 16-byte vectors. ``off_*`` are byte offsets in
@@ -129,12 +140,18 @@ def _i16_stride(row: int) -> int:
     return row + (2 - row) % 4
 
 
-def _layout(block, q_stride, commit_stride, log_stride):
+def _i32_stride(row: int) -> int:
+    """The least odd int32 row stride >= ``row``: rows an odd number of
+    4-byte words apart."""
+    return row | 1
+
+
+def _layout(block, q_stride, commit_stride, log_stride, e=2):
     """Byte offsets of the six tiles and the bytes they take, each tile
-    starting on 16 bytes."""
+    starting on 16 bytes (``e`` bytes per commit and log element)."""
     sizes = (block * q_stride * 4, block * q_stride * 4, block * 8,
-             block * commit_stride * 2, block * log_stride * 2,
-             block * log_stride * 2)
+             block * commit_stride * e, block * log_stride * e,
+             block * log_stride * e)
     offs, at = [], 0
     for size in sizes:
         offs.append(at)
@@ -151,12 +168,15 @@ def tile_plan(cfg, log_cap: Optional[int]) -> TilePlan:
     """
     n, q, p = cfg.n_nodes, cfg.queue_cap, cfg.payload_words
     L = log_cap or 0
+    # The commit and log tiles' elements: int16 packed, int32 wide.
+    e = 2 if cfg.packed else 4
+    stride = _i16_stride if cfg.packed else _i32_stride
     q_stride = 4 * (-(-q // 4) | 1)
-    commit_stride = _i16_stride(n) if log_cap else 0
-    log_stride = _i16_stride(n * L) if log_cap else 0
+    commit_stride = stride(n) if log_cap else 0
+    log_stride = stride(n * L) if log_cap else 0
 
     def smem(b):
-        return _layout(b, q_stride, commit_stride, log_stride)[1]
+        return _layout(b, q_stride, commit_stride, log_stride, e)[1]
 
     what = (f"n_nodes={n}, queue_cap={q}"
             + (f", log_cap={L}" if log_cap else ""))
@@ -175,14 +195,23 @@ def tile_plan(cfg, log_cap: Optional[int]) -> TilePlan:
             raise ValueError(
                 f"no block of {MIN_BLOCK} worlds fits in {SMEM_MAX} bytes of "
                 f"shared memory for {what}: it needs {smem(block)}")
-    offs, total = _layout(block, q_stride, commit_stride, log_stride)
+    offs, total = _layout(block, q_stride, commit_stride, log_stride, e)
+    if cfg.packed:
+        commit_unit = 4 if n % 2 == 0 else 2
+        log_unit = 4 if (n * L) % 2 == 0 else 2
+        # Eight int16 words a 16-byte vector.
+        pay_unit = 16 if p % 8 == 0 else 2
+    else:
+        commit_unit = log_unit = 4
+        # Two 16-byte vectors of four int32 words each.
+        pay_unit = 16 if p % 4 == 0 and p >= 8 else 2
     return TilePlan(
         block=block, smem_bytes=total, q_stride=q_stride,
         commit_stride=commit_stride, log_stride=log_stride,
         q_unit=16 if q % 4 == 0 else 4,
-        commit_unit=(4 if n % 2 == 0 else 2) if log_cap else 0,
-        log_unit=(4 if (n * L) % 2 == 0 else 2) if log_cap else 0,
-        pay_unit=16 if p % 8 == 0 else 2,
+        commit_unit=commit_unit if log_cap else 0,
+        log_unit=log_unit if log_cap else 0,
+        pay_unit=pay_unit,
         off_qm=offs[1], off_dirty=offs[2], off_commit=offs[3],
         off_lt=offs[4], off_lc=offs[5])
 
@@ -315,15 +344,16 @@ def engine_plan(eng) -> TilePlan:
 
 
 def _lib(source: str):
-    """The built library of ``csrc/<source>.cu``, its ``madsim_step``
+    """The built library of ``csrc/<source>.cu``, its ``madsim_step_ex``
     typed."""
     lib = _build.load(source)
     if not getattr(lib, "_madsim_typed", False):
-        lib.madsim_step.argtypes = [ctypes.POINTER(ctypes.c_void_p),
-                                    ctypes.c_int,
-                                    ctypes.POINTER(ctypes.c_int),
-                                    ctypes.c_int, ctypes.c_void_p]
-        lib.madsim_step.restype = ctypes.c_int
+        lib.madsim_step_ex.argtypes = [ctypes.POINTER(ctypes.c_void_p),
+                                       ctypes.c_int,
+                                       ctypes.POINTER(ctypes.c_int),
+                                       ctypes.c_int, ctypes.c_void_p,
+                                       ctypes.c_void_p, ctypes.c_int]
+        lib.madsim_step_ex.restype = ctypes.c_int
         lib._madsim_typed = True
     return lib
 
@@ -341,16 +371,20 @@ def family_params(actor) -> list:
     return [int(v) for v in vals] + [0] * (N_FAMILY_PARAMS - len(vals))
 
 
+def family_lanes(fam: KernelFamily, packed: bool) -> Optional[tuple]:
+    """The family policy's lanes, ``(name, dtype)``, in a lane profile:
+    :attr:`KernelFamily.lanes` packed, every lane int32 wide."""
+    if fam.lanes is None or packed:
+        return fam.lanes
+    return tuple((name, _I32) for name, _ in fam.lanes)
+
+
 def kernel_params(eng):
     """The kernel's int parameters for this engine after W (N, Q, P, the
     family, t_limit_us, stop_on_bug, :func:`family_params`); raises on a
     configuration the kernel does not take."""
     cfg, actor = eng.cfg, eng.actor
     fam = family_of(actor)
-    if not cfg.packed:
-        raise NotImplementedError(
-            "the CUDA step kernel covers the packed lane profile only; "
-            "packed=False on CUDA is ROADMAP Queue B f")
     n, q, p = cfg.n_nodes, cfg.queue_cap, cfg.payload_words
     if not (fam.least_n <= n <= fam.max_n and q <= MAX_Q
             and fam.min_p <= p <= MAX_P):
@@ -369,9 +403,10 @@ def kernel_params(eng):
     if fam.lanes is not None:
         lanes = tuple((name[len("astate."):], dtype) for name, dtype, _
                       in eng.state_layout() if name.startswith("astate."))
-        if lanes != fam.lanes:
+        want = family_lanes(fam, cfg.packed)
+        if lanes != want:
             raise ValueError(f"the {fam.name} actor's lanes {lanes} are not "
-                             f"the kernel's {fam.lanes}")
+                             f"the kernel's {want}")
     if not 0 < cfg.block <= 1024:
         raise ValueError("pallas_block (worlds per CUDA block) must be in "
                          "[1, 1024]")
@@ -400,7 +435,7 @@ def _aligned(unit: int, *tensors) -> int:
 
 
 def launch_ints(eng, leaves):
-    """``(block, ints)`` for ``madsim_step``: the plan's worlds per block,
+    """``(block, ints)`` for ``madsim_step_ex``: the plan's worlds per block,
     and W, :func:`kernel_params`, the :func:`tile_plan` with its access
     widths narrowed to the leaves' alignment, then the optional lanes
     (metrics on, the kind histogram's width, the ring depth K)."""
@@ -447,34 +482,54 @@ def check_leaves(eng, leaves):
             raise ValueError(f"leaf {name} is not contiguous")
 
 
-def launch(eng, leaves, k: int = 1):
+def launch(eng, leaves, k: int = 1, gate: Optional[torch.Tensor] = None):
     """Launch the step kernel ``k`` times over ``leaves`` (checked once),
-    in place, on the current stream. Each launch is one step."""
+    in place, on the current stream. Each launch is one step.
+
+    ``gate``: None, or a CUDA int32 scalar tensor; each launch returns at
+    once, changing nothing, where the gate is nonzero when it runs (None
+    is a zero word). Either way every launch counts in :data:`launches`."""
     global launches
     check_leaves(eng, leaves)
     block, params = launch_ints(eng, leaves)
     if leaves[0].shape[0] == 0:
         return
+    dev = leaves[0].device
+    if gate is None:
+        gate = _open_gates.get(dev)
+        if gate is None:
+            gate = _open_gates[dev] = torch.zeros((), dtype=torch.int32,
+                                                  device=dev)
+    elif (gate.dtype != torch.int32 or gate.numel() != 1
+            or gate.device != dev):
+        raise ValueError("the step kernel's gate is one int32 on the "
+                         "state's device")
+    gate_ptr = gate.data_ptr()
     lib = _lib(family_of(eng.actor).source)
     addrs = kernel_pointers(eng, leaves)
     ptrs = (ctypes.c_void_p * len(addrs))(*addrs)
     ints = (ctypes.c_int * len(params))(*params)
     stream = torch.cuda.current_stream(leaves[0].device).cuda_stream
+    wide = int(not eng.cfg.packed)
     with torch.cuda.device(leaves[0].device):
         for _ in range(k):
-            _check_status(lib.madsim_step(ptrs, len(addrs), ints, block,
-                                          stream), "step kernel")
+            _check_status(lib.madsim_step_ex(ptrs, len(addrs), ints, block,
+                                             stream, gate_ptr, wide),
+                          "step kernel")
             launches += 1
 
 
-def run_steps(eng, state, k: int):
+def run_steps(eng, state, k: int, gate: Optional[torch.Tensor] = None):
     """``k`` engine steps of every world, updating ``state`` in place and
-    returning it. CUDA tensors: ``k`` kernel launches. CPU tensors: the
-    plain step (:meth:`DeviceEngine.step_plain`), copied back into
-    ``state``."""
+    returning it. CUDA tensors: ``k`` kernel launches (gated by ``gate``,
+    see :func:`launch`). CPU tensors: the plain step
+    (:meth:`DeviceEngine.step_plain`), copied back into ``state``, or
+    nothing where ``gate`` is nonzero."""
     leaves = tree_leaves(state)
     if leaves[0].device.type != "cpu":
-        launch(eng, leaves, k)
+        launch(eng, leaves, k, gate)
+        return state
+    if gate is not None and int(gate) != 0:
         return state
     cur = state
     for _ in range(k):

@@ -14,9 +14,12 @@ own with that checkout's root in place of this file's directory on
 ``sys.path`` (so the older checkout needs no copy of this file). A timing
 is the device time per step over a whole run's own launches, in chunks of
 100 queued behind a sleeping kernel (as ``chip_smoke.py``'s
-``device_ms``), the best of three runs. The deployments are the Raft headline and hunt and the compiled
-families' (``engine/golden.py`` ``CONFIGS`` and ``FAMILY_CONFIGS``), at
-``chip_smoke.py``'s widths. Prints the card's name and power limit, then
+``device_ms``), the best of three runs, over as many launches as the run
+takes to freeze its last world (its largest ``steps``). The deployments
+are the Raft headline and hunt, the compiled families' and the guided
+search's (``engine/golden.py`` ``CONFIGS``, ``FAMILY_CONFIGS`` and
+``SEARCH_CONFIGS``), in the packed lane profile, at ``chip_smoke.py``'s
+widths. Prints the card's name and power limit, then
 one JSON line per timing: ``{"root": ..., "ms": {deployment: ms/step}}``.
 """
 from __future__ import annotations
@@ -26,7 +29,7 @@ import os
 import subprocess
 import sys
 
-SOURCES = ("step_raft", "step_tpc", "step_pb")
+SOURCES = ("step_raft", "step_tpc", "step_pb", "step_paxos", "step_pair")
 CHUNK = 100
 SLEEP_CYCLES = 200_000_000
 
@@ -47,16 +50,17 @@ def _time_here() -> dict:
              ("hunt", ("raft", dict(n=3, buggy_double_vote=True),
                        golden.CONFIGS["hunt_faults"][1]), None, 65_536,
               4_000)]
-    for name, (fam, ak, ck, faults, steps) in golden.FAMILY_CONFIGS.items():
+    for name, (fam, ak, ck, faults, steps) in {
+            **golden.FAMILY_CONFIGS, **golden.SEARCH_CONFIGS}.items():
         cases.append((name, (fam, ak, ck), None if faults is None
                       else np.asarray(faults, np.int32), 65_536, steps))
     out = {}
     for name, (fam, ak, ck), faults, w, max_steps in cases:
         acls, ccls = family(fam).load()
         eng = DeviceEngine(acls(ccls(**ak)), EngineConfig(**ck), device=dev)
-        n0 = step_kernel.launches
-        eng.run(eng.init(np.arange(w), faults=faults), max_steps)
-        total = step_kernel.launches - n0
+        state = eng.run(eng.init(np.arange(w), faults=faults), max_steps)
+        total = int(state.steps.max())
+        del state
         best = float("inf")
         for _ in range(3):
             leaves = tree_leaves(eng.init(np.arange(w), faults=faults))

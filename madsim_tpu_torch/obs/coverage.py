@@ -50,15 +50,19 @@ def _bit_length_u32(x: torch.Tensor) -> torch.Tensor:
 def behavior_signature(mb) -> torch.Tensor:
     """(W,) u32 behavior signature (int64) of a batched MetricsBlock: the
     per-kind histogram, the fault histogram and the drop-cause counters,
-    bucketed to powers of two, FNV-1a-folded in a fixed column order."""
-    cols = [mb.kind_hist[..., j] for j in range(mb.kind_hist.shape[-1])]
-    cols += [mb.fault_hist[..., j] for j in range(mb.fault_hist.shape[-1])]
-    cols += [mb.drop_loss, mb.drop_stale, mb.drop_dead,
-             mb.drop_out_of_time, mb.drop_overflow, mb.drop_inf]
-    h = torch.full(cols[0].shape, _FNV_SEED, dtype=torch.int64,
-                   device=cols[0].device)
-    for c in cols:
-        h = ((h ^ _bit_length_u32(c)) * _FNV_PRIME) & _U32
+    bucketed to powers of two, FNV-1a-folded in a fixed column order.
+
+    The columns are bucketed together, as one (W, C) tensor, and only the
+    fold runs column by column: a few ops a column, not a bucketing each
+    (the sweep loops sign every chunk)."""
+    cols = torch.cat([mb.kind_hist, mb.fault_hist, torch.stack(
+        [mb.drop_loss, mb.drop_stale, mb.drop_dead, mb.drop_out_of_time,
+         mb.drop_overflow, mb.drop_inf], dim=-1)], dim=-1)
+    bits = _bit_length_u32(cols)
+    h = torch.full(cols.shape[:-1], _FNV_SEED, dtype=torch.int64,
+                   device=cols.device)
+    for j in range(cols.shape[-1]):
+        h = ((h ^ bits[..., j]) * _FNV_PRIME) & _U32
     return h
 
 

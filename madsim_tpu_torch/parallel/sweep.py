@@ -1,34 +1,53 @@
-"""Seed sweeps on one device: the serial chunk loop of the bug hunt.
+"""Seed sweeps on one device: the bug hunt's three loops.
 
-The PyTorch counterpart of ``madsim_tpu/parallel/sweep.py``'s serial
-(``pipeline=False``) path. ``sweep`` initialises one world per seed, steps
-the batch in chunks of ``chunk_steps`` launches, and after each chunk reads
-two scalars — "any bug?" and "how many worlds are active?" — to decide
-whether to stop, to recycle retired slots with the next seeds
-(``recycle=True``) or to shrink the batch to the active worlds
-(``compact=True``, and the dry-cursor fallback of a recycled sweep). The
-batch is a fixed set of world *slots*; a device-resident slot→seed index
-keeps attribution straight through every permutation, and the retiring
-tail's observations are gathered on the device and pulled alone.
+The PyTorch counterpart of ``madsim_tpu/parallel/sweep.py`` on one device.
+``sweep`` initialises one world per seed and steps the batch in chunks of
+``chunk_steps`` launches. Between chunks it decides whether to stop, to
+recycle retired slots with the next seeds (``recycle=True``) or to shrink
+the batch to the active worlds (``compact=True``, and the dry-cursor
+fallback of a recycled sweep). The batch is a fixed set of world *slots*;
+a device-resident slot→seed index keeps attribution straight through every
+permutation, and the retiring tail's observations are gathered on the
+device and pulled alone. Three loops make those decisions:
 
-Results are bitwise those of the JAX package's serial sweep on one device
-(``mesh=seed_mesh(n_devices=1), pipeline=False``): the same seeds, bug
-flags, observations, occupancy history, coverage ledger and loop counts.
-Worlds are position-independent, so a recycled or compacted sweep gives
-every seed the trajectory of an independent ``init`` + ``run``.
+- ``pipeline=True`` (the default): supersteps of up to ``superstep_max``
+  chunks (:meth:`DeviceEngine.superstep`) whose early exits (the
+  occupancy threshold, a bug under ``stop_on_first_bug``) close a gate
+  word on the device; superstep k+1 is queued before superstep k's
+  scalars are read, and is a pass-through where they call for a stop or
+  a refill. One ``_fetch`` per superstep, plus the retire pulls.
+- ``pipeline=False``: the serial loop, one ``_fetch`` of two scalars per
+  chunk.
+- ``fused=True``: the whole hunt on the device between scalar reads
+  (:func:`_fused_hunt`): after each chunk a device-side trigger decides
+  the epoch (compaction, the retiring tail's harvest into per-seed device
+  buffers, the search's fold and children, the refill), whose writes are
+  masked by it; one ``_fetch`` per mega-dispatch and one pull of the
+  buffers at the end. The host still learns of each trigger from a device
+  flag it reads a chunk late (there is no conditional-node capture to
+  branch on the device), so it waits on the device about once a chunk.
 
-Every device→host read of the loop goes through :func:`_fetch`, the one
-patchable pull seam (tests count its calls).
+Results are bitwise those of the JAX package's sweep on one device
+(``mesh=seed_mesh(n_devices=1)``) in the same loop, and every loop's
+results equal the serial loop's (a fused sweep's ``world_utilization``
+aside: it never shrinks). Worlds are position-independent, so a recycled
+or compacted sweep gives every seed the trajectory of an independent
+``init`` + ``run``.
+
+Every device→host read of the loops' results goes through :func:`_fetch`,
+the one patchable pull seam (tests count its calls). The device-side
+loops' stop and trigger flags are read apart (:class:`Lookahead`) and
+counted in ``loop_stats["flag_reads"]``.
 
 With ``search=SearchConfig(...)`` the loop is the guided schedule search
-(madsim_tpu_torch/search): each refill harvests the retiring worlds into a
-corpus of parent schedules and refills the slots with mutated children.
-The fold runs on the host over the retiring rows the refill's one pull
-brings back; the children are generated on the device.
+(madsim_tpu_torch/search): each refill folds the retiring worlds into a
+corpus of parent schedules on the device (on CUDA the hand-written fold
+kernel ``csrc/corpus_fold.cu``) and refills the slots with mutated
+children generated there.
 
 Not ported here, each raising ``NotImplementedError`` naming its ROADMAP
-item: the pipelined and fused loops, checkpoints, the observatory hooks,
-multi-device meshes and ``SweepResult.minimize``.
+item: checkpoints, the observatory hooks, multi-device meshes and
+``SweepResult.minimize``.
 """
 from __future__ import annotations
 
@@ -40,7 +59,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..engine.core import DeviceEngine, EngineConfig, tree_map
+from ..engine.core import DeviceEngine, EngineConfig, Lookahead, tree_map
 from ..obs.blackbox import decode_ring, ring_depth, rings_from_observations
 from ..obs.coverage import (
     DEFAULT_BUCKETS,
@@ -54,10 +73,9 @@ from ..search.corpus import (
     HostCorpus,
     corpus_to_device,
     host_corpus_init,
-    host_harvest_fold,
     normalize_schedule,
 )
-from ..search.generate import generate_children
+from ..search.generate import searcher
 
 
 def _to_host(tree):
@@ -377,9 +395,8 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
           search_lin_base: int = 0) -> SweepResult:
     """Run one simulation per seed to completion, on the engine's device.
 
-    The JAX ``sweep``'s signature and its serial per-chunk loop: call it
-    with ``pipeline=False``. Per chunk the host reads the active count and
-    the bug flag and decides:
+    The JAX ``sweep``'s signature and loops. Between chunks the loop reads
+    the active count and the bug flag and decides:
 
     - stop when no world is active and no seed is left, or on a bug with
       ``stop_on_first_bug``;
@@ -391,6 +408,13 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
     - ``compact``: once the active worlds fit in half the batch, shrink it
       to the smallest power-of-two share that holds them, retiring the
       frozen tail.
+
+    ``pipeline=True`` (the default) makes those decisions once per
+    superstep of up to ``superstep_max`` chunks, whose early exits run on
+    the device; ``pipeline=False`` once per chunk; ``fused=True`` on the
+    device, the host reading one scalar batch per mega-dispatch (it
+    refuses ``compact``, and has no dry-cursor shrink). All three give the
+    same results (the module docstring).
 
     ``faults``: a shared ``(F, 4)`` schedule or one ``(F, 4)`` block per
     seed, ``(n_seeds, F, 4)``. With ``EngineConfig(metrics=True)`` the
@@ -405,19 +429,18 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
     corpus, ``search_gen0`` offsets its mutation streams and
     ``search_lin_base`` its lineage entry ids, as in the JAX package.
 
-    The pipelined and fused loops (``pipeline=True``, ``fused=True``),
-    checkpoints, the observatory hooks (``observe``, ``profile_dir``) and
-    a ``mesh`` raise ``NotImplementedError`` naming their ROADMAP item:
-    nothing runs the serial loop in their place.
+    Checkpoints, the observatory hooks (``observe``, ``profile_dir``) and
+    a ``mesh`` raise ``NotImplementedError`` naming their ROADMAP item.
     """
     if mesh is not None:
         raise _unported("sweep(mesh=...) over several devices", "12")
-    if pipeline:
-        raise _unported("sweep(pipeline=True), the pipelined superstep "
-                        "loop (pass pipeline=False for the serial loop)",
-                        "7")
-    if fused:
-        raise _unported("sweep(fused=True), the whole-hunt fused loop", "7")
+    if fused and compact:
+        raise ValueError(
+            "fused=True has no shrink path: compact=True saves flops "
+            "by narrowing a mostly-frozen batch, but the fused loop "
+            "already avoids the host round trips that made the "
+            "straggler tail expensive, and every result surface is "
+            "shrink-invariant — drop compact (or run fused=False)")
     if checkpoint_path is not None or resume:
         raise _unported("sweep checkpoints (checkpoint_path=, resume=)",
                         "6")
@@ -524,6 +547,7 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
     faults_sha256 = hashlib.sha256(faults_key).hexdigest()
 
     state = eng.init(seeds[:w0], faults=batch_faults(np.arange(w0)))
+    c_max = -(-max_steps // chunk_steps)   # the serial loop's chunk budget
     steps = 0
     chunks = 0                         # executed chunk bodies
     w_cur = w0                         # current batch width (slots)
@@ -540,24 +564,25 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
     live_world_steps = 0               # steps that advanced a live world
     perf = {"device_wait_s": 0.0, "host_decision_s": 0.0, "dispatch_s": 0.0,
             "retire_wait_s": 0.0, "scalar_fetches": 0, "retire_fetches": 0,
-            "dispatches": 0}
+            "dispatches": 0, "dispatch_depth": 0}
     t_loop0 = perf_counter()
+    flag_reads0 = Lookahead.host_reads
     novelty_hist: List[int] = []       # cumulative distinct, per chunk
     cov_hits = cov_first = None
     if cov_on:
         cov_hits, cov_first = ledger_zeros(cov_k, dev)
-    # -- the guided search's state -------------------------------------
-    # slot_sched: the (W, F, 4) schedule each slot runs, on the device,
-    # permuted and refilled with the state; slot_lin its lineage lanes.
-    # The corpus lives on the host (the fold runs there); op_produced, the
-    # operator table's produced row, on the device with the children it
-    # counts; novel and survived are credited on the host with the fold.
-    slot_sched = slot_lin = op_produced = None
+    # -- the guided search's state, all on the device ------------------
+    # slot_sched: the (W, F, 4) schedule each slot runs, permuted and
+    # refilled with the state; slot_lin its lineage lanes; corpus the
+    # parent pool; op_tab the operator table's produced/novel/survived
+    # rows. Each refill runs the searcher (search/generate.py: the fold,
+    # then the children) on the device.
+    slot_sched = slot_lin = corpus = op_tab = None
     retired_sched: List[np.ndarray] = []
     retired_lin: List[tuple] = []
-    srch = {}
+    f_rows = 0
     if search_on:
-        from ..obs.lineage import N_OPS, lanes_origin
+        from ..obs.lineage import lanes_origin, table_zeros
 
         f_rows = int(faults_p.shape[-2])
         base0 = (faults_p[:w0] if per_world_faults
@@ -577,19 +602,17 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
                     raise ValueError(
                         f"search_corpus.{name} must be ({k},) for "
                         f"SearchConfig.corpus={k}; got {shp}")
-            corpus_h = HostCorpus(*(np.array(x, copy=True)
-                                    for x in search_corpus))
+            corpus_h0 = HostCorpus(*(np.array(x, copy=True)
+                                     for x in search_corpus))
         else:
-            corpus_h = host_corpus_init(k, normalize_schedule(
+            corpus_h0 = host_corpus_init(k, normalize_schedule(
                 faults_p[0] if per_world_faults else faults_p))
-        srch = {"corpus": corpus_h, "gen": int(search_gen0), "inserted": 0,
-                "novel": np.zeros(N_OPS, np.int32),
-                "survived": np.zeros(N_OPS, np.int32)}
+        # gen starts at the stream offset; inserted counts this sweep's.
+        corpus = corpus_to_device(corpus_h0, int(search_gen0), 0, dev)
         if lineage_on:
             # The first batch runs the template itself: generation 0.
             slot_lin = lanes_origin(w0, dev)
-            op_produced = torch.zeros((N_OPS,), dtype=torch.int32,
-                                      device=dev)
+            op_tab = table_zeros(dev)
 
     def retire(obs_slice: Dict[str, np.ndarray], rows: np.ndarray,
                sched_slice: Optional[np.ndarray] = None,
@@ -617,64 +640,36 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
         if lin_slice is not None:
             retired_lin.append(tuple(np.asarray(a) for a in lin_slice))
 
-    def pull_tail(handles):
-        """The retiring tail's one pull (``_fetch``): its gathered rows on
-        the host, cut to the tail's length."""
-        tree, tail_len = handles
+    def fetch_retire(handles) -> None:
+        """Pull a retiring tail's gathered rows (one ``_fetch``, with a
+        guided refill's schedules, lineage lanes, corpus scalars and
+        operator table) and record them."""
+        obs_t, idx_t, tail_len, sched_t, stats_t, lin_t, op_t = handles
         t0 = perf_counter()
-        obs_h, idx_h, sched_h, lin_h = _fetch(tree)
+        obs_h, idx_h, sched_h, _stats_h, lin_h, _op_h = _fetch(
+            (obs_t, idx_t, sched_t, stats_t, lin_t, op_t))
         perf["retire_wait_s"] += perf_counter() - t0
         perf["retire_fetches"] += 1
-        return ({k: np.asarray(v)[:tail_len] for k, v in obs_h.items()},
-                np.asarray(idx_h)[:tail_len],
-                None if sched_h is None else np.asarray(sched_h)[:tail_len],
-                None if lin_h is None else tuple(np.asarray(a)[:tail_len]
-                                                 for a in lin_h))
-
-    def fetch_retire(handles) -> None:
-        """Record a retiring tail: pull its gathered rows unless the refill
-        already did."""
-        retire(*(handles if isinstance(handles[0], dict)
-                 else pull_tail(handles)))
-
-    def harvest(pulled):
-        """The guided fold of one refill, on the host: the retiring rows
-        that hold a seed and finished are scored against the corpus and
-        the novel ones inserted, in slot order; the operator table's
-        novel and survived rows are credited from their lineage lanes."""
-        obs_h, idx_h, sched_h, lin_h = pulled
-        if not search.guided:
-            return
-        from ..obs.lineage import host_credit
-
-        mask = (idx_h >= 0) & ~np.asarray(obs_h["active"], bool)
-        sigs = _host_signatures(obs_h)
-        entries = depths = None
-        if lineage_on:
-            entries = np.where(idx_h >= 0, search_lin_base + idx_h + 1,
-                               -1).astype(np.int32)
-            depths = lin_h[3]
-        srch["corpus"], n_ins, nov_m, ins_m = host_harvest_fold(
-            srch["corpus"], sched_h, sigs, mask, search.min_novelty,
-            entries=entries, depths=depths, with_masks=True)
-        srch["inserted"] += n_ins
-        if lineage_on:
-            srch["novel"] = host_credit(srch["novel"], lin_h[2], nov_m)
-            srch["survived"] = host_credit(srch["survived"], lin_h[2],
-                                           ins_m)
+        retire({k: np.asarray(v)[:tail_len] for k, v in obs_h.items()},
+               np.asarray(idx_h)[:tail_len],
+               (np.asarray(sched_h)[:tail_len]
+                if sched_h is not None else None),
+               (tuple(np.asarray(a)[:tail_len] for a in lin_h)
+                if lin_h is not None else None))
 
     def do_refill(n_act: int):
         """Recycling: compact active-first on the device, gather the frozen
         tail's observations, refill the tail with the next seeds from the
-        cursor. Only the n_act scalar shapes the refill mask.
+        cursor. Only the n_act scalar shapes the refill mask; the tail's
+        rows are returned as handles, not pulled.
 
-        A guided refill pulls the tail (its one ``_fetch``) before the
-        refill, with the tail's schedules and lineage lanes, folds it into
-        the corpus on the host, and refills the slots with children
-        generated on the device (``DeviceEngine.refill``'s device-schedule
-        path)."""
+        A guided refill also gathers the tail's schedules and lineage
+        lanes, runs the searcher on the device (the fold of the retiring
+        worlds into the corpus, then one child schedule per slot) and
+        refills the slots with the children (``DeviceEngine.refill``'s
+        device-schedule path)."""
         nonlocal state, idx, cursor, reordered, slot_sched, slot_lin, \
-            op_produced
+            corpus, op_tab
         extra = ((slot_sched,) + (tuple(slot_lin) if lineage_on else ())
                  if search_on else ())
         state, idx, *extra = _compactor(state, idx, extra=extra)
@@ -690,34 +685,27 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
         mask = np.zeros(w_cur, bool)
         mask[n_act:n_act + take] = True
         fill_ids = np.maximum(repl, 0)
-        handles = ((obs_t, idx_t, None, None), tail_len)
+        sched_t = stats_t = lin_t = op_t = None
         if search_on:
             slot_sched = extra[0]
             tail_g = [_rows_from(x, n_act, rows) for x in extra]
-            lin_t = None
+            sched_t = tail_g[0]
+            mask_d = torch.from_numpy(mask).to(dev)
+            new_ids = torch.from_numpy(fill_ids.astype(np.int32)).to(dev)
+            gen_fn = searcher(eng, search, w_cur, f_rows)
             if lineage_on:
                 slot_lin = type(slot_lin)(*extra[1:])
                 lin_t = tuple(tail_g[1:])
-            handles = pull_tail(((obs_t, idx_t, tail_g[0], lin_t),
-                                 tail_len))
-            harvest(handles)
-            mask_d = torch.from_numpy(mask).to(dev)
-            corpus_d = corpus_to_device(srch["corpus"], srch["gen"],
-                                        srch["inserted"], dev)
-            children = generate_children(
-                eng.cfg, search, corpus_d,
-                torch.from_numpy(fill_ids.astype(np.int32)).to(dev),
-                lineage_on)
-            srch["gen"] += 1
-            if lineage_on:
-                from ..obs.lineage import credit, ops_bits
-
-                children, child_lin = children
-                op_produced = credit(op_produced, ops_bits(child_lin.ops),
-                                     mask_d)
+                children, child_lin, corpus, op_tab, stats_t = gen_fn(
+                    state, slot_sched, idx, corpus, n_act, new_ids, mask_d,
+                    slot_lin, op_tab, search_lin_base)
+                op_t = op_tab
                 slot_lin = type(slot_lin)(*(
                     torch.where(mask_d, c, s)
                     for c, s in zip(child_lin, slot_lin)))
+            else:
+                children, corpus, stats_t = gen_fn(
+                    state, slot_sched, idx, corpus, n_act, new_ids)
             state = eng.refill(state, mask, seeds[fill_ids],
                                faults=children)
             slot_sched = torch.where(mask_d[:, None, None], children,
@@ -727,7 +715,7 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
                                faults=batch_faults(fill_ids))
         tail = torch.from_numpy(np.arange(w_cur) >= n_act).to(dev)
         idx = torch.where(tail, torch.from_numpy(repl).to(dev), idx)
-        return handles
+        return obs_t, idx_t, tail_len, sched_t, stats_t, lin_t, op_t
 
     def do_shrink(new_w: int):
         """Shrink compaction: permute active-first, split off the frozen
@@ -748,120 +736,289 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
             if lineage_on:
                 slot_lin = type(slot_lin)(*live_x[1:])
                 flin = tuple(frozen_x[1:])
-        return (obs_t, idx_t, fsched, flin), tail_len
+        return obs_t, idx_t, tail_len, fsched, None, flin, None
 
-    runner = chunk_runner(eng, chunk_steps, cov_k if cov_on else None)
-    while steps < max_steps:
-        t0 = perf_counter()
-        if cov_on:
-            (state, any_bug, n_active, cov_hits, cov_first,
-             distinct) = runner(state, cov_hits, cov_first, idx, n)
-        else:
-            distinct = None
-            state, any_bug, n_active = runner(state)
-        perf["dispatch_s"] += perf_counter() - t0
-        perf["dispatches"] += 1
-        steps += chunk_steps
-        chunks += 1
-        issued_slot_steps += w_cur * chunk_steps
-        t0 = perf_counter()
-        if cov_on:
-            n_act_h, bug_h, dist_h = _fetch((n_active, any_bug, distinct))
-        else:
-            n_act_h, bug_h = _fetch((n_active, any_bug))
-        perf["device_wait_s"] += perf_counter() - t0
-        perf["scalar_fetches"] += 1
-        n_act = int(n_act_h)
-        if cov_on:
-            novelty_hist.append(int(dist_h))
-        t0 = perf_counter()
-        n_active_hist.append(n_act)
-        n_active_chunk.append(chunks - 1)
-        more_seeds = cursor < n
-        if n_act == 0 and not more_seeds:
+    fused_epochs = 0                   # refill epochs run on the device
+    fused_k_bucket = 0                 # chunk window per mega-dispatch
+    fused_out = None
+    if fused:
+        fused_out = _fused_hunt(
+            eng, state, idx, seeds, faults_p, per_world_faults, search,
+            lineage_on, cov_k if cov_on else None, cov_hits, cov_first,
+            slot_sched, corpus, slot_lin, op_tab, recycle=recycle,
+            chunk_steps=chunk_steps, c_max=c_max,
+            stop_on_first_bug=stop_on_first_bug, lin_base=search_lin_base,
+            perf=perf)
+        state = fused_out["state"]
+        fused_k_bucket = fused_out["k_bucket"]
+        fused_epochs = fused_out["epochs"]
+        chunks = fused_out["chunks"]
+        steps = chunks * chunk_steps
+        issued_slot_steps = w_cur * chunk_steps * chunks
+        n_active_hist = fused_out["hist"]
+        n_active_chunk = list(range(chunks))
+        novelty_hist = fused_out["cov_hist"]
+        cov_hits, cov_first = fused_out["cov"]
+        idx = fused_out["idx"]
+    elif pipeline:
+        # -- the pipelined superstep loop (JAX sweep.py's pipelined branch)
+        k_cur = 1                      # adaptive superstep size (chunks)
+        epoch = 0                      # bumps on every refill/shrink
+        epoch_fresh = True             # next dispatch is its epoch's first
+        inflight: Optional[_Flight] = None
+        pending_retires: list = []
+        stop = False
+
+        def threshold() -> int:
+            """The on-device early-exit occupancy for the next dispatch:
+            half the batch where a refill or shrink could fire, else 0
+            (run until every world retired)."""
+            if recycle and cursor < n:
+                return w_cur // 2
+            if (compact or recycle) and w_cur % 2 == 0:
+                return w_cur // 2
+            return 0
+
+        def dispatch(reserve: int = 0) -> None:
+            """Queue one superstep on the current state (never waits on
+            the device). ``reserve``: the planned chunks of a superstep
+            queued but not yet read, counted as spent so that a binding
+            ``max_steps`` cannot overrun the serial loop's chunk budget."""
+            nonlocal state, inflight, epoch_fresh, cov_hits, cov_first
+            budget = c_max - chunks - reserve
+            k = max(1, min(k_cur, budget, superstep_max))
+            # The first dispatch of an occupancy epoch runs exactly one
+            # chunk, whatever the occupancy (the serial cadence after a
+            # refill or shrink); the dispatches ahead of a read keep the
+            # entry test, so a stale one is a pass-through.
+            if epoch_fresh:
+                k = 1
+            min_one = epoch_fresh
+            epoch_fresh = False
+            t0 = perf_counter()
+            out = eng.superstep(
+                state, threshold(), bool(stop_on_first_bug), k,
+                chunk_steps=chunk_steps, k_max=superstep_max,
+                min_one=min_one,
+                cov=(cov_hits, cov_first, idx, n) if cov_on else None)
+            if cov_on:
+                (state, any_bug, n_active, k_done, hist,
+                 (cov_hits, cov_first), cov_h) = out
+            else:
+                state, any_bug, n_active, k_done, hist = out
+                cov_h = None
+            perf["dispatch_s"] += perf_counter() - t0
+            perf["dispatches"] += 1
+            inflight = _Flight(any_bug, n_active, k_done, hist, k, w_cur,
+                               epoch, cov_h)
+
+        # max_steps <= 0 is a zero-chunk budget: nothing is dispatched.
+        if c_max > 0:
+            dispatch()
+        while inflight is not None:
+            prev, inflight = inflight, None
+            # Dispatch-ahead: superstep k+1 is queued before superstep k's
+            # scalars are read; if they call for a stop or a refill, k+1
+            # is a pass-through (its entry condition is already false).
+            if not stop and chunks + prev.planned < c_max:
+                dispatch(reserve=prev.planned)
+            t0 = perf_counter()
+            bug_h, n_act_h, k_done_h, hist_h, cov_h = _fetch(
+                (prev.any_bug, prev.n_active, prev.k_done, prev.hist,
+                 prev.cov_hist))
+            perf["device_wait_s"] += perf_counter() - t0
+            perf["scalar_fetches"] += 1
+            perf["dispatch_depth"] = max(
+                perf["dispatch_depth"], 1 if inflight is not None else 0)
+            # Retirement pulls deferred from earlier refills and shrinks.
+            while pending_retires:
+                fetch_retire(pending_retires.pop(0))
+            t0 = perf_counter()
+            k_done = int(k_done_h)
+            n_act = int(n_act_h)
+            hist_np = np.asarray(hist_h)
+            for j in range(k_done):
+                n_active_hist.append(int(hist_np[j]))
+                n_active_chunk.append(chunks + j)
+                if cov_on:
+                    novelty_hist.append(int(np.asarray(cov_h)[j]))
+            chunks += k_done
+            steps = chunks * chunk_steps
+            issued_slot_steps += prev.w * chunk_steps * k_done
+            if prev.epoch == epoch:
+                # Adaptive K: double while supersteps run to plan, and
+                # after an early exit settle on the chunks it ran.
+                if k_done == prev.planned:
+                    k_cur = min(k_cur * 2, superstep_max)
+                else:
+                    k_cur = max(k_done, 1)
+            if prev.epoch == epoch and not stop:
+                more_seeds = cursor < n
+                if n_act == 0 and not more_seeds:
+                    stop = True
+                elif stop_on_first_bug and bool(bug_h):
+                    stop = True
+                elif recycle and more_seeds and n_act <= w_cur // 2:
+                    pending_retires.append(do_refill(n_act))
+                    epoch += 1
+                    epoch_fresh = True
+                else:
+                    new_w = _compact_bucket(n_act, w_cur)
+                    if (compact or (recycle and not more_seeds)) \
+                            and new_w < w_cur:
+                        pending_retires.append(do_shrink(new_w))
+                        epoch += 1
+                        epoch_fresh = True
             perf["host_decision_s"] += perf_counter() - t0
-            break
-        if stop_on_first_bug and bool(bug_h):
-            perf["host_decision_s"] += perf_counter() - t0
-            break
-        if recycle and more_seeds and n_act <= w_cur // 2:
-            handles = do_refill(n_act)
-            perf["host_decision_s"] += perf_counter() - t0
-            fetch_retire(handles)
-            continue
-        new_w = _compact_bucket(n_act, w_cur)
-        if (compact or (recycle and not more_seeds)) and new_w < w_cur:
-            handles = do_shrink(new_w)
-            perf["host_decision_s"] += perf_counter() - t0
-            fetch_retire(handles)
-        else:
-            perf["host_decision_s"] += perf_counter() - t0
+            if stop:
+                break
+            if inflight is None and chunks < c_max:
+                dispatch()
+        while pending_retires:
+            fetch_retire(pending_retires.pop(0))
+    else:
+        # -- the serial per-chunk loop ---------------------------------
+        runner = chunk_runner(eng, chunk_steps, cov_k if cov_on else None)
+        while steps < max_steps:
+            t0 = perf_counter()
+            if cov_on:
+                (state, any_bug, n_active, cov_hits, cov_first,
+                 distinct) = runner(state, cov_hits, cov_first, idx, n)
+            else:
+                distinct = None
+                state, any_bug, n_active = runner(state)
+            perf["dispatch_s"] += perf_counter() - t0
+            perf["dispatches"] += 1
+            steps += chunk_steps
+            chunks += 1
+            issued_slot_steps += w_cur * chunk_steps
+            t0 = perf_counter()
+            if cov_on:
+                n_act_h, bug_h, dist_h = _fetch((n_active, any_bug,
+                                                 distinct))
+            else:
+                n_act_h, bug_h = _fetch((n_active, any_bug))
+            perf["device_wait_s"] += perf_counter() - t0
+            perf["scalar_fetches"] += 1
+            n_act = int(n_act_h)
+            if cov_on:
+                novelty_hist.append(int(dist_h))
+            t0 = perf_counter()
+            n_active_hist.append(n_act)
+            n_active_chunk.append(chunks - 1)
+            more_seeds = cursor < n
+            if n_act == 0 and not more_seeds:
+                perf["host_decision_s"] += perf_counter() - t0
+                break
+            if stop_on_first_bug and bool(bug_h):
+                perf["host_decision_s"] += perf_counter() - t0
+                break
+            if recycle and more_seeds and n_act <= w_cur // 2:
+                handles = do_refill(n_act)
+                perf["host_decision_s"] += perf_counter() - t0
+                fetch_retire(handles)
+                continue
+            new_w = _compact_bucket(n_act, w_cur)
+            if (compact or (recycle and not more_seeds)) and new_w < w_cur:
+                handles = do_shrink(new_w)
+                perf["host_decision_s"] += perf_counter() - t0
+                fetch_retire(handles)
+            else:
+                perf["host_decision_s"] += perf_counter() - t0
 
     if cov_on:
         # End-of-sweep fold: worlds still live at exit count too.
         cov_hits, cov_first = _cov_endfolder(state, cov_hits, cov_first,
                                              idx, n, True)
 
-    obs_live = eng.observe(state)
-    sched_live_h = lin_live_h = op_produced_h = None
-    if cov_on and search_on:
-        # The search's per-slot state rides the final ledger pull.
-        (idx_h, cov_hits_h, cov_first_h, sched_live_h, lin_live_h,
-         op_produced_h) = _fetch((idx, cov_hits, cov_first, slot_sched,
-                                  slot_lin, op_produced))
-        idx_h, cov_hits_h, cov_first_h = (
-            np.asarray(x) for x in (idx_h, cov_hits_h, cov_first_h))
-        sched_live_h = np.asarray(sched_live_h, np.int32)
-    elif cov_on:
-        idx_h, cov_hits_h, cov_first_h = (
-            np.asarray(x) for x in _fetch((idx, cov_hits, cov_first)))
-    else:
-        idx_h = np.asarray(_fetch(idx))
-    sched_per_seed = lin_per_seed = None
-    live_keep = idx_h >= 0
-    live_world_steps += int(np.asarray(obs_live["steps"])[live_keep].sum())
-    # Scatter whenever the live batch does not cover the id space in seed
-    # order: after a reorder or retirement, or when a recycled sweep
-    # stopped before its first refill (seeds never admitted read zero).
-    if reordered or retired_rows or w0 < n:
-        rows = np.concatenate(retired_rows + [idx_h[live_keep]])
-        obs = {}
-        for k, v_live in obs_live.items():
-            v_live = np.asarray(v_live)[live_keep]
-            merged = np.concatenate(retired.get(k, []) + [v_live], axis=0)
-            out = np.zeros((n,) + merged.shape[1:], merged.dtype)
-            out[rows] = merged
-            obs[k] = out
+    sched_per_seed = lin_per_seed = corpus_h = op_tab_h = None
+    cov_hits_h = cov_first_h = None
+    if fused:
+        # The fused hunt's one pull at the end: retired and live rows
+        # already sit in the per-seed device buffers.
+        t0 = perf_counter()
+        (bufs_h, cov_pack_h, sched_b_h, corpus_h, lin_b_h,
+         op_tab_h) = _fetch(
+            (fused_out["bufs"], (cov_hits, cov_first) if cov_on else None,
+             fused_out["sched_buf"], fused_out["corpus"],
+             fused_out["lin_buf"], fused_out["op_tab"]))
+        perf["retire_wait_s"] += perf_counter() - t0
+        perf["retire_fetches"] += 1
+        if cov_on:
+            cov_hits_h, cov_first_h = (np.asarray(x) for x in cov_pack_h)
+        obs = {k: np.asarray(v)[:n] for k, v in bufs_h.items()}
+        live_world_steps += int(np.asarray(obs["steps"]).sum())
         if search_on:
-            merged_s = np.concatenate(
-                retired_sched + [sched_live_h[live_keep]], axis=0)
-            sched_per_seed = np.full((n,) + merged_s.shape[1:], -1, np.int32)
-            sched_per_seed[:, :, 1:] = 0     # canonical disabled rows
-            sched_per_seed[rows] = merged_s
-        if lin_live_h is not None:
-            # Never-admitted seeds read as generation 0.
-            lanes_out = []
-            for i, dflt in enumerate((-1, -1, 0, 0)):
-                merged_l = np.concatenate(
-                    [t[i] for t in retired_lin]
-                    + [np.asarray(lin_live_h[i])[live_keep]], axis=0)
-                out = np.full((n,), dflt, np.int32)
-                out[rows] = np.asarray(merged_l, np.int32)
-                lanes_out.append(out)
-            lin_per_seed = tuple(lanes_out)
+            sched_per_seed = np.asarray(sched_b_h, np.int32)[:n]
+        if lineage_on:
+            lin_per_seed = tuple(np.asarray(a, np.int32)[:n]
+                                 for a in lin_b_h)
     else:
-        obs = obs_live
-        if search_on:
-            sched_per_seed = sched_live_h
-        if lin_live_h is not None:
-            lin_per_seed = tuple(np.asarray(a, np.int32)
-                                 for a in lin_live_h)
+        obs_live = eng.observe(state)
+        sched_live_h = lin_live_h = None
+        if cov_on and search_on:
+            # The search's per-slot state rides the final ledger pull.
+            (idx_h, cov_hits_h, cov_first_h, sched_live_h, corpus_h,
+             lin_live_h, op_tab_h) = _fetch(
+                (idx, cov_hits, cov_first, slot_sched, corpus, slot_lin,
+                 op_tab))
+            idx_h, cov_hits_h, cov_first_h = (
+                np.asarray(x) for x in (idx_h, cov_hits_h, cov_first_h))
+            sched_live_h = np.asarray(sched_live_h, np.int32)
+        elif cov_on:
+            idx_h, cov_hits_h, cov_first_h = (
+                np.asarray(x) for x in _fetch((idx, cov_hits, cov_first)))
+        else:
+            idx_h = np.asarray(_fetch(idx))
+        live_keep = idx_h >= 0
+        live_world_steps += int(
+            np.asarray(obs_live["steps"])[live_keep].sum())
+        # Scatter whenever the live batch does not cover the id space in
+        # seed order: after a reorder or retirement, or when a recycled
+        # sweep stopped before its first refill (seeds never admitted read
+        # zero).
+        if reordered or retired_rows or w0 < n:
+            rows = np.concatenate(retired_rows + [idx_h[live_keep]])
+            obs = {}
+            for k, v_live in obs_live.items():
+                v_live = np.asarray(v_live)[live_keep]
+                merged = np.concatenate(retired.get(k, []) + [v_live],
+                                        axis=0)
+                out = np.zeros((n,) + merged.shape[1:], merged.dtype)
+                out[rows] = merged
+                obs[k] = out
+            if search_on:
+                merged_s = np.concatenate(
+                    retired_sched + [sched_live_h[live_keep]], axis=0)
+                sched_per_seed = np.full((n,) + merged_s.shape[1:], -1,
+                                         np.int32)
+                sched_per_seed[:, :, 1:] = 0     # canonical disabled rows
+                sched_per_seed[rows] = merged_s
+            if lin_live_h is not None:
+                # Never-admitted seeds read as generation 0.
+                lanes_out = []
+                for i, dflt in enumerate((-1, -1, 0, 0)):
+                    merged_l = np.concatenate(
+                        [t[i] for t in retired_lin]
+                        + [np.asarray(lin_live_h[i])[live_keep]], axis=0)
+                    out = np.full((n,), dflt, np.int32)
+                    out[rows] = np.asarray(merged_l, np.int32)
+                    lanes_out.append(out)
+                lin_per_seed = tuple(lanes_out)
+        else:
+            obs = obs_live
+            if search_on:
+                sched_per_seed = sched_live_h
+            if lin_live_h is not None:
+                lin_per_seed = tuple(np.asarray(a, np.int32)
+                                     for a in lin_live_h)
     util = (live_world_steps / issued_slot_steps if issued_slot_steps
             else 0.0)
     loop_stats = {
-        "pipelined": False,
-        "fused": False,
-        "superstep_max": 1,
+        "pipelined": bool(pipeline) and not fused,
+        "fused": bool(fused),
+        "superstep_max": (int(fused_k_bucket) if fused
+                          else int(superstep_max) if pipeline else 1),
         "chunk_steps": int(chunk_steps),
         "chunks": int(chunks),
         "dispatches": int(perf["dispatches"]),
@@ -869,14 +1026,17 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
             chunks / max(perf["dispatches"], 1), 3),
         "dispatches_per_seed": round(perf["dispatches"] / max(n, 1), 6),
         "seeds_per_dispatch": round(n / max(perf["dispatches"], 1), 3),
-        "epochs_on_device": 0,
-        "dispatch_depth": 0,
+        "epochs_on_device": int(fused_epochs),
+        "dispatch_depth": int(perf["dispatch_depth"]),
         "device_wait_s": round(perf["device_wait_s"], 6),
         "host_decision_s": round(perf["host_decision_s"], 6),
         "dispatch_s": round(perf["dispatch_s"], 6),
         "retire_wait_s": round(perf["retire_wait_s"], 6),
         "scalar_fetches": int(perf["scalar_fetches"]),
         "retire_fetches": int(perf["retire_fetches"]),
+        # The device flags the host read (Lookahead), each a wait on the
+        # device that _fetch does not count: 0 in the serial loop.
+        "flag_reads": int(Lookahead.host_reads - flag_reads0),
         "loop_wall_s": round(perf_counter() - t_loop0, 6),
     }
     coverage = (coverage_from_device(cov_k, cov_hits_h, cov_first_h,
@@ -884,8 +1044,8 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
     search_report = None
     triage_faults = faults
     if search_on:
-        search_report = _search_report(srch, sched_per_seed, lin_per_seed,
-                                       op_produced_h, obs["bug"],
+        search_report = _search_report(corpus_h, sched_per_seed,
+                                       lin_per_seed, op_tab_h, obs["bug"],
                                        search_gen0, search_lin_base)
         # Triage replays the schedule each world actually ran.
         triage_faults = sched_per_seed
@@ -903,24 +1063,10 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
                                                 faults=triage_faults))
 
 
-def _host_signatures(obs: Dict[str, np.ndarray]) -> np.ndarray:
-    """The behavior signatures (uint32) of observation rows, from their
-    metrics block (``m_*``), as ``obs/coverage.behavior_signature``
-    computes them on the device."""
-    from types import SimpleNamespace
-
-    from ..obs.coverage import behavior_signature
-
-    mb = SimpleNamespace(**{
-        k[2:]: torch.from_numpy(np.ascontiguousarray(v))
-        for k, v in obs.items() if k.startswith("m_")})
-    return behavior_signature(mb).numpy().astype(np.uint32)
-
-
-def _search_report(srch, sched_per_seed, lin_per_seed, op_produced,
+def _search_report(corpus_h, sched_per_seed, lin_per_seed, op_tab_h,
                    bug, search_gen0: int, search_lin_base: int):
     """The guided sweep's :class:`~madsim_tpu_torch.search.SearchReport`:
-    the host corpus, the per-seed schedules and lanes, and the operator
+    the pulled corpus, the per-seed schedules and lanes, and the operator
     table with its bug row folded from the lanes."""
     from ..search import SearchReport
 
@@ -941,22 +1087,306 @@ def _search_report(srch, sched_per_seed, lin_per_seed, op_produced,
         # crossed a harvest: the bug row folds over the per-seed lanes.
         op_bug = host_credit(np.zeros(N_OPS, np.int32), lineage_rep.ops,
                              np.asarray(bug, bool))
-        op_stats = operator_stats(np.asarray(op_produced), srch["novel"],
-                                  srch["survived"], op_bug)
-    c = srch["corpus"]
-    c_filled = np.asarray(c.filled, bool)
+        op_stats = operator_stats(*(tuple(np.asarray(a) for a in op_tab_h)
+                                    + (op_bug,)))
+    c_filled = np.asarray(corpus_h.filled, bool)
     return SearchReport(
         # Generations this sweep ran: search_gen0 shifts the key space.
-        generations=int(srch["gen"]) - int(search_gen0),
-        inserted=int(srch["inserted"]),
+        generations=int(np.asarray(corpus_h.gen)) - int(search_gen0),
+        inserted=int(np.asarray(corpus_h.inserted)),
         corpus_size=int(c_filled.sum()),
         corpus_capacity=int(c_filled.shape[0]),
-        corpus_sched=np.asarray(c.sched, np.int32),
-        corpus_sig=np.asarray(c.sig, np.uint32),
-        corpus_score=np.asarray(c.score, np.int32),
+        corpus_sched=np.asarray(corpus_h.sched, np.int32),
+        corpus_sig=np.asarray(corpus_h.sig).astype(np.uint32),
+        corpus_score=np.asarray(corpus_h.score, np.int32),
         corpus_filled=c_filled,
         schedules=sched_per_seed,
-        corpus_entry=np.asarray(c.entry, np.int32),
-        corpus_depth=np.asarray(c.depth, np.int32),
+        corpus_entry=np.asarray(corpus_h.entry, np.int32),
+        corpus_depth=np.asarray(corpus_h.depth, np.int32),
         lineage=lineage_rep,
         operator_stats=op_stats)
+
+
+
+class _Flight(NamedTuple):
+    """One queued but unread superstep: its device scalars and the host
+    facts (plan, width, epoch) needed to read them."""
+
+    any_bug: Any
+    n_active: Any
+    k_done: Any
+    hist: Any
+    planned: int          # chunks this dispatch may run (its K)
+    w: int                # batch width at dispatch time
+    epoch: int            # occupancy epoch at dispatch time
+    cov_hist: Any = None  # per-chunk novelty curve (coverage on)
+
+
+# The most chunks one fused mega-dispatch runs (its history's width), as in
+# the JAX package.
+_FUSED_K_CAP = 4096
+
+
+def _put_rows(buf: torch.Tensor, rows: torch.Tensor,
+              vals: torch.Tensor) -> torch.Tensor:
+    """``buf[rows] = vals`` along the world axis, in place (uint32 as its
+    int32 bits)."""
+    if buf.dtype == torch.uint32:
+        buf.view(torch.int32).index_put_((rows,), vals.view(torch.int32))
+    else:
+        buf.index_put_((rows,), vals.to(buf.dtype))
+    return buf
+
+
+def _fused_hunt(eng: DeviceEngine, state, idx, seeds: np.ndarray,
+                faults_p, per_world_faults: bool, scfg, lineage_on: bool,
+                cov_k: Optional[int], cov_hits, cov_first, sched, corpus,
+                lin, op_tab, *, recycle: bool, chunk_steps: int, c_max: int,
+                stop_on_first_bug: bool, lin_base: int, perf: dict):
+    """The whole-hunt loop on the device: the counterpart of the JAX
+    ``_fused_hunt`` and the fused branch of its ``sweep``.
+
+    Each mega-dispatch runs up to ``k_bucket`` chunks behind one host
+    decision. After every chunk, device ops measure the batch, fold the
+    coverage of the worlds that retired in it and decide, in the serial
+    loop's order, the hunt's stop (which never refills) and the epoch
+    trigger. Both are gate words: a set stop, or a pending epoch, makes
+    every later chunk a gated no-op. The epoch body is queued once per
+    trigger, every write masked by it: the stable active-first compaction
+    of the state, the slot→seed index and the search lanes; the retiring
+    tail's observations (and schedules and lineage lanes) scattered by seed
+    id into per-seed device buffers, with a dump row; the cursor's
+    take/fill arithmetic; under search the fold kernel and the children
+    (the searcher behind the same gate); the in-loop refill
+    (:meth:`DeviceEngine.refill_traced`); the index, cursor and epoch count
+    advanced; and it clears the pending word, so the next chunk runs after
+    it in stream order. The host learns of a trigger from the flags the
+    device leaves a chunk behind (:class:`Lookahead`): it reads no result
+    from them, only when to queue the epoch body and when to stop queuing,
+    so the chunk queued meanwhile is a no-op and every result is decided
+    on the device; each such read waits on the device (the
+    sweep's ``loop_stats["flag_reads"]``). The host reads one scalar batch
+    per mega-dispatch (``_fetch``) and pulls the per-seed buffers once, at
+    the end (the caller's pull).
+
+    There is no dry-cursor shrink: the tail runs at full width, so
+    ``world_utilization`` is the one result that differs from the serial
+    loop's. Returns a dict of the loop's device and host results; the
+    engine's ``last_fused_stats`` counts the chunks queued and the host's
+    time queuing epoch bodies.
+    """
+    from ..obs.coverage import distinct_count, fold_retired
+    from ..obs.lineage import LineageLanes, lanes_buffer
+
+    dev = state.active.device
+    cuda = dev.type == "cuda"
+    w = int(state.active.shape[0])
+    n = int(seeds.shape[0])
+    search_on = scfg is not None
+    cov_on = cov_k is not None
+    n_ids_b = _pow2_at_least(n)
+    k_bucket = _pow2_at_least(max(min(c_max, _FUSED_K_CAP), 1))
+    i32 = torch.int32
+    # Seed and schedule tables the in-loop refill gathers from; rows past
+    # n are never gathered (the cursor stops at n).
+    lo = np.zeros(n_ids_b, np.uint32)
+    hi = np.zeros(n_ids_b, np.uint32)
+    lo[:n] = (seeds & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    hi[:n] = (seeds >> np.uint64(32)).astype(np.uint32)
+    lo_d, hi_d = torch.from_numpy(lo).to(dev), torch.from_numpy(hi).to(dev)
+    ftab = None
+    if not search_on and faults_p is not None:
+        f = np.asarray(faults_p, np.int32)
+        if per_world_faults and n_ids_b > n:
+            f = np.concatenate([f, f[:1].repeat(n_ids_b - n, axis=0)])
+        ftab = torch.from_numpy(np.ascontiguousarray(f)).to(dev)
+    dump = n_ids_b                     # the buffers' trailing dump row
+    obs0 = eng.observe_device(state)
+    bufs = {k: torch.zeros((n_ids_b + 1,) + tuple(v.shape[1:]),
+                           dtype=v.dtype, device=dev)
+            for k, v in obs0.items()}
+    sched_buf = lin_buf = None
+    f_rows = 0
+    if search_on:
+        f_rows = int(sched.shape[1])
+        sb = np.full((n_ids_b + 1, f_rows, 4), -1, np.int32)
+        sb[:, :, 1:] = 0               # canonical disabled rows
+        sched_buf = torch.from_numpy(sb).to(dev)
+        gen_fn = searcher(eng, scfg, w, f_rows)
+        stats = tuple(torch.zeros((), dtype=i32, device=dev)
+                      for _ in range(5 if lineage_on else 2))
+    if lineage_on:
+        lin_buf = lanes_buffer(n_ids_b, dev)
+    rows_r = torch.arange(w, dtype=i32, device=dev)
+    cursor = torch.tensor(w, dtype=i32, device=dev)
+    epochs = torch.zeros((), dtype=i32, device=dev)
+    n_t = torch.tensor(n, dtype=i32, device=dev)
+    no_more = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def more_seeds():
+        return cursor < n_t if recycle else no_more
+
+    def epoch(trigger, n_act):
+        """The epoch body, every write masked by ``trigger``."""
+        nonlocal state, idx, cursor, epochs, sched, lin, corpus, op_tab, \
+            stats
+        order = torch.sort((~state.active).to(i32), stable=True).indices
+        perm = torch.where(trigger, order, rows_r.to(order.dtype))
+        group = [state, idx] + ([sched] if search_on else []) \
+            + ([lin] if lineage_on else [])
+        group = [_permute_worlds(t, perm) for t in group]
+        state, idx = group[0], group[1]
+        if search_on:
+            sched = group[2]
+        if lineage_on:
+            lin = group[3]
+        tail = (rows_r >= n_act) & (idx >= 0) & trigger
+        tgt = torch.where(tail, idx, dump).to(torch.int64)
+        obs = eng.observe_device(state)
+        for key, buf in bufs.items():
+            _put_rows(buf, tgt, obs[key])
+        take = torch.minimum(w - n_act, n_t - cursor)
+        fill = trigger & (rows_r >= n_act) & (rows_r < n_act + take)
+        repl = torch.where(fill, cursor + rows_r - n_act, -1).to(i32)
+        fill_ids = repl.clamp(min=0)
+        if search_on:
+            # The retiring schedules and lanes are parked before the
+            # children overwrite them.
+            _put_rows(sched_buf, tgt, sched)
+            if lineage_on:
+                for b, v in zip(lin_buf, lin):
+                    _put_rows(b, tgt, v)
+                children, child_lin, corpus, op_tab, new_stats = gen_fn(
+                    state, sched, idx, corpus, n_act, fill_ids, fill, lin,
+                    op_tab, lin_base, gate=trigger)
+                lin = LineageLanes(*(torch.where(fill, c, o)
+                                     for c, o in zip(child_lin, lin)))
+            else:
+                children, corpus, new_stats = gen_fn(
+                    state, sched, idx, corpus, n_act, fill_ids,
+                    gate=trigger)
+            stats = tuple(torch.where(trigger, a, b)
+                          for a, b in zip(new_stats, stats))
+            f_new = children
+            sched = torch.where(fill[:, None, None], children, sched)
+        elif ftab is None:
+            f_new = torch.zeros((w, 0, 4), dtype=i32, device=dev)
+        elif per_world_faults:
+            f_new = ftab.index_select(0, fill_ids)
+        else:
+            f_new = ftab.expand((w,) + tuple(ftab.shape))
+        eng.refill_traced(state, fill, _take(lo_d, fill_ids),
+                          _take(hi_d, fill_ids), f_new)
+        idx = torch.where(trigger & (rows_r >= n_act), repl, idx)
+        cursor = cursor + torch.where(trigger, take, 0).to(i32)
+        epochs = epochs + trigger.to(i32)
+
+    chunks = epochs_h = queued = 0
+    epoch_s = 0.0                      # host time queuing epoch bodies
+    hist_all: List[int] = []
+    cov_all: List[int] = []
+    stop = False
+    first = True
+    # ``first`` forces one dispatch even at a zero-chunk budget: it parks
+    # the live (init) observations in the buffers.
+    while first or (chunks < c_max and not stop):
+        first = False
+        k = max(0, min(k_bucket, c_max - chunks))
+        t0 = perf_counter()
+        any_bug = state.bug.any()
+        n_act = state.active.sum(dtype=i32)
+        # The pass-through property: a dispatch against a finished hunt
+        # runs no chunk. ``done`` closes the gate for good (the hunt's
+        # stop, or k chunks run); ``pending`` is an epoch the trigger
+        # asked for and the host has not queued yet: no chunk runs while
+        # it is set.
+        done = ((any_bug & bool(stop_on_first_bug))
+                | ((n_act == 0) & ~more_seeds()))
+        pending = torch.zeros((), dtype=torch.bool, device=dev)
+        hist = torch.full((k_bucket,), -1, dtype=i32, device=dev)
+        cov_hist = (torch.full((k_bucket,), -1, dtype=i32, device=dev)
+                    if cov_on else None)
+        k_done = torch.zeros((), dtype=i32, device=dev)
+        # The scalars of the last chunk run, measured before its epoch.
+        last_bug, last_n = any_bug, n_act
+        ahead = Lookahead(cuda)
+        epoch_at = -1                  # the flag index an epoch answered
+        finished = k == 0
+        while not finished:
+            ran = ~(done | pending)
+            act0 = state.active.clone() if cov_on else None
+            eng.run_steps(state, chunk_steps, gate=(~ran).to(i32))
+            any_bug = state.bug.any()
+            n_act = state.active.sum(dtype=i32)
+            last_bug = torch.where(ran, any_bug, last_bug)
+            last_n = torch.where(ran, n_act, last_n)
+            pos = k_done.clamp(max=k_bucket - 1).reshape(1).to(torch.int64)
+            hist.index_put_((pos,), torch.where(ran, n_act, hist[pos]))
+            if cov_on:
+                fmask = act0 & ~state.active & (idx >= 0) & (idx < n_t)
+                cov_hits, cov_first = fold_retired(
+                    cov_hits, cov_first, state.metrics, fmask, idx)
+                cov_hist.index_put_((pos,), torch.where(
+                    ran, distinct_count(cov_hits), cov_hist[pos]))
+            k_done = k_done + ran.to(i32)
+            stop_now = ((n_act == 0) & ~more_seeds()) \
+                | (any_bug & bool(stop_on_first_bug))
+            if recycle:
+                pending = pending | (ran & ~stop_now & more_seeds()
+                                     & (n_act <= w // 2))
+            done = done | (ran & stop_now) | (k_done >= k)
+            queued += 1
+            # The host learns a chunk's flags a chunk later on CUDA: the
+            # chunk queued meanwhile is a gated no-op. An epoch body is
+            # queued once per trigger, masked by ``pending``, which it
+            # clears; the next chunk runs after it in stream order.
+            ahead.push(done.to(i32) | (pending.to(i32) << 1))
+            for flag_at, flags in ahead.read():
+                if flags & 2 and flag_at > epoch_at:
+                    t_ep = perf_counter()
+                    epoch(pending, state.active.sum(dtype=i32))
+                    pending = torch.zeros_like(pending)
+                    epoch_at = ahead.pushed - 1
+                    epoch_s += perf_counter() - t_ep
+                finished = finished or bool(flags & 1)
+        any_bug, n_act = last_bug, last_n
+        # The live slots' rows are parked at the end of each dispatch; a
+        # later dispatch overwrites them.
+        live_tgt = torch.where(idx >= 0, idx, dump).to(torch.int64)
+        obs = eng.observe_device(state)
+        for key, buf in bufs.items():
+            _put_rows(buf, live_tgt, obs[key])
+        if search_on:
+            _put_rows(sched_buf, live_tgt, sched)
+        if lineage_on:
+            for b, v in zip(lin_buf, lin):
+                _put_rows(b, live_tgt, v)
+        perf["dispatch_s"] += perf_counter() - t0
+        perf["dispatches"] += 1
+        t0 = perf_counter()
+        # One scalar batch per mega-dispatch.
+        bug_h, n_act_h, k_done_h, hist_h, cur_h, ep_h, cov_h, _st_h = \
+            _fetch((any_bug, n_act, k_done, hist, cursor, epochs,
+                    cov_hist, stats if search_on else None))
+        perf["device_wait_s"] += perf_counter() - t0
+        perf["scalar_fetches"] += 1
+        t0 = perf_counter()
+        k_done_i = int(k_done_h)
+        hist_all.extend(int(x) for x in np.asarray(hist_h)[:k_done_i])
+        if cov_on:
+            cov_all.extend(int(x) for x in np.asarray(cov_h)[:k_done_i])
+        chunks += k_done_i
+        epochs_h = int(ep_h)
+        more = recycle and int(cur_h) < n
+        if (int(n_act_h) == 0 and not more) or \
+                (stop_on_first_bug and bool(bug_h)) or k_done_i < k:
+            stop = True
+        perf["host_decision_s"] += perf_counter() - t0
+    # What the loop queued, for its cost: chunks queued (past the stop
+    # too) and the host's time queuing epoch bodies.
+    eng.last_fused_stats = {"chunks_queued": queued, "epoch_s": epoch_s}
+    return {"state": state, "idx": idx, "k_bucket": k_bucket,
+            "epochs": epochs_h, "chunks": chunks, "hist": hist_all,
+            "cov_hist": cov_all, "cov": (cov_hits, cov_first),
+            "bufs": bufs, "sched_buf": sched_buf, "corpus": corpus,
+            "lin_buf": lin_buf, "op_tab": op_tab}

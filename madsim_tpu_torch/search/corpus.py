@@ -13,11 +13,12 @@ first; ties go to the lowest index) only if its novelty is at least
 
 The rule lives twice, as in the JAX package: :func:`harvest_fold` over
 tensors and :func:`host_harvest_fold` over numpy arrays, equal bit for bit.
-The serial sweep folds on the host: the retiring tail's rows come to the
-host with the retire pull it pays anyway, and a sequential fold of a few
-thousand rows is a few thousand launches as torch ops but one pass in
-numpy. Signatures are carried as int64 values in ``[0, 2^32)`` on the
-device and as ``uint32`` on the host.
+The sweep folds on the engine's device: on CUDA tensors
+:func:`harvest_fold` is one launch of the hand-written kernel
+``csrc/corpus_fold.cu`` (:mod:`.fold_kernel`), on the CPU its plain
+version, a loop of torch ops (:func:`harvest_fold_plain`). The host twin
+serves ``merge_corpus``. Signatures are carried as int64 values in
+``[0, 2^32)`` on the device and as ``uint32`` on the host.
 """
 from __future__ import annotations
 
@@ -114,13 +115,35 @@ def harvest_fold(corpus: CorpusState, sched: torch.Tensor,
     ``sched`` (W, F, 4), ``sigs`` (W,) u32 values, ``fold_mask`` (W,) bool;
     ``entries``/``depths`` the candidates' lineage lanes (default -1 / 0).
     Returns the corpus and the insert count, and with ``with_masks`` the
-    per-row ``(novel, inserted)`` masks."""
+    per-row ``(novel, inserted)`` masks.
+
+    On CUDA tensors the fold is one launch of the hand-written kernel
+    (:mod:`.fold_kernel`, ``csrc/corpus_fold.cu``); on the CPU it is this
+    loop of torch ops, the kernel's plain version."""
     w = sigs.shape[0]
     dev = sigs.device
     if entries is None:
         entries = torch.full((w,), -1, dtype=torch.int32, device=dev)
     if depths is None:
         depths = torch.zeros((w,), dtype=torch.int32, device=dev)
+    if dev.type == "cuda":
+        from .fold_kernel import harvest_fold_cuda
+
+        out = harvest_fold_cuda(corpus, sched, sigs, fold_mask, min_novelty,
+                                entries, depths)
+        return out if with_masks else out[:2]
+    return harvest_fold_plain(corpus, sched, sigs, fold_mask, min_novelty,
+                              entries, depths, with_masks)
+
+
+def harvest_fold_plain(corpus: CorpusState, sched: torch.Tensor,
+                       sigs: torch.Tensor, fold_mask: torch.Tensor,
+                       min_novelty: int, entries: torch.Tensor,
+                       depths: torch.Tensor, with_masks: bool = False):
+    """:func:`harvest_fold` as torch ops on any device: the plain version of
+    the fold kernel (``entries``/``depths`` given)."""
+    w = sigs.shape[0]
+    dev = sigs.device
     sigs = sigs.to(torch.int64)
     c = corpus
     n_ins = torch.zeros((), dtype=torch.int32, device=dev)

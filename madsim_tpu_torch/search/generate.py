@@ -14,13 +14,12 @@ the generator
    generation)``.
 
 :func:`generate_body` and :func:`generate_body_lineage` are the JAX
-callables' counterparts over tensors (their fold is
-:func:`~madsim_tpu_torch.search.corpus.harvest_fold`, a loop of torch
-ops); :func:`searcher` caches them per engine. The serial sweep splits the
-two halves: it folds on the host (``host_harvest_fold``) over the retiring
-rows its retire pull brings back, and generates on the device with
-:func:`generate_children` — the same corpus decisions and children, bit
-for bit, without a launch per folded row.
+callables' counterparts over tensors; :func:`searcher` caches them per
+engine. Their fold is
+:func:`~madsim_tpu_torch.search.corpus.harvest_fold`: on CUDA one launch
+of the hand-written fold kernel (``csrc/corpus_fold.cu``), on the CPU its
+plain version. Every sweep loop runs them on the engine's device at each
+refill (the fused hunt inside its device loop, behind a gate).
 """
 from __future__ import annotations
 
@@ -36,16 +35,24 @@ from .mutate import make_children
 def generate_body(eng_cfg, scfg: SearchConfig, w: int):
     """The harvest and generate step: ``(state, sched, idx, corpus, n_act,
     new_ids) -> (children, corpus', (n_filled, n_inserted))`` over a
-    compacted batch (rows past ``n_act`` retiring)."""
-    def run(state, sched, idx, corpus: CorpusState, n_act, new_ids):
+    compacted batch (rows past ``n_act`` retiring).
+
+    ``gate`` (a device bool scalar; the fused hunt's epoch trigger): where
+    it is False the fold takes no row and the generation counter stays, so
+    the corpus comes back unchanged (the children are then discarded)."""
+    def run(state, sched, idx, corpus: CorpusState, n_act, new_ids,
+            gate=None):
         if scfg.guided:
             sigs = behavior_signature(state.metrics)
             hmask = retiring_mask(w, n_act, idx, state.active)
+            if gate is not None:
+                hmask = hmask & gate
             corpus, _ = harvest_fold(corpus, sched, sigs, hmask,
                                      scfg.min_novelty)
         gen1 = corpus.gen + 1
         children = make_children(scfg, eng_cfg, corpus, new_ids, gen1)
-        corpus = corpus._replace(gen=gen1)
+        corpus = corpus._replace(gen=gen1 if gate is None else
+                                 corpus.gen + gate.to(torch.int32))
         n_filled = torch.sum(corpus.filled, dtype=torch.int32)
         return children, corpus, (n_filled, corpus.inserted)
 
@@ -59,13 +66,16 @@ def generate_body_lineage(eng_cfg, scfg: SearchConfig, w: int):
     scalars ``(n_filled, inserted_total, gen, refill_novel,
     refill_inserted)``."""
     def run(state, sched, idx, corpus: CorpusState, n_act, new_ids,
-            fill_mask, lin: LineageLanes, op_tab: OperatorTable, lin_base):
+            fill_mask, lin: LineageLanes, op_tab: OperatorTable, lin_base,
+            gate=None):
         dev = idx.device
         n_ins = torch.zeros((), dtype=torch.int32, device=dev)
         nov_m = torch.zeros((w,), dtype=torch.bool, device=dev)
         if scfg.guided:
             sigs = behavior_signature(state.metrics)
             hmask = retiring_mask(w, n_act, idx, state.active)
+            if gate is not None:
+                hmask = hmask & gate
             obits = ops_bits(lin.ops)
             # A retiring world's entry id: its seed position + 1, offset.
             entries = torch.where(idx >= 0, lin_base + idx + 1,
@@ -82,7 +92,8 @@ def generate_body_lineage(eng_cfg, scfg: SearchConfig, w: int):
         op_tab = op_tab._replace(
             produced=credit(op_tab.produced, ops_bits(child_lin.ops),
                             fill_mask))
-        corpus = corpus._replace(gen=gen1)
+        corpus = corpus._replace(gen=gen1 if gate is None else
+                                 corpus.gen + gate.to(torch.int32))
         n_filled = torch.sum(corpus.filled, dtype=torch.int32)
         stats = (n_filled, corpus.inserted, corpus.gen,
                  torch.sum(nov_m, dtype=torch.int32), n_ins)
@@ -102,12 +113,3 @@ def searcher(eng, scfg: SearchConfig, w: int, f_rows: int):
         body = generate_body_lineage if scfg.lineage else generate_body
         cache[key] = body(eng.cfg, scfg, w)
     return cache[key]
-
-
-def generate_children(eng_cfg, scfg: SearchConfig, corpus: CorpusState,
-                      new_ids: torch.Tensor, lineage: bool):
-    """The generate half alone, on a corpus already harvested: the
-    children of generation ``corpus.gen + 1`` (and their lanes with
-    ``lineage``)."""
-    return make_children(scfg, eng_cfg, corpus, new_ids, corpus.gen + 1,
-                         lineage=lineage)

@@ -179,18 +179,27 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take():
     before = step_kernel.launches
     te.run_steps(state, 2)
     assert step_kernel.launches == before
-    for over, err in ((dict(packed=False), NotImplementedError),
-                      (dict(queue_cap=300), ValueError),
+    for over, err in ((dict(queue_cap=300), ValueError),
                       (dict(payload_words=17), ValueError),
                       (dict(pallas_block=2048), ValueError)):
         _, eng = engines(rk, ck, **over)
         with pytest.raises(err):
             step_kernel.kernel_params(eng)
+    # The wide lane profile has its instantiations: the same parameters,
+    # and a tile plan of int32 commit and log rows (odd strides) with
+    # payload rows moved as two 16-byte vectors.
+    _, wide = engines(rk, ck, packed=False)
+    assert step_kernel.kernel_params(wide) == step_kernel.kernel_params(te)
+    plan = step_kernel.engine_plan(wide)
+    assert plan.commit_stride % 2 == 1 and plan.log_stride % 2 == 1
+    assert plan.commit_unit == plan.log_unit == 4 and plan.pay_unit == 16
+    assert step_kernel.engine_plan(te).pay_unit == 16
     _, eng = engines(dict(rk, log_cap=65), ck)
     with pytest.raises(ValueError, match="log_cap"):
         step_kernel.kernel_params(eng)
     # Two-phase commit, primary-backup, Paxos and both pair families have
-    # policies in the kernel; packed=False raises, naming its ROADMAP item.
+    # policies in the kernel, in both lane profiles: packed=False takes the
+    # same parameters and every actor lane int32.
     from madsim_tpu_torch.actorc.families.paxos import (PaxosActor,
                                                         PaxosConfig,
                                                         engine_config)
@@ -211,10 +220,17 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take():
         eng = T.DeviceEngine(actor, T.EngineConfig(**ck2), device="cpu")
         assert step_kernel.kernel_params(eng)[3] == \
             step_kernel.family_of(actor).id
-        eng = T.DeviceEngine(actor, T.EngineConfig(**dict(ck2, packed=False)),
-                             device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue B f"):
+        wide = T.DeviceEngine(actor,
+                              T.EngineConfig(**dict(ck2, packed=False)),
+                              device="cpu")
+        assert step_kernel.kernel_params(wide) == \
             step_kernel.kernel_params(eng)
+        fam = step_kernel.family_of(actor)
+        assert step_kernel.family_lanes(fam, False) == tuple(
+            (name[len("astate."):], dtype) for name, dtype, _
+            in wide.state_layout() if name.startswith("astate."))
+        assert all(dtype == torch.int32 for _n, dtype
+                   in step_kernel.family_lanes(fam, False))
     # An actor the kernel has no policy for raises, naming the routes.
     with pytest.raises(NotImplementedError, match="paxos, pair_restart"):
         step_kernel.family_of(object())

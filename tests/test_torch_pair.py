@@ -209,12 +209,18 @@ def test_kernel_records_of_the_new_families():
     _je, te = engines("guided_pair")
     assert step_kernel.family_of(te.actor).max_n == 12
     assert step_kernel.engine_plan(te).block == 128
-    for over, err in ((dict(outbox_cap=3), "outbox_cap == 2"),
-                      (dict(packed=False), "Queue B f")):
+    for over, err in ((dict(outbox_cap=3), "outbox_cap == 2"),):
         bad = T.DeviceEngine(te.actor, dataclasses.replace(te.cfg, **over),
                              device="cpu")
         with pytest.raises((ValueError, NotImplementedError), match=err):
             step_kernel.kernel_params(bad)
+    # The wide lane profile: the same parameters, int32 lanes.
+    wide = T.DeviceEngine(te.actor, dataclasses.replace(te.cfg,
+                                                        packed=False),
+                          device="cpu")
+    assert step_kernel.kernel_params(wide) == step_kernel.kernel_params(te)
+    assert step_kernel.family_lanes(step_kernel.family_of(te.actor),
+                                    False) == (("restarts", torch.int32),)
     # Paxos's five-word payload: element-wise payload rows.
     _je, te = engines("paxos")
     assert step_kernel.engine_plan(te).pay_unit == 2
