@@ -11,7 +11,10 @@ policies, then the coverage-guided schedule search
 (``sweep(..., search=SearchConfig(..))``) over the Paxos and pair-restart
 families through theirs, each sweep through the serial, the pipelined
 (the default) and the fused loop, and every family in the wide lane
-profile (``EngineConfig(packed=False)``) too. Phases, in order; any
+profile (``EngineConfig(packed=False)``) too; then the sweeps'
+checkpoints and resumes (``sweep(checkpoint_path=..., resume=True)``),
+``crosscheck_backends`` (CUDA against the CPU) and
+``EngineConfig(sequential_insert=True)``. Phases, in order; any
 failure exits non-zero:
 
 1. card: name and power limit; uint32 <-> int64 round trip on CUDA tensors;
@@ -95,7 +98,22 @@ failure exits non-zero:
    kernel's ms and the device idle share; (b) the Paxos hunt at the width
    of phase 7's sweeps (65,536 seeds through 8,192 slots), guided, to its
    first bug, which fails again in an independent ``init`` + ``run`` under
-   the schedule the search materialized for it.
+   the schedule the search materialized for it;
+9. checkpoints and the crosscheck on the card: (a) phase 7's sweep (b)
+   with a checkpoint writer every 4 chunks, serial and pipelined, each
+   equal to the unbroken sweep and timed beside the same loop without a
+   writer, with the snapshots written, their bytes and write times, and
+   the states the writer was handed held to synchronous copies taken at
+   the same submits (serial); (b) the same sweep cut at chunk 20 and
+   resumed in a fresh engine, in both loops; (c) the guided Paxos hunt of
+   phase 8 cut after its second refill and resumed in a fresh engine, in
+   both loops, holding the JAX pins, and ``fused=True`` refusing a
+   ``checkpoint_path``; (d) ``crosscheck_backends``, CUDA against the
+   CPU at W=1,024, on the Raft hunt with kill/restart, the pb hunt and
+   Paxos in the wide profile, and a checkpoint written on the card loaded
+   in a CPU engine, both then 64 steps on; (e) the kernel against the
+   plain step with ``sequential_insert=True`` (the Raft hunt with
+   kill/restart, tpc) at W=4096, and both against the run without it.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it lists each kernel route (the step kernel with Raft's, tpc's,
@@ -1858,6 +1876,400 @@ def main() -> int:
             f"kernel {mean(fold_ms):.3f} ms over {len(fold_ms)} (replay); "
             f"kernel device time {sum(chunk_ms):.3f} ms, device idle share "
             f"{1 - sum(chunk_ms) / (wall * 1e3):.3f}" + extra)
+    # ---- 9. checkpoints and the crosscheck on the card --------------------
+    # (a) phase 7's sweep (b), every seed to retirement, with a checkpoint
+    # writer (every 4 chunks) in the serial and the pipelined loop, each
+    # beside the same loop's run without one; the states the writer was
+    # handed held to synchronous copies taken at the same submits (the
+    # serial loop); (b) the same sweep cut at chunk 20 and resumed in a
+    # fresh engine, in both loops; (c) the guided Paxos hunt of phase 8 cut
+    # after its second refill and resumed in a fresh engine, in both loops;
+    # (d) crosscheck_backends, CUDA against the CPU, at W = 1,024, and a
+    # checkpoint written on the card loaded in a CPU engine; (e) the kernel
+    # against the plain step with sequential_insert=True.
+    import hashlib
+    import shutil
+    import tempfile
+
+    from madsim_tpu_torch.engine import checkpoint as ckpt
+    from madsim_tpu_torch.engine.convert import to_numpy
+    from madsim_tpu_torch.engine.crosscheck import crosscheck_backends
+
+    t9 = time.perf_counter()
+    ckpt_dir = tempfile.mkdtemp(prefix=".ckpt_", dir=HERE)
+    seeds = np.arange(w)
+    every = 4
+    ck_leg = dict(leg_b, checkpoint_every_chunks=every)
+
+    def same_outcome(a, b):
+        """Whether two SweepResults agree on what the JAX package's resume
+        tests compare: observations (the metrics block among them), the
+        failing seeds, the coverage ledger's hits and first-seen seeds,
+        the search's report."""
+        ok = (a.failing_seeds == b.failing_seeds
+              and sorted(a.observations) == sorted(b.observations)
+              and all(np.array_equal(a.observations[k], b.observations[k])
+                      for k in a.observations))
+        if a.coverage is not None:
+            ok = ok and all(np.array_equal(getattr(a.coverage, f),
+                                           getattr(b.coverage, f))
+                            for f in ("hits", "first_seen_seed"))
+        if a.search is not None:
+            ok = ok and (golden.search_digest(a.search)
+                         == golden.search_digest(b.search)
+                         and a.search.operator_stats
+                         == b.search.operator_stats)
+        return ok
+
+    def digest(leaves):
+        h = hashlib.sha256()
+        for a in leaves:
+            h.update(np.ascontiguousarray(a).tobytes())
+        return h.hexdigest()
+
+    # The writer's saves, timed on its thread: (seconds, bytes, digest of
+    # the leaves it was handed or None, the leaves or None).
+    saves, keep = [], {"digest": False, "whole": 0}
+    real_save = ckpt.save
+
+    def timed_save(engine, state, path, **kw):
+        t0 = time.perf_counter()
+        real_save(engine, state, path, **kw)
+        dt = time.perf_counter() - t0
+        leaves = [to_numpy(x) for x in tree_leaves(state)]
+        saves.append((dt, os.path.getsize(path),
+                      digest(leaves) if keep["digest"] else None,
+                      leaves if len(saves) < keep["whole"] else None))
+
+    def ckpt_log(tag, loop, wall, wall_off, launched, walls):
+        n_s = len(saves)
+        mb = sum(s[1] for s in saves) / max(n_s, 1) / 1e6
+        ws = [s[0] * 1e3 for s in saves]
+        log(f"[9 ckpt {tag}] {loop}: wall {wall * 1e3:.2f} ms with the "
+            f"writer against {wall_off * 1e3:.2f} ms without "
+            f"({(wall / wall_off - 1) * 100:+.1f}%; best of 2 each, in "
+            f"turns: without {[round(x * 1e3, 2) for x in walls['off']]}, "
+            f"with {[round(x * 1e3, 2) for x in walls['on']]}); {n_s} "
+            f"snapshots written over the two runs, {mb:.3f} MB each, write "
+            f"{min(ws):.1f}-{max(ws):.1f} ms (mean "
+            f"{sum(ws) / max(n_s, 1):.1f}) on the writer's thread; "
+            f"{launched} step launches")
+
+    ckpt.save = timed_save
+    real_submit = sweep_mod._AsyncCheckpointer.submit
+    ckpt_launches = {}
+
+    def add_launches(route, n):
+        ckpt_launches[route] = ckpt_launches.get(route, 0) + n
+
+    walls_off = {}
+    try:
+        # (a) the whole sweep with a writer, beside the same loop without,
+        # in turns (without, with, with, without); the best of each pair.
+        for loop in ("serial", "pipeline"):
+            kw = dict(ck_leg, pipeline=loop == "pipeline")
+            off = dict(leg_b, pipeline=loop == "pipeline")
+            path = os.path.join(ckpt_dir, f"a_{loop}.npz")
+            walls = {"off": [], "on": []}
+            saves.clear()
+            keep.update(digest=False, whole=0)
+            step_kernel.launches = 0
+            for turn in ("off", "on", "on", "off"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if turn == "off":
+                    sweep(None, eng_m.cfg, seeds, engine=eng_m, **off)
+                else:
+                    res = sweep(None, eng_m.cfg, seeds, engine=eng_m,
+                                checkpoint_path=path, **kw)
+                torch.cuda.synchronize()
+                walls[turn].append(time.perf_counter() - t0)
+                if turn == "on":
+                    check(same_outcome(res_b, res), f"checkpointed sweep "
+                          f"{loop}: the result differs from phase 7's "
+                          f"unbroken sweep")
+            launched = step_kernel.launches
+            add_launches("raft", launched)
+            check(launched > 0, f"checkpointed sweep {loop}: the step "
+                  f"kernel never launched")
+            check(saves and ckpt.read_meta(path)["n_worlds"] == batch_w,
+                  f"checkpointed sweep {loop}: no full-width snapshot")
+            wall_off = walls_off[loop] = min(walls["off"])
+            ckpt_log("a", loop, min(walls["on"]), wall_off, launched,
+                     walls)
+        # Where the writer's cost goes (serial loop): the same sweep with
+        # the file write taken out (the device copies, the pull to the
+        # host and the aux's concatenation stay), and with a snapshot
+        # every 16 chunks.
+        for what, every_v, write in (("no file write", every, False),
+                                     ("every 16 chunks", 16, True)):
+            saves.clear()
+            if not write:
+                ckpt.save = (lambda engine, state, path, **kw:
+                             saves.append((0.0, 0, None, None)))
+            step_kernel.launches = 0
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = sweep(None, eng_m.cfg, seeds, engine=eng_m,
+                            checkpoint_path=os.path.join(ckpt_dir,
+                                                         "a_var.npz"),
+                            **dict(ck_leg, pipeline=False,
+                                   checkpoint_every_chunks=every_v))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                ckpt.save = timed_save
+            add_launches("raft", step_kernel.launches)
+            check(same_outcome(res_b, res), f"checkpointed sweep, {what}: "
+                  f"the result differs from phase 7's unbroken sweep")
+            log(f"[9 ckpt a] serial, {what}: wall {wall * 1e3:.2f} ms "
+                f"against {walls_off['serial'] * 1e3:.2f} ms without a "
+                f"writer ({(wall / walls_off['serial'] - 1) * 100:+.1f}%); "
+                f"{len(saves)} snapshots taken by the writer")
+
+        # The torn-snapshot check: each state the writer was handed equals
+        # a synchronous copy of the live state taken at some submit.
+        submits = []
+
+        def checked_submit(self, state, aux=None):
+            torch.cuda.synchronize()
+            leaves = [np.array(to_numpy(x), copy=True)
+                      for x in tree_leaves(state)]
+            submits.append((digest(leaves),
+                            leaves if len(submits) < 4 else None))
+            return real_submit(self, state, aux)
+
+        sweep_mod._AsyncCheckpointer.submit = checked_submit
+        saves.clear()
+        keep.update(digest=True, whole=4)
+        try:
+            sweep(None, eng_m.cfg, seeds, engine=eng_m,
+                  checkpoint_path=os.path.join(ckpt_dir, "torn.npz"),
+                  **dict(ck_leg, pipeline=False))
+        finally:
+            sweep_mod._AsyncCheckpointer.submit = real_submit
+        names = tree_paths(eng_m.init(np.arange(1)))
+        by_digest = {d: i for i, (d, _l) in enumerate(submits)}
+        for j, (_dt, _b, d, leaves) in enumerate(saves):
+            i = by_digest.get(d)
+            if i is None:
+                ref_leaves = submits[min(j, 3)][1]
+                torn = [n for n, a, b in zip(names, leaves or [],
+                                             ref_leaves or [])
+                        if not np.array_equal(a, b)]
+                check(False, f"torn snapshot: write {j} equals no state "
+                      f"submitted (first differing leaves {torn[:4]})")
+            if leaves is not None and submits[i][1] is not None:
+                for n, a, b in zip(names, leaves, submits[i][1]):
+                    check(a.dtype == b.dtype and np.array_equal(a, b),
+                          f"torn snapshot: write {j}, leaf {n}")
+        whole = sum(1 for s in saves
+                    if s[3] is not None and submits[by_digest[s[2]]][1]
+                    is not None)
+        log(f"[9 ckpt a] torn-snapshot check (serial): {len(saves)} writes "
+            f"of {len(submits)} submits (latest wins), each equal to the "
+            f"synchronous copy of the state at its submit; {whole} "
+            f"compared leaf by leaf, every write by its sha256")
+
+        # (b) cut at chunk 20, resumed in a fresh engine.
+        for loop in ("serial", "pipeline"):
+            path = os.path.join(ckpt_dir, f"b_{loop}.npz")
+            kw = dict(ck_leg, pipeline=loop == "pipeline",
+                      checkpoint_path=path)
+            step_kernel.launches = 0
+            t0 = time.perf_counter()
+            part = sweep(None, eng_m.cfg, seeds, engine=eng_m,
+                         **dict(kw, max_steps=64 * 20))
+            check(part.steps_run == 64 * 20 and part.loop_stats["chunks"]
+                  == 20, f"cut sweep {loop}: not cut at chunk 20")
+            fresh = hunt_engine(stop_on_bug=True, metrics=True)
+            res = sweep(None, fresh.cfg, seeds, engine=fresh, resume=True,
+                        **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            add_launches("raft", step_kernel.launches)
+            check(same_outcome(res_b, res), f"resumed sweep {loop}: the "
+                  f"result differs from phase 7's unbroken sweep")
+            log(f"[9 ckpt b] {loop}: cut at chunk 20 ({w} seeds through "
+                f"{batch_w} slots), resumed in a fresh engine for "
+                f"{res.loop_stats['chunks']} more chunks: equal to the "
+                f"unbroken sweep; {wall * 1e3:.1f} ms for both calls, "
+                f"{len(saves)} snapshots so far")
+
+        # (c) the guided Paxos hunt, cut after its second refill.
+        hunt = hunts.paxos_hunt()
+        pk = dict(faults=hunt.template, search=hunt.search(True),
+                  stop_on_first_bug=golden.HUNT_STOP_FIRST["paxos"],
+                  **hunt.sweep_kw)
+        pseeds = np.arange(golden.HUNT_BUDGET)
+        want = golden.HUNT_PINS["paxos"]["guided"]
+        step_kernel.launches = 0
+        f0 = fold_kernel.launches
+        ref = sweep(None, hunt.cfg, pseeds, pipeline=False,
+                    engine=DeviceEngine(hunt.actor, hunt.cfg, device=dev),
+                    **pk)
+        check(golden.hunt_pins(ref) == want, "guided Paxos hunt: the pins "
+              "differ from JAX's")
+        half = hunt.sweep_kw["batch_worlds"] // 2
+        refills = [i for i, a in enumerate(ref.n_active_history)
+                   if a <= half]
+        cut = refills[1] + 1
+        for loop in ("serial", "pipeline"):
+            path = os.path.join(ckpt_dir, f"c_{loop}.npz")
+            kw = dict(pk, pipeline=loop == "pipeline", checkpoint_path=path,
+                      checkpoint_every_chunks=1)
+            t0 = time.perf_counter()
+            part = sweep(None, hunt.cfg, pseeds,
+                         engine=DeviceEngine(hunt.actor, hunt.cfg,
+                                             device=dev),
+                         **dict(kw, max_steps=cut
+                                * hunt.sweep_kw["chunk_steps"]))
+            check(part.search.generations >= 2, f"guided Paxos {loop}: "
+                  f"the cut came before the second refill")
+            res = sweep(None, hunt.cfg, pseeds, resume=True,
+                        engine=DeviceEngine(hunt.actor, hunt.cfg,
+                                            device=dev), **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            pins = golden.hunt_pins(res)
+            check(pins == want, f"guided Paxos {loop} resumed: {pins} "
+                  f"differ from the JAX pins {want}")
+            check(same_outcome(ref, res), f"guided Paxos {loop} resumed: "
+                  f"the result differs from the unbroken hunt's")
+            log(f"[9 ckpt c] guided Paxos hunt {loop}, {len(pseeds)} "
+                f"seeds: cut after chunk {cut} ({part.search.generations} "
+                f"refills), resumed in a fresh engine: the JAX pins hold "
+                f"(seeds to bug {pins['seeds_to_bug']}, generations "
+                f"{pins['generations']}, corpus {pins['corpus_size']}) and "
+                f"every result equals the unbroken hunt's; "
+                f"{wall * 1e3:.1f} ms for both calls")
+        add_launches("paxos", step_kernel.launches)
+        ckpt_folds = fold_kernel.launches - f0
+        check(ckpt_folds > 0, "guided Paxos: the fold kernel never "
+              "launched")
+        try:
+            sweep(None, hunt.cfg, pseeds, fused=True,
+                  engine=DeviceEngine(hunt.actor, hunt.cfg, device=dev),
+                  checkpoint_path=os.path.join(ckpt_dir, "fused.npz"), **pk)
+            check(False, "fused=True took a checkpoint_path")
+        except ValueError as exc:
+            check("fused=True cannot checkpoint" in str(exc),
+                  f"fused=True refused a checkpoint with {exc}")
+        log("[9 ckpt c] fused=True with checkpoint_path: refused with the "
+            "JAX package's ValueError")
+    finally:
+        ckpt.save = real_save
+        sweep_mod._AsyncCheckpointer.submit = real_submit
+
+    # (d) crosscheck_backends, CUDA against the CPU, at W = 1,024.
+    w_x = 1024
+    legs = [
+        ("hunt_faults", golden.CONFIGS["hunt_faults"][:2],
+         golden.CONFIGS["hunt_faults"][2], {}, "raft"),
+        ("pb_hunt", golden.FAMILY_CONFIGS["pb_hunt"][:3],
+         golden.FAMILY_CONFIGS["pb_hunt"][3], {}, "pb"),
+        ("paxos_hunt:wide", golden.SEARCH_CONFIGS["paxos_hunt"][:3],
+         golden.SEARCH_CONFIGS["paxos_hunt"][3], dict(packed=False),
+         "paxos:wide"),
+    ]
+    for name, cfgs, faults, over, route in legs:
+        eng = make_engine(cfgs, **over)
+        step_kernel.launches = 0
+        t0 = time.perf_counter()
+        try:
+            summary = crosscheck_backends(eng, np.arange(w_x),
+                                          faults=np.asarray(faults,
+                                                            np.int32))
+        except AssertionError as exc:
+            check(False, f"crosscheck {name}: {exc}")
+        wall = time.perf_counter() - t0
+        launched = step_kernel.launches
+        check(launched > 0 and summary["platform_a"] == "cuda"
+              and summary["platform_b"] == "cpu", f"crosscheck {name}: "
+              f"the CUDA leg did not run ({summary})")
+        log(f"[9 crosscheck] {name}: W={w_x}, {summary['n_leaves']} leaves "
+            f"and every observe() key bitwise equal, CUDA ({launched} step "
+            f"launches) against the CPU's plain step; {wall:.2f} s for both "
+            f"runs")
+    # A checkpoint written on the card, loaded in a CPU engine; both
+    # advance 64 steps.
+    cfgs = golden.CONFIGS["hunt_faults"][:2]
+    faults = np.asarray(golden.CONFIGS["hunt_faults"][2], np.int32)
+    eng_g = make_engine(cfgs)
+    step_kernel.launches = 0
+    state_g = eng_g.run_steps(eng_g.init(np.arange(w_x), faults=faults), 200)
+    path = os.path.join(ckpt_dir, "card.npz")
+    ckpt.save(eng_g, state_g, path)
+    eng_c = DeviceEngine(eng_g.actor, eng_g.cfg, device="cpu")
+    state_c = ckpt.load(eng_c, path)
+    eng_g.run_steps(state_g, 64)
+    eng_c.run_steps(state_c, 64)
+    for n, a, b in zip(tree_paths(state_g), tree_leaves(state_g),
+                       tree_leaves(state_c)):
+        check(np.array_equal(to_numpy(a), to_numpy(b)),
+              f"card checkpoint on the CPU: leaf {n} differs after 64 steps")
+    log(f"[9 crosscheck] a checkpoint written on the card at step 200 "
+        f"(W={w_x}, {os.path.getsize(path) / 1e6:.3f} MB) loads in a CPU "
+        f"engine; 64 more steps on each: every leaf bitwise equal")
+
+    # (e) sequential_insert=True: the kernel against the plain step (whose
+    # insert is then the chain of single pushes), and both against the
+    # kernel's run without the flag.
+    seq_cfgs = [
+        ("hunt_kill_restart", golden.CONFIGS["hunt_faults"][:2],
+         np.asarray(golden.CONFIGS["hunt_faults"][2], np.int32), 4_000,
+         "raft"),
+        ("tpc_crosscheck", golden.FAMILY_CONFIGS["tpc_crosscheck"][:3],
+         None, 5_000, "tpc"),
+    ]
+    for name, cfgs, faults, max_steps, route in seq_cfgs:
+        t0 = time.perf_counter()
+        seeds_s = np.arange(W_COMPARE)
+        eng_s = make_engine(cfgs, sequential_insert=True)
+        eng_d = make_engine(cfgs)
+        step_kernel.launches = 0
+        ks_state = eng_s.init(seeds_s, faults=faults)
+        pl_state = eng_s.init(seeds_s, faults=faults)
+        d_state = eng_d.init(seeds_s, faults=faults)
+        first, err = diff(ks_state, d_state)
+        check(first is None, f"{name}: the push chain's init differs from "
+              f"push_many's on leaf {first}")
+        steps = 0
+        while steps < max_steps and bool(ks_state.active.any()):
+            eng_s.step(ks_state)
+            pl_state = eng_s.step_plain(pl_state)
+            steps += 1
+            if steps <= COMPARE_EVERY_STEP or steps % 64 == 0:
+                first, err = diff(ks_state, pl_state)
+                check(first is None, f"{name} sequential_insert: kernel "
+                      f"and plain step differ first on leaf {first} after "
+                      f"step {steps} (max abs err {err})")
+        first, err = diff(ks_state, pl_state)
+        check(first is None, f"{name} sequential_insert: kernel and plain "
+              f"step differ at the end on leaf {first}")
+        eng_d.run_steps(d_state, steps)
+        first, _err = diff(ks_state, d_state)
+        check(first is None, f"{name}: the run with sequential_insert "
+              f"differs from the run without on leaf {first}")
+        fam_err[route] = max(fam_err.get(route, 0.0), err)
+        obs = eng_s.observe(ks_state)
+        check(not obs["active"].any() and obs["bug"].any(),
+              f"{name} sequential_insert: the run did not end in bugs")
+        log(f"[9 seq insert] {name}: W={W_COMPARE}, {steps} steps, kernel "
+            f"and the plain step's chain of pushes bitwise equal (every "
+            f"step to 64, every 64th after, the end), and equal to the "
+            f"run without the flag (bug {int(obs['bug'].sum())}) in "
+            f"{time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    # The checkpointed sweeps are the main path's; the comparisons of (d)
+    # and (e) are not counted.
+    sweep_launches += ckpt_launches["raft"]
+    hunt_launches["paxos"] += ckpt_launches["paxos"]
+    fold_launches += ckpt_folds
+    log(f"[9] phase 9 took {time.perf_counter() - t9:.1f} s; the "
+        f"checkpointed sweeps' step kernel launches by route "
+        f"{ckpt_launches}, fold launches {ckpt_folds}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(card)

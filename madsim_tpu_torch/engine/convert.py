@@ -13,7 +13,33 @@ from typing import List
 import numpy as np
 import torch
 
-from .core import EngineConfig, WorldState, tree_leaves, tree_unflatten
+from .core import (
+    EngineConfig,
+    WorldState,
+    tree_leaves,
+    tree_paths,
+    tree_unflatten,
+)
+
+
+def to_numpy(x) -> np.ndarray:
+    """A tensor on any device (or an array) as a host numpy array in its
+    own dtype; uint32 storage crosses as its int32 bits."""
+    if isinstance(x, torch.Tensor):
+        if x.dtype == torch.uint32:
+            return x.view(torch.int32).cpu().numpy().view(np.uint32)
+        return x.cpu().numpy()
+    return np.asarray(x)
+
+
+def from_numpy(a: np.ndarray, device) -> torch.Tensor:
+    """A host array as a tensor of its dtype on ``device`` (a copy; the
+    inverse of :func:`to_numpy`)."""
+    a = np.array(a, order="C", copy=True)
+    if a.dtype == np.uint32:
+        return torch.from_numpy(a.view(np.int32)).to(device).view(
+            torch.uint32)
+    return torch.from_numpy(a).to(device)
 
 
 def state_template(actor, cfg: EngineConfig) -> WorldState:
@@ -27,28 +53,26 @@ def state_template(actor, cfg: EngineConfig) -> WorldState:
 
 def state_from_numpy(leaves: List[np.ndarray], cfg: EngineConfig, actor,
                      device) -> WorldState:
-    """Build the port's state from numpy leaves in ``jax.tree.leaves``
-    order (38 for Raft; a compiled actor's lanes in sorted name order).
-    Dtypes are kept, so a packed JAX state stays packed; ``cfg`` is checked
-    against the queue's shape."""
+    """Build the port's state on ``device`` from numpy leaves in
+    ``jax.tree.leaves`` order (38 for Raft; a compiled actor's lanes in
+    sorted name order). Dtypes are kept, so a packed JAX state stays
+    packed; each leaf's dtype and per-world shape are checked against the
+    state ``actor`` makes under ``cfg`` (ValueError naming the leaf)."""
     tpl = state_template(actor, cfg)
     n_expected = len(tree_leaves(tpl))
     if len(leaves) != n_expected:
         raise ValueError(f"expected {n_expected} leaves, got {len(leaves)}")
-    state = tree_unflatten(tpl, [
-        torch.from_numpy(np.array(x, order="C", copy=True)).to(device)
-        for x in leaves])
-    qshape = tuple(state.queue.payload.shape[1:])
-    if qshape != (cfg.queue_cap, cfg.payload_words):
-        raise ValueError(f"queue payload shape {qshape} does not match "
-                         f"EngineConfig (queue_cap={cfg.queue_cap}, "
-                         f"payload_words={cfg.payload_words})")
-    if state.queue.payload.dtype != cfg.lanes.payload:
-        raise ValueError(f"payload dtype {state.queue.payload.dtype} does "
-                         f"not match EngineConfig(packed={cfg.packed})")
-    return state
+    w = leaves[0].shape[0] if np.ndim(leaves[0]) else 0
+    for name, t, a in zip(tree_paths(tpl), tree_leaves(tpl), leaves):
+        want = str(t.dtype).replace("torch.", "")
+        shape = (w,) + tuple(t.shape[1:])
+        if str(a.dtype) != want or tuple(a.shape) != shape:
+            raise ValueError(f"leaf {name} is {a.dtype}{list(a.shape)}; "
+                             f"this EngineConfig and actor make "
+                             f"{want}{list(shape)}")
+    return tree_unflatten(tpl, [from_numpy(a, device) for a in leaves])
 
 
 def state_to_numpy(state: WorldState) -> List[np.ndarray]:
     """The state's leaves as host numpy arrays, in leaf order."""
-    return [x.cpu().numpy() for x in tree_leaves(state)]
+    return [to_numpy(x) for x in tree_leaves(state)]

@@ -55,6 +55,7 @@ from .queue import (
     empty_queue,
     insert_metrics,
     pop_indexed,
+    push,
     push_many,
 )
 from .rng import DevRng, _u32_to_range, _u32_to_unit_f32, make_rng, next_u32_vec
@@ -105,6 +106,12 @@ class EngineConfig:
     effect: on a CUDA device the step is always the hand-written kernel, on
     the CPU always the plain step. ``pallas_block`` is the number of worlds
     per CUDA block (default :data:`DEFAULT_BLOCK`).
+
+    ``sequential_insert=True`` makes the plain step and ``init`` insert
+    with the chain of single pushes (``queue.push``) in place of the one
+    pass of ``queue.push_many``, as in the JAX package, where it pins the
+    contract that the two are bitwise equal. The kernel's rank insert is
+    ``push_many``'s function, so on CUDA the flag changes only ``init``.
     """
 
     n_nodes: int
@@ -142,10 +149,6 @@ class EngineConfig:
         if self.blackbox < 0:
             raise ValueError("blackbox must be 0 (off) or a positive ring "
                              "depth K (events/world)")
-        if self.sequential_insert:
-            raise NotImplementedError(
-                "EngineConfig(sequential_insert=True) is not ported "
-                "(ROADMAP Queue A item 4, remaining)")
 
     @property
     def lanes(self) -> Lanes:
@@ -538,7 +541,11 @@ class DeviceEngine:
                         payload_dtype=cfg.lanes.payload, device=dev)
         astate, events, rng = self.actor.init(cfg, rng)
         overflow = torch.zeros((w,), dtype=torch.bool, device=dev)
-        if events:
+        if cfg.sequential_insert:
+            for ev in events:
+                q, ok = push(q, ev)
+                overflow = overflow | ~ok
+        elif events:
             evs = Event(*[torch.stack(xs, dim=1) for xs in zip(*events)])
             q, oks, _ = push_many(q, evs)
             overflow = overflow | ~oks.all(dim=1)
@@ -551,8 +558,14 @@ class DeviceEngine:
                          src=torch.where(is_net, zeros, rows[..., 2]),
                          dst=torch.where(is_net, zeros, rows[..., 3]),
                          gen=zeros, payload=pay)
-            q, oks, _ = push_many(q, fevs, enable=rows[..., 0] >= 0)
-            overflow = overflow | ~oks.all(dim=1)
+            if cfg.sequential_insert:
+                for f in range(n_faults):
+                    q, ok = push(q, Event(*[x[:, f] for x in fevs]),
+                                 enable=rows[:, f, 0] >= 0)
+                    overflow = overflow | ~ok
+            else:
+                q, oks, _ = push_many(q, fevs, enable=rows[..., 0] >= 0)
+                overflow = overflow | ~oks.all(dim=1)
         n = cfg.n_nodes
         qd32 = queue_depth(q)
         qd = narrow(qd32, cfg.lanes.slot)
@@ -741,9 +754,22 @@ class DeviceEngine:
         evs = Event(time=t, kind=ob.kind, flags=flags,
                     src=src.to(torch.int32)[:, None].expand(-1, m), dst=dst,
                     gen=gen_dst, payload=ob.payload)
-        q, oks, n_ins = push_many(pre_q, evs, enable, clear=clear)
-        overflow = ws.overflow | ~oks.all(dim=1)
-        qdepth = ws.qdepth + narrow(n_ins, ws.qdepth.dtype)
+        if cfg.sequential_insert:
+            # The chain of M pushes into the popped queue (the JAX
+            # reference's equivalence path); the inserted count comes from
+            # the carried-depth invariant.
+            q, overflow = ws.queue, ws.overflow
+            for i in range(m):
+                q, ok = push(q, Event(*[x[:, i] for x in evs]),
+                             enable=enable[:, i])
+                overflow = overflow | ~ok
+            qd32 = queue_depth(q)
+            n_ins = qd32 - widen(ws.qdepth)
+            qdepth = narrow(qd32, ws.qdepth.dtype)
+        else:
+            q, oks, n_ins = push_many(pre_q, evs, enable, clear=clear)
+            overflow = ws.overflow | ~oks.all(dim=1)
+            qdepth = ws.qdepth + narrow(n_ins, ws.qdepth.dtype)
         qmax = torch.maximum(ws.qmax, qdepth)
         mb = ws.metrics
         if cfg.metrics:

@@ -8,10 +8,11 @@ module's, bit for bit:
 
 - pop takes the lowest slot holding the minimum time among eligible slots;
   with no eligible slot ``found`` is False even on a non-empty queue;
-- push_many puts the i-th enabled event into the i-th lowest free slot,
-  drops an event at ``INF_TIME`` with ok=True, reports ok=False for every
-  enabled event past the last free slot, and saturates the payload into
-  the at-rest lane dtype.
+- push puts an enabled event into the lowest free slot; push_many puts
+  the i-th enabled event into the i-th lowest free slot, as the chain of
+  pushes would. Both drop an event at ``INF_TIME`` with ok=True, report
+  ok=False for every enabled event past the last free slot, and saturate
+  the payload into the at-rest lane dtype.
 """
 from __future__ import annotations
 
@@ -95,6 +96,43 @@ def valid_mask(q: EventQueue) -> torch.Tensor:
 def depth(q: EventQueue) -> torch.Tensor:
     """(W,) int32 number of pending events."""
     return valid_mask(q).sum(dim=1, dtype=torch.int32)
+
+
+def push(q: EventQueue, ev: Event, enable=True
+         ) -> Tuple[EventQueue, torch.Tensor]:
+    """Insert one event per world into its first free slot.
+
+    ``ev`` fields are (W,) (payload (W, P)); ``enable`` a (W,) bool mask
+    or a Python bool. Returns ``(queue, ok)`` with ``ok`` (W,) bool:
+    False only where an enabled event found the queue full. A masked-out
+    push, and an event at ``INF_TIME`` (it could never fire, and would
+    alias the free-slot sentinel), change nothing and report ok=True. The
+    payload saturates into the at-rest lane dtype. Bitwise the JAX
+    ``push``; a chain of pushes equals one :func:`push_many`.
+    """
+    w = q.time.shape[0]
+    dev = q.time.device
+
+    def lane(x):
+        return torch.as_tensor(x, device=dev).to(torch.int32).expand(w)
+
+    t = lane(ev.time)
+    en = torch.as_tensor(enable, device=dev).to(torch.bool).expand(w) \
+        & (t < INF_TIME)
+    free = q.time == INF_TIME
+    free_any = free.any(dim=1)
+    # The first free slot: the free one with no free slot before it.
+    do = free & (prefix_count(free) == 0) & en[:, None]
+    meta = pack_meta(lane(ev.kind), lane(ev.flags), lane(ev.src),
+                     lane(ev.dst), lane(ev.gen))
+    pay = narrow(torch.as_tensor(ev.payload, device=dev).to(torch.int32),
+                 q.payload.dtype).expand(w, -1)
+    out = EventQueue(
+        time=torch.where(do, t[:, None], q.time),
+        meta=torch.where(do, meta[:, None], q.meta),
+        payload=torch.where(do[:, :, None], pay[:, None, :], q.payload),
+    )
+    return out, ~en | free_any
 
 
 def push_many(q: EventQueue, evs: Event, enable: Optional[torch.Tensor] = None,

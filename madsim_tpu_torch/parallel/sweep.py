@@ -45,21 +45,32 @@ corpus of parent schedules on the device (on CUDA the hand-written fold
 kernel ``csrc/corpus_fold.cu``) and refills the slots with mutated
 children generated there.
 
+With ``checkpoint_path`` the serial and the pipelined loop write the
+sweep to an npz file as they go (:class:`_AsyncCheckpointer`, a writer
+thread), and ``resume=True`` continues from it bitwise where it stopped,
+in a new engine and a new process; the file's format is the JAX
+package's, so a Raft sweep's checkpoint resumes in either package. The
+fused loop refuses checkpoints, as in JAX.
+
 Not ported here, each raising ``NotImplementedError`` naming its ROADMAP
-item: checkpoints, the observatory hooks, multi-device meshes and
+item: the observatory hooks, multi-device meshes and
 ``SweepResult.minimize``.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import os
 from time import perf_counter
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..engine import checkpoint as ckpt
+from ..engine.convert import from_numpy, to_numpy
 from ..engine.core import DeviceEngine, EngineConfig, Lookahead, tree_map
+from ..engine.queue import _wrap_i32
 from ..obs.blackbox import decode_ring, ring_depth, rings_from_observations
 from ..obs.coverage import (
     DEFAULT_BUCKETS,
@@ -217,6 +228,165 @@ def _observer(eng: DeviceEngine, state, idx):
     """Observations of an already split frozen batch (the shrink's tail),
     with its slot→seed index."""
     return eng.observe_device(state), idx
+
+
+# ---------------------------------------------------------------------------
+# The checkpoint writer
+# ---------------------------------------------------------------------------
+
+def _copy_tree(tree):
+    """A copy of every tensor of ``tree`` (dicts, tuples, lists; other
+    leaves kept), queued on the current stream: the step kernel and the
+    refills write state, ledger and search tensors in place, so the writer
+    reads copies taken at the submit point in stream order. A list is
+    copied too, as the loop appends to its own."""
+    if isinstance(tree, torch.Tensor):
+        if tree.dtype == torch.uint32:
+            return tree.view(torch.int32).clone().view(torch.uint32)
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: _copy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_copy_tree(v) for v in tree]
+    if isinstance(tree, tuple):
+        items = [_copy_tree(v) for v in tree]
+        return (type(tree)(*items) if hasattr(tree, "_fields")
+                else type(tree)(items))
+    return tree
+
+
+class _Snapshot(NamedTuple):
+    """A state copied on the device at one point of a loop (see
+    :func:`_copy_tree`), for the writer to take later."""
+
+    state: Any
+
+
+class _AsyncCheckpointer:
+    """The background checkpoint writer: the pull to the host and the npz
+    write overlap the sweep's next chunks.
+
+    :meth:`submit` queues device copies of the state and of every tensor
+    of the aux dict on the current stream, records an event behind them,
+    and hands them to the writer thread; the loop never waits. The thread
+    pulls the copies to the host on a stream of its own after that event
+    (so it neither waits for later chunks nor sees their writes), drops
+    them, and writes the file atomically (``engine/checkpoint.py``).
+
+    Latest-wins coalescing: a snapshot not yet started is replaced by the
+    next, since only the newest durable state matters and the write must
+    not hold the sweep back. A failed write is raised at the next
+    :meth:`submit`, or at :meth:`flush_and_close`.
+    """
+
+    def __init__(self, eng, path, extra_meta):
+        import threading
+
+        self._eng = eng
+        self._path = path
+        self._meta = extra_meta
+        self._cond = threading.Condition()
+        self._pending = None
+        self._busy = False
+        self._stop = False
+        self._error: Optional[BaseException] = None
+        self._thread = threading.Thread(
+            target=self._run, name="madsim-checkpointer", daemon=True)
+        self._thread.start()
+
+    @staticmethod
+    def snapshot(state) -> _Snapshot:
+        """Copy ``state`` now, in stream order, for a later :meth:`submit`
+        (the pipelined loop: the next superstep is queued before the host
+        knows whether this one crossed a checkpoint mark)."""
+        return _Snapshot(_copy_tree(state))
+
+    def submit(self, state, aux=None) -> None:
+        """Queue a snapshot of ``state`` (or a :meth:`snapshot` of it) and
+        of ``aux``, a dict of tensors, host arrays and lists of host arrays
+        (the writer concatenates a list)."""
+        with self._cond:
+            if self._error is not None:
+                err, self._error = self._error, None
+                raise err
+        snap = (state.state if isinstance(state, _Snapshot)
+                else _copy_tree(state))
+        aux = _copy_tree(aux)
+        ev = None
+        if snap.now.device.type == "cuda":
+            ev = torch.cuda.Event()
+            ev.record()
+        with self._cond:
+            self._pending = (snap, aux, ev)
+            self._cond.notify_all()
+
+    def _run(self) -> None:
+        stream = None
+        while True:
+            with self._cond:
+                while self._pending is None and not self._stop:
+                    self._cond.wait()
+                if self._pending is None:
+                    return
+                (state, aux, ev), self._pending = self._pending, None
+                self._busy = True
+            try:
+                # Pull to the host first and drop the device copies, so a
+                # snapshot holds no device memory through the disk write.
+                if ev is not None:
+                    if stream is None:
+                        stream = torch.cuda.Stream(
+                            device=state.now.device)
+                    with torch.cuda.stream(stream):
+                        stream.wait_event(ev)
+                        host_state = tree_map(to_numpy, state)
+                        host_aux = _to_host_aux(aux)
+                else:
+                    host_state = tree_map(to_numpy, state)
+                    host_aux = _to_host_aux(aux)
+                state = aux = None
+                ckpt.save(self._eng, host_state, self._path,
+                          extra_meta=self._meta, extra_arrays=host_aux)
+                exc = None
+            except BaseException as e:  # noqa: BLE001 — raised later
+                exc = e
+            with self._cond:
+                self._busy = False
+                if exc is not None:
+                    self._error = exc
+                self._cond.notify_all()
+
+    def flush_and_close(self, suppress_errors: bool = False) -> None:
+        """Wait until every submitted snapshot is durable, then stop.
+
+        ``suppress_errors`` logs a deferred write failure instead of
+        raising it, for a ``finally`` block that must not mask the
+        exception in flight."""
+        with self._cond:
+            while self._pending is not None or self._busy:
+                self._cond.wait()
+            self._stop = True
+            self._cond.notify_all()
+        self._thread.join()
+        if self._error is not None:
+            if suppress_errors:
+                import logging
+
+                logging.getLogger("madsim_tpu_torch.sweep").warning(
+                    "checkpoint write failed during sweep teardown: %r",
+                    self._error)
+            else:
+                raise self._error
+
+
+def _to_host_aux(aux):
+    """The writer's aux dict as host arrays: tensors pulled, lists of
+    arrays concatenated."""
+    if aux is None:
+        return None
+    return {k: (np.concatenate([to_numpy(a) for a in v], axis=0)
+                if isinstance(v, list) else to_numpy(v))
+            for k, v in aux.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -429,11 +599,36 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
     corpus, ``search_gen0`` offsets its mutation streams and
     ``search_lin_base`` its lineage entry ids, as in the JAX package.
 
-    Checkpoints, the observatory hooks (``observe``, ``profile_dir``) and
-    a ``mesh`` raise ``NotImplementedError`` naming their ROADMAP item.
+    Preemption survival, as in the JAX package: with ``checkpoint_path``
+    the serial and the pipelined loop write the sweep every
+    ``checkpoint_every_chunks`` chunks (the pipelined loop at the first
+    superstep that crosses each mark) and at the end, through a writer
+    thread; ``resume=True`` loads an existing file in place of the first
+    ``init`` and continues bitwise where it stopped. A recycled sweep's
+    file carries the slot→seed index, the cursor, the retired rows, the
+    coverage ledger and a guided sweep's schedules, corpus, lineage lanes
+    and operator table; a resume needs the same seeds, schedule,
+    ``batch_worlds`` and search settings. While a writer is attached the
+    batch never shrinks (``compact`` and the dry-cursor fallback are off),
+    so every file written resumes into the full-shape contract.
+    ``max_steps`` counts the steps of this call. ``fused=True`` refuses a
+    ``checkpoint_path``.
+
+    The observatory hooks (``observe``, ``profile_dir``) and a ``mesh``
+    raise ``NotImplementedError`` naming their ROADMAP item.
     """
     if mesh is not None:
         raise _unported("sweep(mesh=...) over several devices", "12")
+    if superstep_max < 1:
+        raise ValueError("superstep_max must be >= 1")
+    if fused and checkpoint_path is not None:
+        raise ValueError(
+            "fused=True cannot checkpoint: the whole-hunt program "
+            "retires and refills worlds inside one device dispatch, so "
+            "no host-visible boundary exists mid-hunt where state, "
+            "cursor, and retired observations are simultaneously "
+            "consistent for a snapshot — run the pipelined path "
+            "(fused=False) when checkpoint_path is set")
     if fused and compact:
         raise ValueError(
             "fused=True has no shrink path: compact=True saves flops "
@@ -441,14 +636,9 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
             "already avoids the host round trips that made the "
             "straggler tail expensive, and every result surface is "
             "shrink-invariant — drop compact (or run fused=False)")
-    if checkpoint_path is not None or resume:
-        raise _unported("sweep checkpoints (checkpoint_path=, resume=)",
-                        "6")
     if observe is not None or profile_dir is not None:
         raise _unported("the sweep observatory (observe=, profile_dir=)",
                         "11")
-    if superstep_max < 1:
-        raise ValueError("superstep_max must be >= 1")
 
     eng = engine if engine is not None else DeviceEngine(actor, cfg)
     dev = eng.device
@@ -545,8 +735,50 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
     faults_key = (np.ascontiguousarray(faults_p).tobytes()
                   if faults_p is not None else b"none")
     faults_sha256 = hashlib.sha256(faults_key).hexdigest()
+    # The seeds and the schedule ride a checkpoint: a resume under others
+    # would attribute results to inputs that never produced them. (The
+    # JAX package hashes its seeds padded to the mesh; on one device the
+    # padded vector is the seeds themselves.)
+    seeds_meta = {"seeds_sha256": hashlib.sha256(seeds.tobytes()).hexdigest(),
+                  "faults_sha256": faults_sha256}
 
-    state = eng.init(seeds[:w0], faults=batch_faults(np.arange(w0)))
+    resumed = False
+    resume_aux: Dict[str, np.ndarray] = {}
+    if resume and checkpoint_path and os.path.exists(checkpoint_path):
+        state, resume_aux = ckpt.load(eng, checkpoint_path,
+                                      expect_extra=seeds_meta, with_aux=True)
+        w_file = int(state.now.shape[0])
+        if recycle:
+            # A recycled file carries the slot→seed index and the cursor;
+            # without them its worlds cannot be attributed.
+            if "cursor" not in resume_aux:
+                raise ckpt.CheckpointError(
+                    f"checkpoint {checkpoint_path!r} was written by a "
+                    "non-recycled sweep (no slot->seed aux): resume it "
+                    "with recycle=False, or delete it to start the "
+                    "recycled hunt fresh")
+            if w_file != w0:
+                raise ValueError(
+                    f"cannot resume recycled sweep: checkpoint holds "
+                    f"{w_file} world slots but batch_worlds implies {w0} "
+                    "— a shrunk-compacted or differently-batched state "
+                    "cannot resume into the full-shape contract; rerun "
+                    "with the original batch_worlds")
+        elif "cursor" in resume_aux:
+            raise ckpt.CheckpointError(
+                f"checkpoint {checkpoint_path!r} was written by a "
+                "recycled sweep: pass recycle=True (and the original "
+                "batch_worlds) to resume it")
+        elif w_file != n:
+            raise ckpt.CheckpointError(
+                f"checkpoint holds {w_file} worlds, "
+                f"sweep expects {n} (seeds + mesh padding)")
+        resumed = True
+    else:
+        state = eng.init(seeds[:w0], faults=batch_faults(np.arange(w0)))
+    # A shrunken batch could not resume into the full-shape contract.
+    compact = compact and checkpoint_path is None
+    submitted_chunks = -1              # chunks at the writer's last submit
     c_max = -(-max_steps // chunk_steps)   # the serial loop's chunk budget
     steps = 0
     chunks = 0                         # executed chunk bodies
@@ -613,6 +845,88 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
             # The first batch runs the template itself: generation 0.
             slot_lin = lanes_origin(w0, dev)
             op_tab = table_zeros(dev)
+    if resumed and recycle:
+        # The sweep's bookkeeping from the file: the slot→seed index, the
+        # cursor, the rows retired before the snapshot, and a guided
+        # sweep's schedules, corpus, lineage lanes and operator table.
+        cursor = int(np.asarray(resume_aux["cursor"]))
+        idx = from_numpy(np.asarray(resume_aux["idx"], np.int32), dev)
+        reordered = True
+        if "ret_rows" in resume_aux:
+            retired_rows.append(np.asarray(resume_aux["ret_rows"]))
+            for key in resume_aux:
+                if key.startswith("ret_") and key != "ret_rows":
+                    retired[key[4:]] = [np.asarray(resume_aux[key])]
+        if search_on != ("srch_sched" in resume_aux):
+            raise ckpt.CheckpointError(
+                f"checkpoint {checkpoint_path!r} was written by a "
+                f"{'guided' if 'srch_sched' in resume_aux else 'plain'} "
+                f"sweep but this resume is "
+                f"{'guided (search=...)' if search_on else 'plain'}: "
+                "the per-slot schedules and search corpus cannot be "
+                "reconciled — resume with the original search setting")
+        if search_on:
+            from ..obs.lineage import LineageLanes, OperatorTable
+            from ..search.corpus import CorpusState
+
+            if lineage_on != ("srch_lin_p1" in resume_aux):
+                raise ckpt.CheckpointError(
+                    f"checkpoint {checkpoint_path!r} was written with "
+                    f"lineage "
+                    f"{'on' if 'srch_lin_p1' in resume_aux else 'off'} "
+                    f"but this resume runs SearchConfig(lineage="
+                    f"{lineage_on}): the provenance lanes cannot be "
+                    "reconciled — resume with the original lineage "
+                    "setting")
+
+            def aux_t(name, dtype):
+                return from_numpy(
+                    np.asarray(resume_aux[name], dtype), dev)
+
+            slot_sched = aux_t("srch_sched", np.int32)
+            corpus = CorpusState(
+                sched=aux_t("srch_c_sched", np.int32),
+                # The port carries the u32 signatures in int64.
+                sig=from_numpy(np.asarray(
+                    resume_aux["srch_c_sig"], np.uint32).astype(np.int64),
+                    dev),
+                score=aux_t("srch_c_score", np.int32),
+                filled=aux_t("srch_c_filled", bool),
+                gen=aux_t("srch_c_gen", np.int32).reshape(()),
+                inserted=aux_t("srch_c_inserted", np.int32).reshape(()),
+                entry=aux_t("srch_c_entry", np.int32),
+                depth=aux_t("srch_c_depth", np.int32))
+            if "srch_ret" in resume_aux:
+                retired_sched.append(
+                    np.asarray(resume_aux["srch_ret"], np.int32))
+            if lineage_on:
+                slot_lin = LineageLanes(
+                    p1=aux_t("srch_lin_p1", np.int32),
+                    p2=aux_t("srch_lin_p2", np.int32),
+                    ops=aux_t("srch_lin_ops", np.int8),
+                    depth=aux_t("srch_lin_depth", np.int32))
+                op_tab = OperatorTable(
+                    produced=aux_t("srch_op_produced", np.int32),
+                    novel=aux_t("srch_op_novel", np.int32),
+                    survived=aux_t("srch_op_survived", np.int32))
+                if "srch_ret_lin_p1" in resume_aux:
+                    retired_lin.append(tuple(
+                        np.asarray(resume_aux[f"srch_ret_lin_{k}"])
+                        for k in ("p1", "p2", "ops", "depth")))
+    if cov_on and resumed:
+        if "cov_hits" in resume_aux:
+            # A recycled file holds the ledger itself (its refilled slots
+            # no longer carry the retired worlds' histograms).
+            cov_hits = from_numpy(
+                np.asarray(resume_aux["cov_hits"], np.int32), dev)
+            cov_first = from_numpy(
+                np.asarray(resume_aux["cov_first"], np.int32), dev)
+        else:
+            # The worlds frozen before the snapshot never fall inactive in
+            # this call: fold them now. The ledger (counts and minima) is
+            # fold-order invariant, so it ends as an unbroken run's.
+            cov_hits, cov_first = _cov_endfolder(state, cov_hits, cov_first,
+                                                 idx, n, False)
 
     def retire(obs_slice: Dict[str, np.ndarray], rows: np.ndarray,
                sched_slice: Optional[np.ndarray] = None,
@@ -738,6 +1052,44 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
                 flin = tuple(frozen_x[1:])
         return obs_t, idx_t, tail_len, fsched, None, flin, None
 
+    def ckpt_aux(cov_pair):
+        """A recycled checkpoint's sweep-level aux, taken at the submit
+        point, where the host's cursor, index and retired rows agree with
+        the submitted state (the pending retires drained; the pipelined
+        loop's submits gated on the epoch). The device values ride as
+        tensors the writer copies at submit and pulls itself; the retired
+        rows as lists it concatenates. The names are the JAX package's."""
+        if not recycle:
+            return None
+        aux: Dict[str, Any] = {"cursor": np.int64(cursor), "idx": idx}
+        if cov_pair is not None:
+            aux["cov_hits"], aux["cov_first"] = cov_pair
+        if retired_rows:
+            aux["ret_rows"] = list(retired_rows)
+            for k, v in retired.items():
+                aux[f"ret_{k}"] = list(v)
+        if search_on:
+            # The search's state changes only at an epoch's refill.
+            aux["srch_sched"] = slot_sched
+            for f in corpus._fields:
+                aux[f"srch_c_{f}"] = getattr(corpus, f)
+            # The port carries the u32 signatures in int64; the file holds
+            # JAX's uint32.
+            aux["srch_c_sig"] = _wrap_i32(corpus.sig).view(torch.uint32)
+            if retired_sched:
+                aux["srch_ret"] = list(retired_sched)
+            if lineage_on:
+                for k, v in zip(("p1", "p2", "ops", "depth"), slot_lin):
+                    aux[f"srch_lin_{k}"] = v
+                for k, v in zip(("produced", "novel", "survived"),
+                                op_tab):
+                    aux[f"srch_op_{k}"] = v
+                if retired_lin:
+                    for i, k in enumerate(("p1", "p2", "ops", "depth")):
+                        aux[f"srch_ret_lin_{k}"] = [t[i]
+                                                    for t in retired_lin]
+        return aux
+
     fused_epochs = 0                   # refill epochs run on the device
     fused_k_bucket = 0                 # chunk window per mega-dispatch
     fused_out = None
@@ -760,171 +1112,235 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
         novelty_hist = fused_out["cov_hist"]
         cov_hits, cov_first = fused_out["cov"]
         idx = fused_out["idx"]
-    elif pipeline:
-        # -- the pipelined superstep loop (JAX sweep.py's pipelined branch)
-        k_cur = 1                      # adaptive superstep size (chunks)
-        epoch = 0                      # bumps on every refill/shrink
-        epoch_fresh = True             # next dispatch is its epoch's first
-        inflight: Optional[_Flight] = None
-        pending_retires: list = []
-        stop = False
-
-        def threshold() -> int:
-            """The on-device early-exit occupancy for the next dispatch:
-            half the batch where a refill or shrink could fire, else 0
-            (run until every world retired)."""
-            if recycle and cursor < n:
-                return w_cur // 2
-            if (compact or recycle) and w_cur % 2 == 0:
-                return w_cur // 2
-            return 0
-
-        def dispatch(reserve: int = 0) -> None:
-            """Queue one superstep on the current state (never waits on
-            the device). ``reserve``: the planned chunks of a superstep
-            queued but not yet read, counted as spent so that a binding
-            ``max_steps`` cannot overrun the serial loop's chunk budget."""
-            nonlocal state, inflight, epoch_fresh, cov_hits, cov_first
-            budget = c_max - chunks - reserve
-            k = max(1, min(k_cur, budget, superstep_max))
-            # The first dispatch of an occupancy epoch runs exactly one
-            # chunk, whatever the occupancy (the serial cadence after a
-            # refill or shrink); the dispatches ahead of a read keep the
-            # entry test, so a stale one is a pass-through.
-            if epoch_fresh:
-                k = 1
-            min_one = epoch_fresh
-            epoch_fresh = False
-            t0 = perf_counter()
-            out = eng.superstep(
-                state, threshold(), bool(stop_on_first_bug), k,
-                chunk_steps=chunk_steps, k_max=superstep_max,
-                min_one=min_one,
-                cov=(cov_hits, cov_first, idx, n) if cov_on else None)
-            if cov_on:
-                (state, any_bug, n_active, k_done, hist,
-                 (cov_hits, cov_first), cov_h) = out
-            else:
-                state, any_bug, n_active, k_done, hist = out
-                cov_h = None
-            perf["dispatch_s"] += perf_counter() - t0
-            perf["dispatches"] += 1
-            inflight = _Flight(any_bug, n_active, k_done, hist, k, w_cur,
-                               epoch, cov_h)
-
-        # max_steps <= 0 is a zero-chunk budget: nothing is dispatched.
-        if c_max > 0:
-            dispatch()
-        while inflight is not None:
-            prev, inflight = inflight, None
-            # Dispatch-ahead: superstep k+1 is queued before superstep k's
-            # scalars are read; if they call for a stop or a refill, k+1
-            # is a pass-through (its entry condition is already false).
-            if not stop and chunks + prev.planned < c_max:
-                dispatch(reserve=prev.planned)
-            t0 = perf_counter()
-            bug_h, n_act_h, k_done_h, hist_h, cov_h = _fetch(
-                (prev.any_bug, prev.n_active, prev.k_done, prev.hist,
-                 prev.cov_hist))
-            perf["device_wait_s"] += perf_counter() - t0
-            perf["scalar_fetches"] += 1
-            perf["dispatch_depth"] = max(
-                perf["dispatch_depth"], 1 if inflight is not None else 0)
-            # Retirement pulls deferred from earlier refills and shrinks.
-            while pending_retires:
-                fetch_retire(pending_retires.pop(0))
-            t0 = perf_counter()
-            k_done = int(k_done_h)
-            n_act = int(n_act_h)
-            hist_np = np.asarray(hist_h)
-            for j in range(k_done):
-                n_active_hist.append(int(hist_np[j]))
-                n_active_chunk.append(chunks + j)
-                if cov_on:
-                    novelty_hist.append(int(np.asarray(cov_h)[j]))
-            chunks += k_done
-            steps = chunks * chunk_steps
-            issued_slot_steps += prev.w * chunk_steps * k_done
-            if prev.epoch == epoch:
-                # Adaptive K: double while supersteps run to plan, and
-                # after an early exit settle on the chunks it ran.
-                if k_done == prev.planned:
-                    k_cur = min(k_cur * 2, superstep_max)
-                else:
-                    k_cur = max(k_done, 1)
-            if prev.epoch == epoch and not stop:
-                more_seeds = cursor < n
-                if n_act == 0 and not more_seeds:
-                    stop = True
-                elif stop_on_first_bug and bool(bug_h):
-                    stop = True
-                elif recycle and more_seeds and n_act <= w_cur // 2:
-                    pending_retires.append(do_refill(n_act))
-                    epoch += 1
-                    epoch_fresh = True
-                else:
-                    new_w = _compact_bucket(n_act, w_cur)
-                    if (compact or (recycle and not more_seeds)) \
-                            and new_w < w_cur:
-                        pending_retires.append(do_shrink(new_w))
-                        epoch += 1
-                        epoch_fresh = True
-            perf["host_decision_s"] += perf_counter() - t0
-            if stop:
-                break
-            if inflight is None and chunks < c_max:
-                dispatch()
-        while pending_retires:
-            fetch_retire(pending_retires.pop(0))
     else:
-        # -- the serial per-chunk loop ---------------------------------
-        runner = chunk_runner(eng, chunk_steps, cov_k if cov_on else None)
-        while steps < max_steps:
-            t0 = perf_counter()
-            if cov_on:
-                (state, any_bug, n_active, cov_hits, cov_first,
-                 distinct) = runner(state, cov_hits, cov_first, idx, n)
+        writer = (_AsyncCheckpointer(eng, checkpoint_path, seeds_meta)
+                  if checkpoint_path else None)
+        try:
+            if pipeline:
+                # -- the pipelined superstep loop (JAX's pipelined branch)
+                k_cur = 1  # adaptive superstep size (chunks)
+                epoch = 0  # bumps on every refill/shrink
+                epoch_fresh = True  # next dispatch is its epoch's first
+                ckpt_mark = 0  # checkpoint periods covered
+                inflight: Optional[_Flight] = None
+                pending_retires: list = []
+                stop = False
+
+                def threshold() -> int:
+                    """The on-device early-exit occupancy for the next
+                    dispatch: half the batch where a refill or shrink could
+                    fire, else 0 (run until every world retired). A writer
+                    turns the dry-cursor shrink off (a shrunken snapshot
+                    could not resume), so the tail then runs at full
+                    width."""
+                    if recycle and cursor < n:
+                        return w_cur // 2
+                    if (compact or (recycle and writer is None)) \
+                            and w_cur % 2 == 0:
+                        return w_cur // 2
+                    return 0
+
+                def dispatch(reserve: int = 0) -> None:
+                    """Queue one superstep on the current state (never waits
+                    on the device). ``reserve``: the planned chunks of a
+                    superstep queued but not yet read, counted as spent so
+                    that a binding ``max_steps`` cannot overrun the serial
+                    loop's chunk budget."""
+                    nonlocal state, inflight, epoch_fresh, cov_hits, cov_first
+                    budget = c_max - chunks - reserve
+                    k = max(1, min(k_cur, budget, superstep_max))
+                    if writer is not None and checkpoint_every_chunks:
+                        k = min(k, checkpoint_every_chunks)
+                    # The first dispatch of an occupancy epoch runs exactly one
+                    # chunk, whatever the occupancy (the serial cadence after
+                    # a refill or shrink); the dispatches ahead of a read
+                    # keep the entry test, so a stale one is a pass-through.
+                    if epoch_fresh:
+                        k = 1
+                    min_one = epoch_fresh
+                    epoch_fresh = False
+                    t0 = perf_counter()
+                    out = eng.superstep(
+                        state, threshold(), bool(stop_on_first_bug), k,
+                        chunk_steps=chunk_steps, k_max=superstep_max,
+                        min_one=min_one,
+                        cov=(cov_hits, cov_first, idx, n) if cov_on else None)
+                    if cov_on:
+                        (state, any_bug, n_active, k_done, hist,
+                         (cov_hits, cov_first), cov_h) = out
+                    else:
+                        state, any_bug, n_active, k_done, hist = out
+                        cov_h = None
+                    # The state changes in place and the next superstep is
+                    # queued before this one is read: where this one could
+                    # cross a checkpoint mark, copy its output (and the
+                    # ledger beside it) now, in stream order. It can bring
+                    # the count to chunks + reserve + k at most, so no mark
+                    # that the read finds lacks its copy.
+                    snap = snap_cov = None
+                    if writer is not None and checkpoint_every_chunks and \
+                            (chunks + reserve + k) \
+                            // checkpoint_every_chunks > ckpt_mark:
+                        snap = writer.snapshot(state)
+                        if cov_on:
+                            snap_cov = _copy_tree((cov_hits, cov_first))
+                    perf["dispatch_s"] += perf_counter() - t0
+                    perf["dispatches"] += 1
+                    inflight = _Flight(any_bug, n_active, k_done, hist, k,
+                                       w_cur, epoch, cov_h, snap, snap_cov)
+
+                # max_steps <= 0 is a zero-chunk budget: nothing is dispatched.
+                if c_max > 0:
+                    dispatch()
+                while inflight is not None:
+                    prev, inflight = inflight, None
+                    # Dispatch-ahead: superstep k+1 is queued before
+                    # superstep k's scalars are read; if they call for a stop
+                    # or a refill, k+1 is a pass-through (its entry
+                    # condition is already false).
+                    if not stop and chunks + prev.planned < c_max:
+                        dispatch(reserve=prev.planned)
+                    t0 = perf_counter()
+                    bug_h, n_act_h, k_done_h, hist_h, cov_h = _fetch(
+                        (prev.any_bug, prev.n_active, prev.k_done, prev.hist,
+                         prev.cov_hist))
+                    perf["device_wait_s"] += perf_counter() - t0
+                    perf["scalar_fetches"] += 1
+                    perf["dispatch_depth"] = max(
+                        perf["dispatch_depth"],
+                        1 if inflight is not None else 0)
+                    # Retirement pulls deferred from earlier refills and
+                    # shrinks.
+                    while pending_retires:
+                        fetch_retire(pending_retires.pop(0))
+                    t0 = perf_counter()
+                    k_done = int(k_done_h)
+                    n_act = int(n_act_h)
+                    hist_np = np.asarray(hist_h)
+                    for j in range(k_done):
+                        n_active_hist.append(int(hist_np[j]))
+                        n_active_chunk.append(chunks + j)
+                        if cov_on:
+                            novelty_hist.append(int(np.asarray(cov_h)[j]))
+                    chunks += k_done
+                    steps = chunks * chunk_steps
+                    issued_slot_steps += prev.w * chunk_steps * k_done
+                    if prev.epoch == epoch:
+                        # Adaptive K: double while supersteps run to plan, and
+                        # after an early exit settle on the chunks it ran.
+                        if k_done == prev.planned:
+                            k_cur = min(k_cur * 2, superstep_max)
+                        else:
+                            k_cur = max(k_done, 1)
+                    if writer is not None and checkpoint_every_chunks and \
+                            prev.epoch == epoch and \
+                            chunks // checkpoint_every_chunks > ckpt_mark:
+                        # Only a superstep of the current epoch: a stale
+                        # pass-through's state predates the refill that the
+                        # host's index and cursor already reflect (the
+                        # current epoch's next superstep submits).
+                        if prev.out_state is None:
+                            raise RuntimeError(
+                                "internal: a superstep crossed a "
+                                "checkpoint mark without a snapshot")
+                        writer.submit(prev.out_state,
+                                      ckpt_aux(prev.out_cov))
+                        submitted_chunks = chunks
+                        ckpt_mark = chunks // checkpoint_every_chunks
+                    if prev.epoch == epoch and not stop:
+                        more_seeds = cursor < n
+                        if n_act == 0 and not more_seeds:
+                            stop = True
+                        elif stop_on_first_bug and bool(bug_h):
+                            stop = True
+                        elif recycle and more_seeds and n_act <= w_cur // 2:
+                            pending_retires.append(do_refill(n_act))
+                            epoch += 1
+                            epoch_fresh = True
+                        else:
+                            new_w = _compact_bucket(n_act, w_cur)
+                            # The dry-cursor shrink only without a writer.
+                            if (compact or (recycle and not more_seeds
+                                            and writer is None)) \
+                                    and new_w < w_cur:
+                                pending_retires.append(do_shrink(new_w))
+                                epoch += 1
+                                epoch_fresh = True
+                    perf["host_decision_s"] += perf_counter() - t0
+                    if stop:
+                        break
+                    if inflight is None and chunks < c_max:
+                        dispatch()
+                while pending_retires:
+                    fetch_retire(pending_retires.pop(0))
             else:
-                distinct = None
-                state, any_bug, n_active = runner(state)
-            perf["dispatch_s"] += perf_counter() - t0
-            perf["dispatches"] += 1
-            steps += chunk_steps
-            chunks += 1
-            issued_slot_steps += w_cur * chunk_steps
-            t0 = perf_counter()
-            if cov_on:
-                n_act_h, bug_h, dist_h = _fetch((n_active, any_bug,
-                                                 distinct))
-            else:
-                n_act_h, bug_h = _fetch((n_active, any_bug))
-            perf["device_wait_s"] += perf_counter() - t0
-            perf["scalar_fetches"] += 1
-            n_act = int(n_act_h)
-            if cov_on:
-                novelty_hist.append(int(dist_h))
-            t0 = perf_counter()
-            n_active_hist.append(n_act)
-            n_active_chunk.append(chunks - 1)
-            more_seeds = cursor < n
-            if n_act == 0 and not more_seeds:
-                perf["host_decision_s"] += perf_counter() - t0
-                break
-            if stop_on_first_bug and bool(bug_h):
-                perf["host_decision_s"] += perf_counter() - t0
-                break
-            if recycle and more_seeds and n_act <= w_cur // 2:
-                handles = do_refill(n_act)
-                perf["host_decision_s"] += perf_counter() - t0
-                fetch_retire(handles)
-                continue
-            new_w = _compact_bucket(n_act, w_cur)
-            if (compact or (recycle and not more_seeds)) and new_w < w_cur:
-                handles = do_shrink(new_w)
-                perf["host_decision_s"] += perf_counter() - t0
-                fetch_retire(handles)
-            else:
-                perf["host_decision_s"] += perf_counter() - t0
+                # -- the serial per-chunk loop -----------------------------
+                runner = chunk_runner(eng, chunk_steps,
+                                      cov_k if cov_on else None)
+                while steps < max_steps:
+                    t0 = perf_counter()
+                    if cov_on:
+                        (state, any_bug, n_active, cov_hits, cov_first,
+                         distinct) = runner(state, cov_hits, cov_first, idx, n)
+                    else:
+                        distinct = None
+                        state, any_bug, n_active = runner(state)
+                    perf["dispatch_s"] += perf_counter() - t0
+                    perf["dispatches"] += 1
+                    steps += chunk_steps
+                    chunks += 1
+                    issued_slot_steps += w_cur * chunk_steps
+                    if writer is not None and checkpoint_every_chunks and \
+                            chunks % checkpoint_every_chunks == 0:
+                        # The copy is queued now; the pull and the write
+                        # overlap the next chunks.
+                        writer.submit(state, ckpt_aux(
+                            (cov_hits, cov_first) if cov_on else None))
+                        submitted_chunks = chunks
+                    t0 = perf_counter()
+                    if cov_on:
+                        n_act_h, bug_h, dist_h = _fetch((n_active, any_bug,
+                                                         distinct))
+                    else:
+                        n_act_h, bug_h = _fetch((n_active, any_bug))
+                    perf["device_wait_s"] += perf_counter() - t0
+                    perf["scalar_fetches"] += 1
+                    n_act = int(n_act_h)
+                    if cov_on:
+                        novelty_hist.append(int(dist_h))
+                    t0 = perf_counter()
+                    n_active_hist.append(n_act)
+                    n_active_chunk.append(chunks - 1)
+                    more_seeds = cursor < n
+                    if n_act == 0 and not more_seeds:
+                        perf["host_decision_s"] += perf_counter() - t0
+                        break
+                    if stop_on_first_bug and bool(bug_h):
+                        perf["host_decision_s"] += perf_counter() - t0
+                        break
+                    if recycle and more_seeds and n_act <= w_cur // 2:
+                        handles = do_refill(n_act)
+                        perf["host_decision_s"] += perf_counter() - t0
+                        fetch_retire(handles)
+                        continue
+                    new_w = _compact_bucket(n_act, w_cur)
+                    if (compact or (recycle and not more_seeds
+                                    and writer is None)) and new_w < w_cur:
+                        handles = do_shrink(new_w)
+                        perf["host_decision_s"] += perf_counter() - t0
+                        fetch_retire(handles)
+                    else:
+                        perf["host_decision_s"] += perf_counter() - t0
+            if writer is not None and submitted_chunks != chunks:
+                # The final state is always durable.
+                writer.submit(state, ckpt_aux(
+                    (cov_hits, cov_first) if cov_on else None))
+            if writer is not None:
+                writer.flush_and_close()
+                writer = None
+        finally:
+            if writer is not None:     # an exception in flight: keep it
+                writer.flush_and_close(suppress_errors=True)
 
     if cov_on:
         # End-of-sweep fold: worlds still live at exit count too.
@@ -1120,6 +1536,10 @@ class _Flight(NamedTuple):
     w: int                # batch width at dispatch time
     epoch: int            # occupancy epoch at dispatch time
     cov_hist: Any = None  # per-chunk novelty curve (coverage on)
+    # The checkpoint writer's copy of the superstep's output state, and of
+    # the ledger beside it, where it could cross a checkpoint mark.
+    out_state: Any = None
+    out_cov: Any = None
 
 
 # The most chunks one fused mega-dispatch runs (its history's width), as in

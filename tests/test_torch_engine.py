@@ -243,8 +243,10 @@ def test_config_and_init_validation_match_jax():
             J.EngineConfig(**bad)
         with pytest.raises(ValueError):
             T.EngineConfig(**bad)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.EngineConfig(n_nodes=3, sequential_insert=True)
+    # sequential_insert is ported (tests/test_torch_queue_insert.py); the
+    # config's repr, a checkpoint's fingerprint, is JAX's.
+    assert repr(T.EngineConfig(n_nodes=3, sequential_insert=True)) == \
+        repr(J.EngineConfig(n_nodes=3, sequential_insert=True))
     # The metrics block and the flight recorder are ported.
     assert T.EngineConfig(n_nodes=3, metrics=True, blackbox=8).blackbox == 8
     rk, ck = HEADLINE
@@ -277,6 +279,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "madsim_tpu_torch.engine.pb_actor, "
             "madsim_tpu_torch.engine.families, "
             "madsim_tpu_torch.engine.step_kernel, "
+            "madsim_tpu_torch.engine.checkpoint, "
+            "madsim_tpu_torch.engine.crosscheck, "
             "madsim_tpu_torch.search, madsim_tpu_torch.search.hunts, "
             "madsim_tpu_torch.search.generate, "
             "madsim_tpu_torch.obs.lineage, "

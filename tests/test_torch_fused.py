@@ -158,7 +158,7 @@ def test_fused_refusals(off_engines):
     with pytest.raises(ValueError, match="fused=True has no shrink path"):
         tsweep.sweep(None, te.cfg, SEEDS, engine=te, fused=True,
                      compact=True)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="fused=True cannot checkpoint"):
         tsweep.sweep(None, te.cfg, SEEDS, engine=te, fused=True,
                      checkpoint_path="x.npz")
     with pytest.raises(NotImplementedError, match="item 11"):

@@ -225,18 +225,21 @@ def test_refill_matches_jax_shared_and_per_slot(off_engines):
 def test_unported_knobs_raise_naming_their_roadmap_item(off_engines):
     _je, te = off_engines
     # The pipelined and fused loops are ported (tests/test_torch_pipeline.py
-    # and tests/test_torch_fused.py); checkpoints, the observatory and a
-    # mesh still raise, in every loop.
-    cases = [(dict(checkpoint_path="ckpt.npz"), "item 6"),
-             (dict(checkpoint_path="ckpt.npz", pipeline=True), "item 6"),
-             (dict(checkpoint_path="ckpt.npz", fused=True), "item 6"),
-             (dict(resume=True), "item 6"), (dict(observe=print), "item 11"),
+    # and tests/test_torch_fused.py), and checkpoints
+    # (tests/test_torch_sweep_resume.py); the observatory and a mesh still
+    # raise, in every loop.
+    cases = [(dict(observe=print), "item 11"),
              (dict(profile_dir="prof"), "item 11"),
+             (dict(observe=print, pipeline=True), "item 11"),
              (dict(mesh=object()), "item 12")]
     for kw, item in cases:
         kw = dict(dict(pipeline=False), **kw)
         with pytest.raises(NotImplementedError, match=item):
             tsweep_mod.sweep(None, te.cfg, SEEDS, engine=te, **kw)
+    # The fused loop refuses a checkpoint with JAX's error.
+    with pytest.raises(ValueError, match="fused=True cannot checkpoint"):
+        tsweep_mod.sweep(None, te.cfg, SEEDS, engine=te, fused=True,
+                         checkpoint_path="ckpt.npz")
     # The fused loop refuses compact=True with JAX's error.
     with pytest.raises(ValueError, match="no shrink path"):
         tsweep_mod.sweep(None, te.cfg, SEEDS, engine=te, fused=True,
