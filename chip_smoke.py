@@ -14,8 +14,11 @@ families through theirs, each sweep through the serial, the pipelined
 profile (``EngineConfig(packed=False)``) too; then the sweeps'
 checkpoints and resumes (``sweep(checkpoint_path=..., resume=True)``),
 ``crosscheck_backends`` (CUDA against the CPU) and
-``EngineConfig(sequential_insert=True)``. Phases, in order; any
-failure exits non-zero:
+``EngineConfig(sequential_insert=True)``; then failure triage
+(``triage.minimize``, ``SweepResult.minimize``, ``triage.triage``, the
+repro bundles replayed by ``python -m madsim_tpu_torch.obs replay``) and
+the sweep observatory (``sweep(observe=..., profile_dir=...)``). Phases,
+in order; any failure exits non-zero:
 
 1. card: name and power limit; uint32 <-> int64 round trip on CUDA tensors;
 2. build: one nvcc per source (``step_raft.cu``, ``step_tpc.cu``,
@@ -113,12 +116,33 @@ failure exits non-zero:
    Paxos in the wide profile, and a checkpoint written on the card loaded
    in a CPU engine, both then 64 steps on; (e) the kernel against the
    plain step with ``sequential_insert=True`` (the Raft hunt with
-   kill/restart, tpc) at W=4096, and both against the run without it.
+   kill/restart, tpc) at W=4096, and both against the run without it;
+10. triage and the observatory on the card: (a) bench.py's minimize_bug
+   leg at its width (``golden.MINIMIZE_BUG``: 64 rows, the bug needing
+   rows 10 and 42, seed 7) in the serial and the pipelined loop, each
+   round one sweep, the result exactly the two rows and its history the
+   JAX pin ``golden.GOLDEN_MINIMIZE``, with its rounds, candidates,
+   launches and wall; (b) tools/triage_demo.py's path (inject, hunt,
+   ``triage(result, out_dir)``), with metrics and with metrics and a
+   ring: one class minimized to its two rows, its bundle replayed through
+   the CLI in this process and in a fresh one, to the invariant raise,
+   the ring bitwise the replayed trace's suffix (``--crosscheck``); (c)
+   phase 7's sweep (b) under the hunt's kill/restart schedule with the
+   64-deep ring: ``triage(result, minimize=False)``'s classes, the first
+   failing seed minimized in both loops (equal), the first class's
+   bundle replayed and crosschecked in this process and in a fresh one;
+   (d) phase 7's sweep (b) and phase 8's guided Paxos hunt with
+   ``observe=<jsonl>`` in each loop, beside the same call without it
+   (in turns): the same result, ``_fetch`` calls, flag reads, step
+   launches and folds; the records parse, one per scalar read and the
+   summary with ``loop_stats``, and ``watch`` renders them; then sweep
+   (b) with ``profile_dir=``, whose ``torch.profiler`` trace names the
+   step kernel's launches; and phase 10's own time.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it lists each kernel route (the step kernel with Raft's, tpc's,
 pb's, Paxos's and the pair families' policy, in each lane profile, and the
-corpus fold kernel) with its launches and times.
+corpus fold kernel) with its launches (phase 10's among them) and times.
 
 Usage: python3 chip_smoke.py   (from the root of the repository)
 """
@@ -2270,6 +2294,364 @@ def main() -> int:
     log(f"[9] phase 9 took {time.perf_counter() - t9:.1f} s; the "
         f"checkpointed sweeps' step kernel launches by route "
         f"{ckpt_launches}, fold launches {ckpt_folds}")
+    # ---- 10. triage and the observatory on the card -----------------------
+    # (a) bench.py's minimize_bug leg at its width (golden.MINIMIZE_BUG),
+    # serial and pipelined, each round one sweep through the kernel, held
+    # to the JAX-derived pin; (b) tools/triage_demo.py's path: inject,
+    # hunt, triage, and each class's bundle replayed through the CLI in
+    # this process (counted) and in a fresh one, with and without the ring
+    # (--crosscheck); (c) the Raft hunt of phase 7 (b) under its own
+    # kill/restart schedule with the 64-deep ring: bucketed, its first
+    # failing seed minimized in both loops, its class's bundle replayed
+    # and crosschecked; (d) phase 7's sweep (b) and phase 8's guided
+    # Paxos hunt with observe= in each loop, equal to the same call without
+    # it (results, _fetch calls, flag reads, launches), and one
+    # profile_dir= run whose torch.profiler trace names the step kernel.
+    import io
+
+    from madsim_tpu_torch.obs import cli as obs_cli
+    from madsim_tpu_torch.obs import observatory
+    from madsim_tpu_torch.triage import minimize, triage
+    from madsim_tpu_torch.triage.synthetic import (PairRestartActor,
+                                                   PairRestartConfig)
+    from madsim_tpu_torch.triage.synthetic import \
+        engine_config as pair_config
+
+    t10 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix=".triage_", dir=HERE)
+    p10_launches = {"raft": 0, "pair": 0, "paxos": 0}
+    p10_folds = 0
+
+    def take(route):
+        """Add the step kernel's launches since the last reset to
+        ``route`` (and the fold kernel's to the folds), and reset both."""
+        nonlocal p10_folds
+        p10_launches[route] += step_kernel.launches
+        p10_folds += fold_kernel.launches
+        step_kernel.launches = fold_kernel.launches = 0
+
+    def count_sweeps():
+        """Count the sweep module's ``sweep`` calls (the minimizer's
+        rounds); returns the list of their widths and an undo."""
+        widths = []
+        real = sweep_mod.sweep
+
+        def counted(actor, cfg, seeds, **kw):
+            widths.append(len(seeds))
+            return real(actor, cfg, seeds, **kw)
+
+        sweep_mod.sweep = counted
+
+        def undo():
+            sweep_mod.sweep = real
+
+        return widths, undo
+
+    def replay(args, fresh):
+        """``python -m madsim_tpu_torch.obs <args>`` on the card: in this
+        process (its launches counted), or in a fresh one. Returns the
+        exit code, its standard error and its wall."""
+        t0 = time.perf_counter()
+        if fresh:
+            proc = subprocess.run(
+                [sys.executable, "-m", "madsim_tpu_torch.obs", *args],
+                cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
+                capture_output=True, text=True, timeout=300)
+            return proc.returncode, proc.stderr, time.perf_counter() - t0
+        import contextlib
+
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = obs_cli.main(list(args))
+        torch.cuda.synchronize()
+        return rc, err.getvalue(), time.perf_counter() - t0
+
+    def timeless(rec):
+        """A telemetry record without what the host's clock gave it."""
+        out = {k: v for k, v in rec.items()
+               if k not in ("elapsed_s", "seeds_per_s", "eta_s")}
+        if "loop_stats" in out:
+            out["loop_stats"] = {k: v for k, v in out["loop_stats"].items()
+                                 if not k.endswith("_s")}
+        return out
+
+    def ends_in_raise(path):
+        with open(path, encoding="utf-8") as f:
+            events = json.load(f)["traceEvents"]
+        return bool(events) and events[-1]["name"] == "invariant:raise"
+
+    # (a) the minimizer at bench.py's width.
+    acfg = PairRestartConfig()
+    eng_pr = DeviceEngine(PairRestartActor(acfg), pair_config(acfg),
+                          device=dev)
+    mb = golden.MINIMIZE_BUG
+    rows = pair_schedule(n_rows=mb["n_rows"], need=mb["need"], acfg=acfg)
+    min_kw = dict(engine=eng_pr, chunk_steps=mb["chunk_steps"],
+                  max_steps=mb["max_steps"])
+    minimize(None, eng_pr.cfg, mb["seed"], rows, **min_kw)   # warm-up
+    step_kernel.launches = fold_kernel.launches = 0
+    for loop in ("serial", "pipeline"):
+        widths, undo = count_sweeps()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            mr = minimize(None, eng_pr.cfg, mb["seed"], rows,
+                          pipeline=loop == "pipeline", **min_kw)
+            torch.cuda.synchronize()
+        finally:
+            undo()
+        wall = time.perf_counter() - t0
+        launched = step_kernel.launches
+        take("pair")
+        check(mr.final_rows == 2 and mr.one_minimal
+              and np.array_equal(mr.schedule, rows[list(mb["need"])]),
+              f"minimizer {loop}: {mr.summary()}, not the two load-bearing "
+              f"rows {mb['need']}")
+        check(golden.minimize_digest(mr) == golden.GOLDEN_MINIMIZE,
+              f"minimizer {loop}: the round history differs from the JAX "
+              f"pin")
+        check(len(widths) == mr.rounds, f"minimizer {loop}: "
+              f"{len(widths)} sweeps for {mr.rounds} rounds")
+        log(f"[10 minimize a] {loop}: {mb['n_rows']} rows -> rows "
+            f"{list(mb['need'])}, 1-minimal, history equal to the JAX pin; "
+            f"{mr.rounds} rounds, {mr.candidates_evaluated} candidates, "
+            f"{len(widths) / mr.rounds:.0f} sweep per round (widths "
+            f"{sorted(set(widths))}), {launched} step launches; wall "
+            f"{wall * 1e3:.2f} ms = {mr.candidates_evaluated / wall:.0f} "
+            f"candidates/s")
+
+    # (b) the triage demo: 32 worlds, the even seeds under the 32-row
+    # schedule with the pair at rows {5, 20}, the odd under a decoy.
+    full = pair_schedule(n_rows=32, need=(5, 20), acfg=acfg)
+    decoy = full.copy()
+    decoy[20, 2] = 0
+    demo_faults = np.stack([full if s % 2 == 0 else decoy
+                            for s in range(32)])
+    for label, over in (("metrics", {}), ("metrics+ring", {"blackbox": 16})):
+        eng_d = DeviceEngine(PairRestartActor(acfg), dataclasses.replace(
+            pair_config(acfg, metrics=True), **over), device=dev)
+        ring = bool(over)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sweep(None, eng_d.cfg, np.arange(32), faults=demo_faults,
+                    engine=eng_d, chunk_steps=32, max_steps=4_000)
+        check(res.failing_seeds == list(range(0, 32, 2)),
+              f"triage demo ({label}): failing seeds {res.failing_seeds}")
+        out = os.path.join(work, f"demo_{len(over)}")
+        os.makedirs(out)
+        report = triage(res, out_dir=out, chunk_steps=32, max_steps=4_000)
+        torch.cuda.synchronize()
+        wall_t = time.perf_counter() - t0
+        check(len(report.classes) == 1,
+              f"triage demo ({label}): {len(report.classes)} classes")
+        key = report.classes[0].key
+        mr = report.minimized[key]
+        check(mr.final_rows == 2 and mr.one_minimal
+              and np.array_equal(mr.schedule, full[[5, 20]]),
+              f"triage demo ({label}): {mr.summary()}")
+        bundle = report.bundles[key]
+        extra = ["--crosscheck"] if ring else []
+        walls = {}
+        for fresh in (False, True):
+            trace_out = os.path.join(out, f"trace_{int(fresh)}.json")
+            rc, err, walls[fresh] = replay(
+                ["replay", "--bundle", bundle, "--out", trace_out] + extra,
+                fresh)
+            check(rc == 0 and "invariant RAISED" in err
+                  and ends_in_raise(trace_out)
+                  and (not ring or "bitwise the suffix" in err),
+                  f"triage demo ({label}): replay "
+                  f"{'in a fresh process ' if fresh else ''}rc {rc}: "
+                  f"{err[-600:]}")
+        launched = step_kernel.launches
+        take("pair")
+        log(f"[10 triage b] demo ({label}): 16 of 32 seeds fail, 1 class, "
+            f"its representative minimized 32 -> 2 rows (rows 5, 20) in "
+            f"{mr.rounds} rounds ({mr.candidates_evaluated} candidates); "
+            f"hunt + triage {wall_t * 1e3:.2f} ms; the bundle replayed "
+            f"through the CLI on the card to the invariant raise"
+            + (", its ring bitwise the replayed trace's suffix"
+               if ring else "")
+            + f": in this process {walls[False] * 1e3:.1f} ms, in a fresh "
+            f"one rc 0 in {walls[True]:.1f} s; {launched} step launches")
+
+    # (c) the Raft hunt at full width under its kill/restart schedule.
+    hunt_faults = np.asarray(golden.CONFIGS["hunt_faults"][2], np.int32)
+    hunt_steps = golden.CONFIGS["hunt_faults"][3]
+    eng_c = hunt_engine(stop_on_bug=True, metrics=True, blackbox=64)
+    seeds = np.arange(w)
+    leg_c = dict(leg_b, faults=hunt_faults, pipeline=True)
+    sweep(None, eng_c.cfg, seeds, engine=eng_c, **leg_c)      # warm-up
+    step_kernel.launches = fold_kernel.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_c = sweep(None, eng_c.cfg, seeds, engine=eng_c, **leg_c)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    check(res_c.failing_seeds, "Raft hunt with faults: no bug found")
+    t0 = time.perf_counter()
+    rep_c = triage(res_c, minimize=False)
+    wall_b = time.perf_counter() - t0
+    first = res_c.failing_seeds[0]
+    check(rep_c.classes[0].representative == first,
+          "Raft hunt triage: the first class is not the first failing "
+          "seed's")
+    mrs, walls = {}, {}
+    for loop in ("serial", "pipeline"):
+        widths, undo = count_sweeps()
+        t0 = time.perf_counter()
+        try:
+            mrs[loop] = res_c.minimize(first, pipeline=loop == "pipeline",
+                                       chunk_steps=64, max_steps=hunt_steps)
+            torch.cuda.synchronize()
+        finally:
+            undo()
+        walls[loop] = time.perf_counter() - t0
+        check(len(widths) == mrs[loop].rounds,
+              f"Raft minimize {loop}: not one sweep per round")
+    check(golden.minimize_digest(mrs["serial"])
+          == golden.minimize_digest(mrs["pipeline"]),
+          "Raft minimize: the loops disagree")
+    mr = mrs["serial"]
+    out = os.path.join(work, "raft")
+    os.makedirs(out)
+    t0 = time.perf_counter()
+    rep_cb = triage(res_c, out_dir=out, minimize=False, max_steps=hunt_steps)
+    wall_w = time.perf_counter() - t0
+    bundle = rep_cb.bundles[rep_c.classes[0].key]
+    walls_r = {}
+    for fresh in (False, True):
+        trace_out = os.path.join(out, f"trace_{int(fresh)}.json")
+        rc, err, walls_r[fresh] = replay(
+            ["replay", "--bundle", bundle, "--out", trace_out,
+             "--crosscheck"], fresh)
+        check(rc == 0 and "invariant RAISED" in err
+              and "bitwise the suffix" in err and ends_in_raise(trace_out),
+              f"Raft hunt bundle: replay "
+              f"{'in a fresh process ' if fresh else ''}rc {rc}: "
+              f"{err[-600:]}")
+    launched = step_kernel.launches
+    take("raft")
+    log(f"[10 triage c] Raft hunt, {w} seeds through {batch_w} slots, "
+        f"metrics and a 64-deep ring, kill/restart: "
+        f"{len(res_c.failing_seeds)} failing in {wall_s * 1e3:.2f} ms; "
+        f"triage(minimize=False): "
+        f"{len(rep_c.classes)} classes in {wall_b * 1e3:.1f} ms; seed "
+        f"{first} minimized {mr.original_rows} -> {mr.final_rows} rows in "
+        f"{mr.rounds} rounds ({mr.candidates_evaluated} candidates), equal "
+        f"in both loops (serial {walls['serial'] * 1e3:.1f} ms, pipelined "
+        f"{walls['pipeline'] * 1e3:.1f} ms); {len(rep_cb.bundles)} bundles "
+        f"in {wall_w * 1e3:.1f} ms; the first class's bundle replayed to "
+        f"the raise, its ring bitwise the replayed trace's suffix: in this "
+        f"process {walls_r[False] * 1e3:.1f} ms, in a fresh one rc 0 in "
+        f"{walls_r[True]:.1f} s; {launched} step launches")
+
+    # (d) the observatory: each sweep with and without observe=.
+    paxos = hunts.paxos_hunt()
+    eng_px = DeviceEngine(paxos.actor, paxos.cfg, device=dev)
+    obs_legs = [
+        ("7 sweep b", eng_m, np.arange(w), dict(leg_b), "raft"),
+        ("8 hunt b", eng_px, np.arange(W_FAMILY),
+         dict(faults=paxos.template, search=paxos.search(True),
+              recycle=True, batch_worlds=8192, chunk_steps=64,
+              max_steps=50_000_000, stop_on_first_bug=True), "paxos")]
+    for tag, eng, seeds, kw, route in obs_legs:
+        for loop in ("serial", "pipeline", "fused"):
+            lkw = dict(kw, pipeline=loop == "pipeline", fused=loop == "fused")
+            path = os.path.join(work, f"tele_{route}_{loop}.jsonl")
+            runs = {}
+            sink = []
+            # In turns: without, to the JSONL file, to a list in memory.
+            for mode in ("plain", "observed", "memory", "memory",
+                         "observed", "plain"):
+                if mode == "memory":
+                    sink.clear()
+                extra = ({"observe": path} if mode == "observed" else
+                         {"observe": sink.append} if mode == "memory"
+                         else {})
+                fetches, undo = count_fetches()
+                step_kernel.launches = fold_kernel.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                try:
+                    res = sweep(None, eng.cfg, seeds, engine=eng, **lkw,
+                                **extra)
+                    torch.cuda.synchronize()
+                finally:
+                    undo()
+                wall = time.perf_counter() - t0
+                counts = (fetches[0], res.loop_stats["flag_reads"],
+                          step_kernel.launches, fold_kernel.launches)
+                take(route)
+                if mode in runs:
+                    check(counts == runs[mode][1] and same_result(
+                        runs[mode][0], res), f"{tag} {loop} {mode}: the "
+                        f"two runs differ")
+                # The latest run: the stream on disk is its.
+                runs[mode] = (res, counts,
+                              runs.get(mode, (0, 0, []))[2] + [wall])
+            plain, seen, mem = (runs["plain"], runs["observed"],
+                                runs["memory"])
+            for other in (seen, mem):
+                check(same_result(plain[0], other[0]),
+                      f"{tag} {loop}: observe= changed the result")
+                check(plain[1] == other[1], f"{tag} {loop}: observe= "
+                      f"changed the (_fetch, flag reads, launches, folds) "
+                      f"{plain[1]} -> {other[1]}")
+            with open(path, encoding="utf-8") as f:
+                records = [json.loads(line) for line in f]
+            check([timeless(r) for r in records]
+                  == [timeless(r) for r in json.loads(json.dumps(sink))],
+                  f"{tag} {loop}: the file's records differ from the "
+                  f"callback's")
+            progress = [r for r in records
+                        if r["schema"] == "madsim.sweep.telemetry/1"]
+            searched = [r for r in records
+                        if r["schema"] == "madsim.search.telemetry/1"]
+            summary = records[-1]
+            check(summary.get("event") == "summary"
+                  and summary["loop_stats"] == seen[0].loop_stats
+                  and len(progress) == seen[0].loop_stats["scalar_fetches"]
+                  and (route != "paxos" or searched),
+                  f"{tag} {loop}: the telemetry stream is off")
+            buf = io.StringIO()
+            check(observatory.watch(path, out=buf) == 0
+                  and "final:" in buf.getvalue(),
+                  f"{tag} {loop}: watch did not render the stream")
+            log(f"[10 observe d] {tag} {loop}: observe= leaves the result, "
+                f"the _fetch calls, flag reads, step launches and folds "
+                f"{plain[1]} unchanged; {len(records)} records "
+                f"({len(progress)} progress, {len(searched)} search, the "
+                f"summary with loop_stats), watch renders them; wall "
+                f"without {min(plain[2]) * 1e3:.2f} ms, to the file "
+                f"{min(seen[2]) * 1e3:.2f} ms, to a list "
+                f"{min(mem[2]) * 1e3:.2f} ms (best of 2 each, in turns)")
+    # One run with a profiler window over the first four dispatches.
+    pdir = os.path.join(work, "profile")
+    step_kernel.launches = fold_kernel.launches = 0
+    res = sweep(None, eng_m.cfg, np.arange(w), engine=eng_m, profile_dir=pdir,
+                profile_window=(0, 4), **leg_b)
+    take("raft")
+    check(same_result(res_b, res), "profile_dir=: the result differs from "
+          "phase 7's sweep (b)")
+    traces = [os.path.join(pdir, f) for f in os.listdir(pdir)]
+    check(len(traces) == 1, f"profile_dir=: {len(traces)} traces written")
+    with open(traces[0], encoding="utf-8") as f:
+        events = json.load(f)["traceEvents"]
+    kern = [e for e in events if "step_kernel" in str(e.get("name", ""))
+            and e.get("cat") == "kernel"]
+    check(kern, "profile_dir=: the torch.profiler trace names no step "
+          "kernel launch")
+    marks = sum(e.get("name") == "madsim:chunk" for e in events)
+    log(f"[10 observe d] profile_dir= over dispatches 0-4 of sweep (b): "
+        f"{os.path.getsize(traces[0]) / 1e6:.2f} MB trace, {len(kern)} step "
+        f"kernel launches named ({kern[0]['name'][:60]}), "
+        f"{sum(e.get('dur', 0) for e in kern) / 1e3:.3f} ms of device time, "
+        f"{marks} madsim:chunk spans; the result equals phase 7's")
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"[10] phase 10 took {time.perf_counter() - t10:.1f} s; its step "
+        f"kernel launches by route {p10_launches}, fold launches "
+        f"{p10_folds}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(card)
@@ -2278,7 +2660,8 @@ def main() -> int:
         "route": "cuda",
         "source": "madsim_tpu_torch/csrc/step_raft.cu",
         "replaces": "madsim_tpu/engine/pallas_step.py:132",
-        "launches": main_launches + sweep_launches + hunt_launches["raft"],
+        "launches": (main_launches + sweep_launches + hunt_launches["raft"]
+                     + p10_launches["raft"]),
         "max_abs_err": fam_err["raft"],
         "ms": hl["kernel_ms"],
         "plain_ms": hl["plain_ms"],
@@ -2294,7 +2677,8 @@ def main() -> int:
             "route": "cuda",
             "source": f"madsim_tpu_torch/csrc/step_{fam}.cu",
             "replaces": "madsim_tpu/engine/pallas_step.py:132",
-            "launches": fam_launches[fam] + hunt_launches.get(fam, 0),
+            "launches": (fam_launches[fam] + hunt_launches.get(fam, 0)
+                         + p10_launches.get(fam, 0)),
             "max_abs_err": fam_err[fam],
             "ms": r["kernel_ms"],
             "plain_ms": r["plain_ms"],
@@ -2329,7 +2713,7 @@ def main() -> int:
         "route": "cuda",
         "source": "madsim_tpu_torch/csrc/corpus_fold.cu",
         "replaces": "madsim_tpu/search/corpus.py:131",
-        "launches": fold_launches,
+        "launches": fold_launches + p10_folds,
         "max_abs_err": 0.0,
         "ms": fr["ms"],
         "plain_ms": fr["plain_ms"],

@@ -3,10 +3,13 @@ its canonical conformance shape.
 
 The port of ``madsim_tpu/engine/families.py``: raft, pb, tpc, paxos and
 the guided search's synthetic families ``pair_restart`` and
-``guided_pair``, with the JAX registry's ``conformance()`` shapes. The JAX
-registry's ``compiled`` and ``divergent`` flags come with the host twin's
-conformance crosscheck (``actorc/host.py``), their one consumer (ROADMAP).
-Imports are lazy per entry.
+``guided_pair``, with the JAX registry's ``conformance()`` shapes and
+``compiled`` flags. The replay CLI resolves ``name -> (actor class, config
+class)`` here (``python -m madsim_tpu_torch.obs replay --actor <name>``
+and bundle replay), and triage names the family inside repro bundles. The
+JAX registry's ``divergent`` flag comes with the conformance check
+(``engine/conformance.py``), its one consumer (ROADMAP). Imports are lazy
+per entry.
 """
 from __future__ import annotations
 
@@ -22,6 +25,15 @@ class Family:
     load: Callable[[], Tuple[type, type]]   # -> (actor_cls, config_cls)
     # Canonical (actor, EngineConfig): the clean (bug switches off) shape.
     conformance: Callable[[], Tuple[Any, Any]]
+    compiled: bool = False                   # actorc-spec family?
+
+    @property
+    def actor_cls(self) -> type:
+        return self.load()[0]
+
+    @property
+    def config_cls(self) -> type:
+        return self.load()[1]
 
 
 def _raft() -> Family:
@@ -51,7 +63,7 @@ def _pb() -> Family:
         cls, cfg = load()
         return cls(cfg(n=3, n_writes=3)), EngineConfig(
             n_nodes=3, outbox_cap=4, queue_cap=64, t_limit_us=2_000_000)
-    return Family("pb", load, conf)
+    return Family("pb", load, conf, compiled=True)
 
 
 def _tpc() -> Family:
@@ -66,7 +78,7 @@ def _tpc() -> Family:
         cls, cfg = load()
         return cls(cfg(n=4, n_txns=4)), EngineConfig(
             n_nodes=4, outbox_cap=5, queue_cap=64, t_limit_us=2_000_000)
-    return Family("tpc", load, conf)
+    return Family("tpc", load, conf, compiled=True)
 
 
 def _paxos() -> Family:
@@ -81,7 +93,7 @@ def _paxos() -> Family:
         cls, cfg = load()
         acfg = cfg()
         return cls(acfg), engine_config(acfg)
-    return Family("paxos", load, conf)
+    return Family("paxos", load, conf, compiled=True)
 
 
 def _pair_restart() -> Family:

@@ -16,6 +16,11 @@ package on the CPU, so the constants cannot drift from it.
 :data:`GOLDEN_WIDE` holds the digests of one deployment of each family in
 the wide lane profile (:data:`WIDE_CONFIGS`, ``packed=False``).
 
+:data:`GOLDEN_MINIMIZE` pins the schedule minimizer: the
+:func:`minimize_digest` of JAX's ``triage.minimize`` of bench.py's
+minimize_bug leg (:data:`MINIMIZE_BUG`), recomputed from JAX by
+``tests/test_torch_triage.py``.
+
 The guided search's constants: :data:`GOLDEN_SEARCH`, the ``observe()``
 digests of its two deployments at their templates (:data:`SEARCH_CONFIGS`),
 and the pins of the three canonical guided hunts (:data:`HUNT_PINS` at the
@@ -420,3 +425,33 @@ def sweep_digest(res) -> str:
     _update(h, res.observations)
     h.update(res.summary().encode())
     return h.hexdigest()
+
+
+#: bench.py's minimize_bug leg at its full width: a 64-row restart schedule
+#: (``triage/synthetic.py::pair_schedule``) whose failure needs exactly rows
+#: ``need``, minimized for ``seed`` with these sweep knobs.
+MINIMIZE_BUG = dict(n_rows=64, need=(10, 42), seed=7, chunk_steps=32,
+                    max_steps=4_000)
+
+#: minimize_digest of the JAX package's ``triage.minimize`` of
+#: MINIMIZE_BUG (18 rounds, 87 candidates, the two load-bearing rows),
+#: recomputed from JAX by ``tests/test_torch_triage.py``.
+GOLDEN_MINIMIZE = (
+    "075840245b5b4be13c33ef1ba879307c"
+    "ae315269ee1e04b9bd7d3489b9f04152")
+
+
+def minimize_digest(res) -> str:
+    """SHA-256 over a MinimizeResult's outcome: the minimized ``(F, 4)``
+    schedule, the round history, the rounds and candidates, the
+    weakenings and the 1-minimality verdict (not the sweep loop, which
+    must not change it)."""
+    import json
+
+    doc = {"full": np.asarray(res.full).tolist(), "history": res.history,
+           "rounds": int(res.rounds),
+           "candidates_evaluated": int(res.candidates_evaluated),
+           "weakenings": list(res.weakenings),
+           "one_minimal": bool(res.one_minimal)}
+    return hashlib.sha256(
+        json.dumps(doc, sort_keys=True).encode()).hexdigest()

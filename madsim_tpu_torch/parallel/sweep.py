@@ -52,9 +52,17 @@ in a new engine and a new process; the file's format is the JAX
 package's, so a Raft sweep's checkpoint resumes in either package. The
 fused loop refuses checkpoints, as in JAX.
 
-Not ported here, each raising ``NotImplementedError`` naming its ROADMAP
-item: the observatory hooks, multi-device meshes and
-``SweepResult.minimize``.
+With ``observe=`` each host read of the loop's scalars emits one
+telemetry record (obs/observatory.py; a guided sweep also one search
+record per refill, or per mega-dispatch in the fused loop) and the sweep
+ends with a summary record; every record is built from values the loop
+already pulled, so the ``_fetch`` calls, the flag reads and the launches
+are those of the same sweep without it. ``profile_dir=`` captures a
+window of dispatches with ``torch.profiler``. ``SweepResult.minimize``
+shrinks a failing seed's schedule (madsim_tpu_torch/triage).
+
+Not ported here: multi-device meshes, which raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -394,8 +402,10 @@ def _to_host_aux(aux):
 # ---------------------------------------------------------------------------
 
 class TriageContext(NamedTuple):
-    """What re-executing a sweep's worlds needs: the engine and the fault
-    schedule."""
+    """What :meth:`SweepResult.minimize` and ``triage.triage`` need to
+    re-execute a sweep's worlds: the engine and the ``faults=`` argument,
+    or under ``search=`` the materialized per-seed ``(n, F, 4)``
+    schedules each world ran. None on a reconstructed result."""
 
     engine: Any
     faults: Optional[np.ndarray]
@@ -435,8 +445,39 @@ class SweepResult:
         return [int(s) for s in self.seeds[self.bug]]
 
     def minimize(self, seed: Optional[int] = None, **kw):
-        """Schedule minimisation of a failing seed: not ported."""
-        raise _unported("SweepResult.minimize (triage)", "11")
+        """Minimize a failing seed's fault schedule (triage/minimize.py).
+
+        ``seed`` defaults to the first failing seed; ``kw`` forwards to
+        :func:`madsim_tpu_torch.triage.minimize` (``pipeline``,
+        ``weaken``, ``tighten``, ``chunk_steps``, ``max_steps``, ...).
+        Re-uses this sweep's engine, on its device, and the schedule the
+        seed ran: the shared one, its own row of per-world schedules, or
+        the child a guided sweep made for it. Returns a
+        :class:`~madsim_tpu_torch.triage.MinimizeResult`."""
+        from ..triage import TriageError
+        from ..triage import minimize as _minimize
+
+        if self.triage_ctx is None:
+            raise TriageError(
+                "this SweepResult carries no triage context (merged or "
+                "reconstructed result): re-run the sweep locally, or "
+                "call triage.minimize(actor, cfg, seed, faults) with "
+                "the original inputs")
+        if seed is None:
+            if not self.failing_seeds:
+                raise TriageError("no failing seeds to minimize")
+            seed = self.failing_seeds[0]
+        rows = np.flatnonzero(np.asarray(self.seeds) == np.uint64(seed))
+        if rows.size == 0:
+            raise TriageError(f"seed {seed} was not part of this sweep")
+        faults = self.triage_ctx.faults
+        if faults is not None:
+            faults = np.asarray(faults, np.int32)
+            if faults.ndim == 3:  # per-world schedules: this seed's rows
+                faults = faults[int(rows[0])]
+        eng = self.triage_ctx.engine
+        return _minimize(eng.actor, eng.cfg, int(seed), faults,
+                         engine=eng, **kw)
 
     @property
     def metrics(self) -> Optional[Dict[str, Any]]:
@@ -614,8 +655,15 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
     ``max_steps`` counts the steps of this call. ``fused=True`` refuses a
     ``checkpoint_path``.
 
-    The observatory hooks (``observe``, ``profile_dir``) and a ``mesh``
-    raise ``NotImplementedError`` naming their ROADMAP item.
+    ``observe``: a live telemetry sink — a callable receiving one dict
+    per host read of the loop's scalars, or a JSONL path (``python -m
+    madsim_tpu_torch.obs watch`` reads it) — ending with a summary
+    record; the records are the JAX package's (obs/observatory.py).
+    ``profile_dir``: capture dispatches ``profile_window=(start, stop)``
+    with ``torch.profiler`` and write a Chrome trace there. Neither
+    changes the results, the ``_fetch`` calls, the flag reads or the
+    launches. A ``mesh`` raises ``NotImplementedError`` naming its
+    ROADMAP item.
     """
     if mesh is not None:
         raise _unported("sweep(mesh=...) over several devices", "12")
@@ -636,10 +684,6 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
             "already avoids the host round trips that made the "
             "straggler tail expensive, and every result surface is "
             "shrink-invariant — drop compact (or run fused=False)")
-    if observe is not None or profile_dir is not None:
-        raise _unported("the sweep observatory (observe=, profile_dir=)",
-                        "11")
-
     eng = engine if engine is not None else DeviceEngine(actor, cfg)
     dev = eng.device
     seeds = np.asarray(seeds, np.uint64)
@@ -799,6 +843,16 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
             "dispatches": 0, "dispatch_depth": 0}
     t_loop0 = perf_counter()
     flag_reads0 = Lookahead.host_reads
+    # The observatory: host-side observation only, every record built from
+    # values the loop already pulled.
+    from ..obs import observatory as _obsy
+
+    emit_telemetry, close_telemetry = _obsy.make_observer(observe)
+    prof = _obsy.ProfilerWindow(profile_dir, profile_window)
+    # Host mirrors of the corpus scalars, refreshed by the pulls that
+    # carry them.
+    search_host = {"corpus_size": 1, "inserted": 0, "gen": 0,
+                   "refill_novel": 0, "refill_inserted": 0}
     novelty_hist: List[int] = []       # cumulative distinct, per chunk
     cov_hits = cov_first = None
     if cov_on:
@@ -928,6 +982,87 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
             cov_hits, cov_first = _cov_endfolder(state, cov_hits, cov_first,
                                                  idx, n, False)
 
+    def emit_point(n_act: int, bug_seen: bool, depth: int) -> None:
+        """One ``madsim.sweep.telemetry/1`` record per host read of the
+        loop scalars (host data only — never a device pull)."""
+        if emit_telemetry is None:
+            return
+        elapsed = perf_counter() - t_loop0
+        done = int(min(max(cursor - n_act, 0), n))
+        rate = done / elapsed if elapsed > 0 else 0.0
+        remaining = n - done
+        rec = {
+            "schema": "madsim.sweep.telemetry/1",
+            "elapsed_s": round(elapsed, 6),
+            "chunks": int(chunks),
+            "steps": int(steps),
+            "batch_worlds": int(w_cur),
+            "n_active": int(n_act),
+            "occupancy": round(n_act / w_cur, 4) if w_cur else 0.0,
+            "seeds_total": int(n),
+            "seeds_admitted": int(min(cursor, n)),
+            "seeds_done": done,
+            "seeds_per_s": round(rate, 2),
+            # Running lower bound: a retiring tail is attributed at its
+            # pull, so mid-loop utilization trails the final one.
+            "world_utilization": (round(
+                live_world_steps / issued_slot_steps, 4)
+                if issued_slot_steps else 0.0),
+            "dispatch_depth": int(depth),
+            "bug_seen": bool(bug_seen),
+            "eta_s": (round(remaining / rate, 3) if rate > 0
+                      and remaining > 0 else
+                      (0.0 if remaining == 0 else None)),
+        }
+        if cov_on:
+            rec["coverage_distinct"] = (int(novelty_hist[-1])
+                                        if novelty_hist else 0)
+            rec["coverage_buckets"] = cov_k
+        if search_on:
+            rec["search_corpus"] = search_host["corpus_size"]
+            rec["search_inserted"] = search_host["inserted"]
+        emit_telemetry(rec)
+
+    def emit_search_point(op_h) -> None:
+        """One ``madsim.search.telemetry/1`` record per guided refill (per
+        mega-dispatch in the fused loop), from the values its pull already
+        fetched. ``op_h`` is the pulled operator table (None with lineage
+        off, and in the fused loop, which pulls it only at the end)."""
+        if emit_telemetry is None or not search_on:
+            return
+        from ..obs.lineage import OP_NAMES, SEARCH_TELEMETRY_SCHEMA
+
+        rec = {
+            "schema": SEARCH_TELEMETRY_SCHEMA,
+            "event": "refill",
+            "elapsed_s": round(perf_counter() - t_loop0, 6),
+            "generation": search_host["gen"],
+            "corpus_size": search_host["corpus_size"],
+            "corpus_inserted": search_host["inserted"],
+            "refill_novel": search_host["refill_novel"],
+            "refill_inserted": search_host["refill_inserted"],
+        }
+        if "epochs_on_device" in search_host:
+            # Fused loop: the rollup of the mega-dispatch's last refill.
+            rec["epochs_on_device"] = search_host["epochs_on_device"]
+        if op_h is not None:
+            for row, vals in zip(("produced", "novel", "survived"), op_h):
+                arr = np.asarray(vals)
+                for i, name in enumerate(OP_NAMES):
+                    rec[f"op_{row}_{name}"] = int(arr[i])
+        emit_telemetry(rec)
+
+    def mirror_search_stats(stats_h) -> None:
+        """Refresh the corpus mirrors from a pulled stats tuple (corpus
+        size and inserts; with lineage also generation and the refill's
+        novel and inserted counts)."""
+        search_host["corpus_size"] = int(stats_h[0])
+        search_host["inserted"] = int(stats_h[1])
+        if len(stats_h) > 2:
+            search_host["gen"] = int(stats_h[2])
+            search_host["refill_novel"] = int(stats_h[3])
+            search_host["refill_inserted"] = int(stats_h[4])
+
     def retire(obs_slice: Dict[str, np.ndarray], rows: np.ndarray,
                sched_slice: Optional[np.ndarray] = None,
                lin_slice: Optional[tuple] = None) -> None:
@@ -960,10 +1095,13 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
         operator table) and record them."""
         obs_t, idx_t, tail_len, sched_t, stats_t, lin_t, op_t = handles
         t0 = perf_counter()
-        obs_h, idx_h, sched_h, _stats_h, lin_h, _op_h = _fetch(
+        obs_h, idx_h, sched_h, stats_h, lin_h, op_h = _fetch(
             (obs_t, idx_t, sched_t, stats_t, lin_t, op_t))
         perf["retire_wait_s"] += perf_counter() - t0
         perf["retire_fetches"] += 1
+        if stats_h is not None:
+            mirror_search_stats(stats_h)
+            emit_search_point(op_h)
         retire({k: np.asarray(v)[:tail_len] for k, v in obs_h.items()},
                np.asarray(idx_h)[:tail_len],
                (np.asarray(sched_h)[:tail_len]
@@ -1093,23 +1231,42 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
     fused_epochs = 0                   # refill epochs run on the device
     fused_k_bucket = 0                 # chunk window per mega-dispatch
     fused_out = None
+
+    def fused_read(k_done: int, n_act: int, bug: bool, cur: int, ep: int,
+                   stats_h, cov_all: List[int]) -> None:
+        """The fused loop's host mirrors after each mega-dispatch's read,
+        and its telemetry: the search record when a refill ran on the
+        device since the last read, then the progress record."""
+        nonlocal chunks, steps, issued_slot_steps, cursor, novelty_hist, \
+            fused_epochs
+        chunks += k_done
+        steps = chunks * chunk_steps
+        issued_slot_steps += w_cur * chunk_steps * k_done
+        cursor = cur
+        novelty_hist = cov_all
+        if search_on and ep > fused_epochs:
+            mirror_search_stats(stats_h)
+            search_host["epochs_on_device"] = ep
+            emit_search_point(None)
+        fused_epochs = ep
+        emit_point(n_act, bug, 0)
+
     if fused:
-        fused_out = _fused_hunt(
-            eng, state, idx, seeds, faults_p, per_world_faults, search,
-            lineage_on, cov_k if cov_on else None, cov_hits, cov_first,
-            slot_sched, corpus, slot_lin, op_tab, recycle=recycle,
-            chunk_steps=chunk_steps, c_max=c_max,
-            stop_on_first_bug=stop_on_first_bug, lin_base=search_lin_base,
-            perf=perf)
+        try:
+            fused_out = _fused_hunt(
+                eng, state, idx, seeds, faults_p, per_world_faults, search,
+                lineage_on, cov_k if cov_on else None, cov_hits, cov_first,
+                slot_sched, corpus, slot_lin, op_tab, recycle=recycle,
+                chunk_steps=chunk_steps, c_max=c_max,
+                stop_on_first_bug=stop_on_first_bug,
+                lin_base=search_lin_base, perf=perf, prof=prof,
+                on_read=fused_read)
+        finally:
+            prof.close()   # idempotent; stops a capture an error left open
         state = fused_out["state"]
         fused_k_bucket = fused_out["k_bucket"]
-        fused_epochs = fused_out["epochs"]
-        chunks = fused_out["chunks"]
-        steps = chunks * chunk_steps
-        issued_slot_steps = w_cur * chunk_steps * chunks
         n_active_hist = fused_out["hist"]
         n_active_chunk = list(range(chunks))
-        novelty_hist = fused_out["cov_hist"]
         cov_hits, cov_first = fused_out["cov"]
         idx = fused_out["idx"]
     else:
@@ -1160,11 +1317,13 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
                     min_one = epoch_fresh
                     epoch_fresh = False
                     t0 = perf_counter()
-                    out = eng.superstep(
-                        state, threshold(), bool(stop_on_first_bug), k,
-                        chunk_steps=chunk_steps, k_max=superstep_max,
-                        min_one=min_one,
-                        cov=(cov_hits, cov_first, idx, n) if cov_on else None)
+                    prof.before_dispatch()
+                    with prof.annotate("madsim:superstep"):
+                        out = eng.superstep(
+                            state, threshold(), bool(stop_on_first_bug), k,
+                            chunk_steps=chunk_steps, k_max=superstep_max,
+                            min_one=min_one, cov=(cov_hits, cov_first, idx, n)
+                            if cov_on else None)
                     if cov_on:
                         (state, any_bug, n_active, k_done, hist,
                          (cov_hits, cov_first), cov_h) = out
@@ -1206,6 +1365,7 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
                          prev.cov_hist))
                     perf["device_wait_s"] += perf_counter() - t0
                     perf["scalar_fetches"] += 1
+                    prof.after_read()
                     perf["dispatch_depth"] = max(
                         perf["dispatch_depth"],
                         1 if inflight is not None else 0)
@@ -1267,6 +1427,8 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
                                 epoch += 1
                                 epoch_fresh = True
                     perf["host_decision_s"] += perf_counter() - t0
+                    emit_point(n_act, bool(bug_h),
+                               1 if inflight is not None else 0)
                     if stop:
                         break
                     if inflight is None and chunks < c_max:
@@ -1279,12 +1441,15 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
                                       cov_k if cov_on else None)
                 while steps < max_steps:
                     t0 = perf_counter()
-                    if cov_on:
-                        (state, any_bug, n_active, cov_hits, cov_first,
-                         distinct) = runner(state, cov_hits, cov_first, idx, n)
-                    else:
-                        distinct = None
-                        state, any_bug, n_active = runner(state)
+                    prof.before_dispatch()
+                    with prof.annotate("madsim:chunk"):
+                        if cov_on:
+                            (state, any_bug, n_active, cov_hits, cov_first,
+                             distinct) = runner(state, cov_hits, cov_first,
+                                                idx, n)
+                        else:
+                            distinct = None
+                            state, any_bug, n_active = runner(state)
                     perf["dispatch_s"] += perf_counter() - t0
                     perf["dispatches"] += 1
                     steps += chunk_steps
@@ -1305,9 +1470,11 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
                         n_act_h, bug_h = _fetch((n_active, any_bug))
                     perf["device_wait_s"] += perf_counter() - t0
                     perf["scalar_fetches"] += 1
+                    prof.after_read()
                     n_act = int(n_act_h)
                     if cov_on:
                         novelty_hist.append(int(dist_h))
+                    emit_point(n_act, bool(bug_h), 0)
                     t0 = perf_counter()
                     n_active_hist.append(n_act)
                     n_active_chunk.append(chunks - 1)
@@ -1339,6 +1506,7 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
                 writer.flush_and_close()
                 writer = None
         finally:
+            prof.close()
             if writer is not None:     # an exception in flight: keep it
                 writer.flush_and_close(suppress_errors=True)
 
@@ -1465,18 +1633,47 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
                                        search_gen0, search_lin_base)
         # Triage replays the schedule each world actually ran.
         triage_faults = sched_per_seed
-    return SweepResult(seeds=seeds, bug=obs["bug"], observations=obs,
-                       steps_run=steps, n_devices=1,
-                       n_active_history=np.asarray(n_active_hist, np.int64),
-                       world_utilization=util,
-                       n_active_chunks=np.asarray(n_active_chunk, np.int64),
-                       loop_stats=loop_stats,
-                       faults_sha256=(faults_sha256 if faults is not None
-                                      else None),
-                       coverage=coverage,
-                       search=search_report,
-                       triage_ctx=TriageContext(engine=eng,
-                                                faults=triage_faults))
+    result = SweepResult(
+        seeds=seeds, bug=obs["bug"], observations=obs, steps_run=steps,
+        n_devices=1, n_active_history=np.asarray(n_active_hist, np.int64),
+        world_utilization=util,
+        n_active_chunks=np.asarray(n_active_chunk, np.int64),
+        loop_stats=loop_stats,
+        faults_sha256=faults_sha256 if faults is not None else None,
+        coverage=coverage, search=search_report,
+        triage_ctx=TriageContext(engine=eng, faults=triage_faults))
+    if emit_telemetry is not None:
+        final = {
+            "schema": "madsim.sweep.telemetry/2",
+            "event": "summary",
+            "elapsed_s": loop_stats["loop_wall_s"],
+            "seeds_total": int(n),
+            "failing_seeds": len(result.failing_seeds),
+            "world_utilization": round(util, 4),
+            # The dispatch economics, top-level for the Prometheus
+            # renderer (it exports top-level numerics only).
+            "seeds_per_dispatch": loop_stats["seeds_per_dispatch"],
+            "epochs_on_device": loop_stats["epochs_on_device"],
+            "loop_stats": loop_stats,
+        }
+        if coverage is not None:
+            final["coverage"] = coverage.to_json()
+        if search_report is not None:
+            final["search"] = search_report.to_json()
+            if search_report.lineage is not None and result.failing_seeds:
+                # The first finds' derivations, so `obs lineage <stream>`
+                # renders ancestry without the SweepResult.
+                from ..obs.lineage import lineage_block
+
+                rows = np.flatnonzero(np.asarray(result.bug))[:8]
+                final["search"]["finds"] = [
+                    lineage_block(search_report.lineage, int(r),
+                                  seeds=np.asarray(result.seeds))
+                    for r in rows]
+        emit_telemetry(final)
+    if close_telemetry is not None:
+        close_telemetry()
+    return result
 
 
 def _search_report(corpus_h, sched_per_seed, lin_per_seed, op_tab_h,
@@ -1562,7 +1759,8 @@ def _fused_hunt(eng: DeviceEngine, state, idx, seeds: np.ndarray,
                 faults_p, per_world_faults: bool, scfg, lineage_on: bool,
                 cov_k: Optional[int], cov_hits, cov_first, sched, corpus,
                 lin, op_tab, *, recycle: bool, chunk_steps: int, c_max: int,
-                stop_on_first_bug: bool, lin_base: int, perf: dict):
+                stop_on_first_bug: bool, lin_base: int, perf: dict,
+                prof, on_read):
     """The whole-hunt loop on the device: the counterpart of the JAX
     ``_fused_hunt`` and the fused branch of its ``sweep``.
 
@@ -1591,9 +1789,13 @@ def _fused_hunt(eng: DeviceEngine, state, idx, seeds: np.ndarray,
 
     There is no dry-cursor shrink: the tail runs at full width, so
     ``world_utilization`` is the one result that differs from the serial
-    loop's. Returns a dict of the loop's device and host results; the
-    engine's ``last_fused_stats`` counts the chunks queued and the host's
-    time queuing epoch bodies.
+    loop's. ``prof`` (obs/observatory.py ``ProfilerWindow``) wraps each
+    mega-dispatch; ``on_read(k_done, n_act, bug, cursor, epochs, stats,
+    novelty)`` gets each read's host values (the chunks it ran, the
+    scalars, the search's stats tuple and the novelty curve so far).
+    Returns a dict of the loop's device and host results; the engine's
+    ``last_fused_stats`` counts the chunks queued and the host's time
+    queuing epoch bodies.
     """
     from ..obs.coverage import distinct_count, fold_retired
     from ..obs.lineage import LineageLanes, lanes_buffer
@@ -1713,83 +1915,86 @@ def _fused_hunt(eng: DeviceEngine, state, idx, seeds: np.ndarray,
         first = False
         k = max(0, min(k_bucket, c_max - chunks))
         t0 = perf_counter()
-        any_bug = state.bug.any()
-        n_act = state.active.sum(dtype=i32)
-        # The pass-through property: a dispatch against a finished hunt
-        # runs no chunk. ``done`` closes the gate for good (the hunt's
-        # stop, or k chunks run); ``pending`` is an epoch the trigger
-        # asked for and the host has not queued yet: no chunk runs while
-        # it is set.
-        done = ((any_bug & bool(stop_on_first_bug))
-                | ((n_act == 0) & ~more_seeds()))
-        pending = torch.zeros((), dtype=torch.bool, device=dev)
-        hist = torch.full((k_bucket,), -1, dtype=i32, device=dev)
-        cov_hist = (torch.full((k_bucket,), -1, dtype=i32, device=dev)
-                    if cov_on else None)
-        k_done = torch.zeros((), dtype=i32, device=dev)
-        # The scalars of the last chunk run, measured before its epoch.
-        last_bug, last_n = any_bug, n_act
-        ahead = Lookahead(cuda)
-        epoch_at = -1                  # the flag index an epoch answered
-        finished = k == 0
-        while not finished:
-            ran = ~(done | pending)
-            act0 = state.active.clone() if cov_on else None
-            eng.run_steps(state, chunk_steps, gate=(~ran).to(i32))
+        prof.before_dispatch()
+        with prof.annotate("madsim:fused_hunt"):
             any_bug = state.bug.any()
             n_act = state.active.sum(dtype=i32)
-            last_bug = torch.where(ran, any_bug, last_bug)
-            last_n = torch.where(ran, n_act, last_n)
-            pos = k_done.clamp(max=k_bucket - 1).reshape(1).to(torch.int64)
-            hist.index_put_((pos,), torch.where(ran, n_act, hist[pos]))
-            if cov_on:
-                fmask = act0 & ~state.active & (idx >= 0) & (idx < n_t)
-                cov_hits, cov_first = fold_retired(
-                    cov_hits, cov_first, state.metrics, fmask, idx)
-                cov_hist.index_put_((pos,), torch.where(
-                    ran, distinct_count(cov_hits), cov_hist[pos]))
-            k_done = k_done + ran.to(i32)
-            stop_now = ((n_act == 0) & ~more_seeds()) \
-                | (any_bug & bool(stop_on_first_bug))
-            if recycle:
-                pending = pending | (ran & ~stop_now & more_seeds()
-                                     & (n_act <= w // 2))
-            done = done | (ran & stop_now) | (k_done >= k)
-            queued += 1
-            # The host learns a chunk's flags a chunk later on CUDA: the
-            # chunk queued meanwhile is a gated no-op. An epoch body is
-            # queued once per trigger, masked by ``pending``, which it
-            # clears; the next chunk runs after it in stream order.
-            ahead.push(done.to(i32) | (pending.to(i32) << 1))
-            for flag_at, flags in ahead.read():
-                if flags & 2 and flag_at > epoch_at:
-                    t_ep = perf_counter()
-                    epoch(pending, state.active.sum(dtype=i32))
-                    pending = torch.zeros_like(pending)
-                    epoch_at = ahead.pushed - 1
-                    epoch_s += perf_counter() - t_ep
-                finished = finished or bool(flags & 1)
-        any_bug, n_act = last_bug, last_n
-        # The live slots' rows are parked at the end of each dispatch; a
-        # later dispatch overwrites them.
-        live_tgt = torch.where(idx >= 0, idx, dump).to(torch.int64)
-        obs = eng.observe_device(state)
-        for key, buf in bufs.items():
-            _put_rows(buf, live_tgt, obs[key])
-        if search_on:
-            _put_rows(sched_buf, live_tgt, sched)
-        if lineage_on:
-            for b, v in zip(lin_buf, lin):
-                _put_rows(b, live_tgt, v)
+            # The pass-through property: a dispatch against a finished hunt
+            # runs no chunk. ``done`` closes the gate for good (the hunt's
+            # stop, or k chunks run); ``pending`` is an epoch the trigger
+            # asked for and the host has not queued yet: no chunk runs while
+            # it is set.
+            done = ((any_bug & bool(stop_on_first_bug))
+                    | ((n_act == 0) & ~more_seeds()))
+            pending = torch.zeros((), dtype=torch.bool, device=dev)
+            hist = torch.full((k_bucket,), -1, dtype=i32, device=dev)
+            cov_hist = (torch.full((k_bucket,), -1, dtype=i32, device=dev)
+                        if cov_on else None)
+            k_done = torch.zeros((), dtype=i32, device=dev)
+            # The scalars of the last chunk run, measured before its epoch.
+            last_bug, last_n = any_bug, n_act
+            ahead = Lookahead(cuda)
+            epoch_at = -1                  # the flag index an epoch answered
+            finished = k == 0
+            while not finished:
+                ran = ~(done | pending)
+                act0 = state.active.clone() if cov_on else None
+                eng.run_steps(state, chunk_steps, gate=(~ran).to(i32))
+                any_bug = state.bug.any()
+                n_act = state.active.sum(dtype=i32)
+                last_bug = torch.where(ran, any_bug, last_bug)
+                last_n = torch.where(ran, n_act, last_n)
+                pos = k_done.clamp(max=k_bucket - 1).reshape(1).to(torch.int64)
+                hist.index_put_((pos,), torch.where(ran, n_act, hist[pos]))
+                if cov_on:
+                    fmask = act0 & ~state.active & (idx >= 0) & (idx < n_t)
+                    cov_hits, cov_first = fold_retired(
+                        cov_hits, cov_first, state.metrics, fmask, idx)
+                    cov_hist.index_put_((pos,), torch.where(
+                        ran, distinct_count(cov_hits), cov_hist[pos]))
+                k_done = k_done + ran.to(i32)
+                stop_now = ((n_act == 0) & ~more_seeds()) \
+                    | (any_bug & bool(stop_on_first_bug))
+                if recycle:
+                    pending = pending | (ran & ~stop_now & more_seeds()
+                                         & (n_act <= w // 2))
+                done = done | (ran & stop_now) | (k_done >= k)
+                queued += 1
+                # The host learns a chunk's flags a chunk later on CUDA: the
+                # chunk queued meanwhile is a gated no-op. An epoch body is
+                # queued once per trigger, masked by ``pending``, which it
+                # clears; the next chunk runs after it in stream order.
+                ahead.push(done.to(i32) | (pending.to(i32) << 1))
+                for flag_at, flags in ahead.read():
+                    if flags & 2 and flag_at > epoch_at:
+                        t_ep = perf_counter()
+                        epoch(pending, state.active.sum(dtype=i32))
+                        pending = torch.zeros_like(pending)
+                        epoch_at = ahead.pushed - 1
+                        epoch_s += perf_counter() - t_ep
+                    finished = finished or bool(flags & 1)
+            any_bug, n_act = last_bug, last_n
+            # The live slots' rows are parked at the end of each dispatch; a
+            # later dispatch overwrites them.
+            live_tgt = torch.where(idx >= 0, idx, dump).to(torch.int64)
+            obs = eng.observe_device(state)
+            for key, buf in bufs.items():
+                _put_rows(buf, live_tgt, obs[key])
+            if search_on:
+                _put_rows(sched_buf, live_tgt, sched)
+            if lineage_on:
+                for b, v in zip(lin_buf, lin):
+                    _put_rows(b, live_tgt, v)
         perf["dispatch_s"] += perf_counter() - t0
         perf["dispatches"] += 1
         t0 = perf_counter()
         # One scalar batch per mega-dispatch.
-        bug_h, n_act_h, k_done_h, hist_h, cur_h, ep_h, cov_h, _st_h = \
+        bug_h, n_act_h, k_done_h, hist_h, cur_h, ep_h, cov_h, st_h = \
             _fetch((any_bug, n_act, k_done, hist, cursor, epochs,
                     cov_hist, stats if search_on else None))
         perf["device_wait_s"] += perf_counter() - t0
         perf["scalar_fetches"] += 1
+        prof.after_read()
         t0 = perf_counter()
         k_done_i = int(k_done_h)
         hist_all.extend(int(x) for x in np.asarray(hist_h)[:k_done_i])
@@ -1802,6 +2007,8 @@ def _fused_hunt(eng: DeviceEngine, state, idx, seeds: np.ndarray,
                 (stop_on_first_bug and bool(bug_h)) or k_done_i < k:
             stop = True
         perf["host_decision_s"] += perf_counter() - t0
+        on_read(k_done_i, int(n_act_h), bool(bug_h), int(cur_h), epochs_h,
+                st_h, cov_all)
     # What the loop queued, for its cost: chunks queued (past the stop
     # too) and the host's time queuing epoch bodies.
     eng.last_fused_stats = {"chunks_queued": queued, "epoch_s": epoch_s}

@@ -285,6 +285,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "madsim_tpu_torch.search.generate, "
             "madsim_tpu_torch.obs.lineage, "
             "madsim_tpu_torch.triage.synthetic, "
+            "madsim_tpu_torch.triage, madsim_tpu_torch.triage.corpus, "
+            "madsim_tpu_torch.obs, madsim_tpu_torch.obs.cli, "
+            "madsim_tpu_torch.obs.observatory, "
+            "madsim_tpu_torch.obs.bundle, madsim_tpu_torch.obs.timeline, "
             "madsim_tpu_torch.kernel_ab; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'madsim_tpu' or "

@@ -161,9 +161,11 @@ def test_fused_refusals(off_engines):
     with pytest.raises(ValueError, match="fused=True cannot checkpoint"):
         tsweep.sweep(None, te.cfg, SEEDS, engine=te, fused=True,
                      checkpoint_path="x.npz")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # The observatory runs in the fused loop
+    # (tests/test_torch_observatory.py); a mesh does not.
+    with pytest.raises(NotImplementedError, match="item 12"):
         tsweep.sweep(None, te.cfg, SEEDS, engine=te, fused=True,
-                     observe=print)
+                     mesh=object())
 
 
 def test_fused_zero_step_budget_runs_no_chunks(off_engines):

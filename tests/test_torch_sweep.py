@@ -24,6 +24,7 @@ from madsim_tpu.parallel.mesh import seed_mesh
 from madsim_tpu_torch.engine import golden
 from madsim_tpu_torch.engine.core import tree_leaves, tree_paths
 from madsim_tpu_torch.parallel import sweep as tsweep_mod
+from madsim_tpu_torch.triage import TriageError
 
 # The module (madsim_tpu.parallel exports a function of the same name).
 jsweep_mod = importlib.import_module("madsim_tpu.parallel.sweep")
@@ -225,17 +226,15 @@ def test_refill_matches_jax_shared_and_per_slot(off_engines):
 def test_unported_knobs_raise_naming_their_roadmap_item(off_engines):
     _je, te = off_engines
     # The pipelined and fused loops are ported (tests/test_torch_pipeline.py
-    # and tests/test_torch_fused.py), and checkpoints
-    # (tests/test_torch_sweep_resume.py); the observatory and a mesh still
-    # raise, in every loop.
-    cases = [(dict(observe=print), "item 11"),
-             (dict(profile_dir="prof"), "item 11"),
-             (dict(observe=print, pipeline=True), "item 11"),
-             (dict(mesh=object()), "item 12")]
-    for kw, item in cases:
-        kw = dict(dict(pipeline=False), **kw)
-        with pytest.raises(NotImplementedError, match=item):
-            tsweep_mod.sweep(None, te.cfg, SEEDS, engine=te, **kw)
+    # and tests/test_torch_fused.py), checkpoints
+    # (tests/test_torch_sweep_resume.py) and the observatory
+    # (tests/test_torch_observatory.py); a mesh still raises, in every
+    # loop.
+    for loop in (dict(pipeline=False), dict(pipeline=True),
+                 dict(fused=True)):
+        with pytest.raises(NotImplementedError, match="item 12"):
+            tsweep_mod.sweep(None, te.cfg, SEEDS, engine=te, mesh=object(),
+                             **loop)
     # The fused loop refuses a checkpoint with JAX's error.
     with pytest.raises(ValueError, match="fused=True cannot checkpoint"):
         tsweep_mod.sweep(None, te.cfg, SEEDS, engine=te, fused=True,
@@ -244,10 +243,15 @@ def test_unported_knobs_raise_naming_their_roadmap_item(off_engines):
     with pytest.raises(ValueError, match="no shrink path"):
         tsweep_mod.sweep(None, te.cfg, SEEDS, engine=te, fused=True,
                          compact=True)
+    # SweepResult.minimize is ported (tests/test_torch_triage.py): a seed
+    # that fails with no schedule minimizes to the empty one.
     res = tsweep_mod.sweep(None, te.cfg, SEEDS[:4], engine=te,
                            pipeline=False, chunk_steps=64, max_steps=64)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        res.minimize()
+    mr = res.minimize(chunk_steps=64, max_steps=64)
+    assert (mr.seed, mr.final_rows, mr.rounds) == (res.failing_seeds[0], 0,
+                                                   2)
+    with pytest.raises(TriageError, match="not part of this sweep"):
+        res.minimize(seed=99)
     # The JAX package's own argument errors.
     with pytest.raises(ValueError, match="per seed"):
         tsweep_mod.sweep(None, te.cfg, SEEDS, engine=te, pipeline=False,
