@@ -17,8 +17,10 @@ checkpoints and resumes (``sweep(checkpoint_path=..., resume=True)``),
 ``EngineConfig(sequential_insert=True)``; then failure triage
 (``triage.minimize``, ``SweepResult.minimize``, ``triage.triage``, the
 repro bundles replayed by ``python -m madsim_tpu_torch.obs replay``) and
-the sweep observatory (``sweep(observe=..., profile_dir=...)``). Phases,
-in order; any failure exits non-zero:
+the sweep observatory (``sweep(observe=..., profile_dir=...)``); then the
+actor compiler's checks (speclint and protocol cards, ``check_actor`` over
+every family, the host-twin ``crosscheck`` held to the kernel, compiled-
+family repro bundles). Phases, in order; any failure exits non-zero:
 
 1. card: name and power limit; uint32 <-> int64 round trip on CUDA tensors;
 2. build: one nvcc per source (``step_raft.cu``, ``step_tpc.cu``,
@@ -138,11 +140,33 @@ in order; any failure exits non-zero:
    summary with ``loop_stats``, and ``watch`` renders them; then sweep
    (b) with ``profile_dir=``, whose ``torch.profiler`` trace names the
    step kernel's launches; and phase 10's own time.
+11. the actor compiler's checks on the card: (a) speclint — the nine
+   golden fixtures' findings (``tests/fixtures/speclint``, loaded against
+   the port's spec model) equal the JAX-derived ``golden.GOLDEN_SPECLINT``
+   in rule, path, line and message; the shipped specs and their bug
+   variants lint clean and pass ``CompiledActor``'s gate, their protocol
+   cards' sha256 ``golden.GOLDEN_CARDS``; (b) ``check_actor`` over every
+   registered family (Raft, tpc, pb, Paxos, pair_restart, guided_pair)
+   through the kernel at tests/test_conformance.py's shape (32 worlds,
+   3,000 steps), each report ``golden.GOLDEN_CHECK_ACTOR``, then at
+   W_FAMILY worlds with the family's canonical config unchanged (every
+   check passes there too), each with its wall; (c) the host-twin ``crosscheck`` of tpc, pb and Paxos at
+   tests/test_actorc.py's seeds and faults (250 steps) and at 64 seeds
+   and 400 steps, each report ``golden.GOLDEN_CROSSCHECK``, every
+   recorded step held to the host twin and, bitwise on every leaf, to a
+   twin state stepped by the kernel (one launch per step), with its
+   device pass and host comparison timed apart; a twin step changed
+   after a launch is caught; (d) the pb hunt to retirement and the wide
+   guided Paxos hunt (W_FAMILY seeds through 8,192 slots, metrics and a
+   64-deep ring), ``triage(out_dir=...)``: every bundle carries the JAX
+   protocol card, and one bundle of each replays in a fresh process
+   (``--crosscheck``) to the invariant raise; and phase 11's own time.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it lists each kernel route (the step kernel with Raft's, tpc's,
 pb's, Paxos's and the pair families' policy, in each lane profile, and the
-corpus fold kernel) with its launches (phase 10's among them) and times.
+corpus fold kernel) with its launches (phases 10's and 11's among them)
+and times.
 
 Usage: python3 chip_smoke.py   (from the root of the repository)
 """
@@ -212,6 +236,263 @@ def check(cond, msg):
 
 def log(msg):
     print(msg, flush=True)
+
+
+def phase_11(dev, w_wide=None, paxos_failing=None, replay_args=()):
+    """Phase 11: the actor compiler's checks on ``dev`` (see the module
+    docstring). ``w_wide``: the worlds of (b)'s wide runs and (d)'s hunts
+    (default W_FAMILY); ``paxos_failing``: phase 8's wide Paxos hunt's
+    failing seeds, which (d)'s hunt with a ring must reproduce;
+    ``replay_args``: appended to each fresh-process replay. Returns the
+    step kernel's launches by route and the fold kernel's launches, each
+    counted from 0 and read after the phase's last leg."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from madsim_tpu_torch.actorc import CompiledActor, HostTwinMismatch
+    from madsim_tpu_torch.actorc import conformance as conf_mod
+    from madsim_tpu_torch.actorc import crosscheck
+    from madsim_tpu_torch.analysis import speclint
+    from madsim_tpu_torch.engine import (DeviceEngine, EngineConfig,
+                                         check_actor, golden, step_kernel)
+    from madsim_tpu_torch.engine.families import actor_families, family
+    from madsim_tpu_torch.obs.bundle import load_bundle
+    from madsim_tpu_torch.parallel.sweep import sweep
+    from madsim_tpu_torch.search import fold_kernel, hunts
+    from madsim_tpu_torch.triage import triage
+
+    w_wide = w_wide or W_FAMILY
+    t11 = time.perf_counter()
+    route = {"raft": "raft", "tpc": "tpc", "pb": "pb", "paxos": "paxos",
+             "pair_restart": "pair", "guided_pair": "pair"}
+    launches = dict.fromkeys(("raft", "tpc", "pb", "paxos", "pair"), 0)
+    folds = 0
+    step_kernel.launches = fold_kernel.launches = 0
+
+    def take(r):
+        """Add the launches since the last take to route ``r``; returns
+        them."""
+        nonlocal folds
+        n = step_kernel.launches
+        launches[r] += n
+        folds += fold_kernel.launches
+        step_kernel.launches = fold_kernel.launches = 0
+        return n
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    # (a) speclint: the golden fixtures, the shipped specs and their bug
+    # variants, the protocol cards.
+    t0 = time.perf_counter()
+    for name, (rules, digest) in sorted(golden.GOLDEN_SPECLINT.items()):
+        mod = golden.speclint_fixture(os.path.join(
+            HERE, golden.SPECLINT_DIR, name + ".py"))
+        fs = speclint.lint_spec(mod.build(), root=HERE)
+        check(tuple(f.rule for f in fs) == rules
+              and golden.findings_digest(fs) == digest,
+              f"speclint: fixture {name}: findings differ from the JAX "
+              f"golden:\n" + "\n".join(f.render() for f in fs))
+    check(speclint.run_spec_pass(root=HERE) == [],
+          "speclint: a shipped spec has findings")
+    for name in sorted(golden.CARD_SPECS):
+        spec = golden.card_spec(name)
+        check(speclint.lint_spec(spec, root=HERE) == [],
+              f"speclint: spec {name} has findings")
+        check(golden.card_digest(speclint.protocol_card(spec))
+              == golden.GOLDEN_CARDS[name],
+              f"speclint: the protocol card of {name} differs from JAX's")
+        CompiledActor(spec)   # the compile gate passes it
+    log(f"[11 speclint a] {len(golden.GOLDEN_SPECLINT)} fixtures' findings "
+        f"equal the JAX goldens (rule, path, line, message); the shipped "
+        f"specs and {len(golden.CARD_SPECS)} variants lint clean and pass "
+        f"the compile gate, their protocol cards' sha256 the JAX goldens; "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+
+    # (b) check_actor over every registered family through the kernel: at
+    # tests/test_conformance.py's shape, held to the JAX golden, then at
+    # w_wide worlds with the same canonical config.
+    shape = golden.CHECK_ACTOR_SHAPE
+    for name, fam in sorted(actor_families().items()):
+        actor, cfg = fam.conformance()
+        sync()
+        t0 = time.perf_counter()
+        rep = check_actor(actor, cfg, require_divergence=fam.divergent,
+                          device=dev, **shape)
+        sync()
+        wall = time.perf_counter() - t0
+        n = take(route[name])
+        check(rep == golden.GOLDEN_CHECK_ACTOR[name],
+              f"check_actor {name}: {rep} is not JAX's "
+              f"{golden.GOLDEN_CHECK_ACTOR[name]}")
+        check(n > 0, f"check_actor {name}: the step kernel never launched")
+        actor, cfg = fam.conformance()
+        sync()
+        t0 = time.perf_counter()
+        wide = check_actor(actor, cfg, n_worlds=w_wide,
+                           max_steps=shape["max_steps"],
+                           require_divergence=fam.divergent, device=dev)
+        sync()
+        wall_w = time.perf_counter() - t0
+        n_w = take(route[name])
+        check(wide["bug_rate"] == 0.0 and n_w > 0,
+              f"check_actor {name} at {w_wide} worlds: {wide}")
+        log(f"[11 check_actor b] {name} ({cfg.n_nodes} nodes, "
+            f"Q={cfg.queue_cap}): at {shape['n_worlds']} worlds and "
+            f"{shape['max_steps']} steps the JAX report {rep} in "
+            f"{wall * 1e3:.1f} ms, {n} step launches; at {w_wide} worlds "
+            f"{wide} in {wall_w * 1e3:.1f} ms, {n_w} step launches")
+
+    # (c) the host-twin crosscheck: each step recorded by the plain step on
+    # the card, held to the host twin and to a twin state stepped by the
+    # kernel (one launch per step; the engines' actors are the family
+    # classes, which the kernel has policies for); the reports JAX's.
+    real_record = conf_mod._record
+    rec_s = []
+
+    def timed_record(*a, **k):
+        sync()
+        t0 = time.perf_counter()
+        out = real_record(*a, **k)
+        rec_s.append(time.perf_counter() - t0)
+        return out
+
+    conf_mod._record = timed_record
+    try:
+        for name in ("tpc", "pb", "paxos", "tpc:64", "pb:64", "paxos:64"):
+            actor, cfg, seeds, faults, steps = golden.crosscheck_case(name)
+            eng = DeviceEngine(actor, cfg, device=dev)
+            sync()
+            t0 = time.perf_counter()
+            rep = crosscheck(actor.spec, cfg, seeds=seeds, faults=faults,
+                             max_steps=steps, engine=eng)
+            wall = time.perf_counter() - t0
+            n = take(name.split(":")[0])
+            check(rep == golden.GOLDEN_CROSSCHECK[name],
+                  f"crosscheck {name}: {rep} is not JAX's "
+                  f"{golden.GOLDEN_CROSSCHECK[name]}")
+            check(n == steps, f"crosscheck {name}: {n} kernel launches "
+                  f"for {steps} recorded steps")
+            log(f"[11 crosscheck c] {name}: {len(seeds)} seeds x {steps} "
+                f"steps, the JAX report {rep}; every step's state held "
+                f"bitwise to the host twin and to the kernel ({n} "
+                f"launches); wall {wall:.2f} s, of it the device pass "
+                f"{rec_s[-1]:.2f} s and the host's comparison "
+                f"{wall - rec_s[-1]:.2f} s")
+    finally:
+        conf_mod._record = real_record
+    # The kernel leg catches a kernel step that differs: a twin engine
+    # whose seventh launch is followed by a change of one lane.
+    actor, cfg, seeds, faults, _steps = golden.crosscheck_case("tpc")
+    eng = DeviceEngine(actor, cfg, device=dev)
+    real_run_steps = eng.run_steps
+    calls = [0]
+
+    def nudged(state, k, gate=None):
+        real_run_steps(state, k, gate)
+        calls[0] += 1
+        if calls[0] == 7:
+            state.astate["txns_seen"].add_(1)
+        return state
+
+    eng.run_steps = nudged
+    caught = None
+    try:
+        crosscheck(actor.spec, cfg, seeds=seeds, faults=faults,
+                   max_steps=20, engine=eng)
+    except HostTwinMismatch as exc:
+        caught = str(exc)
+    take("tpc")
+    check(caught is not None and "step 6: the CUDA step kernel diverged "
+          "from the plain step at lane 'astate.txns_seen'" in caught,
+          f"crosscheck: a changed kernel step was not caught ({caught})")
+    log(f"[11 crosscheck c] a twin step changed after launch 7 is caught: "
+        f"{caught.splitlines()[0]}")
+
+    # (d) compiled-family repro bundles: the pb hunt to retirement and the
+    # wide guided Paxos hunt, each with metrics and a 64-deep ring, then
+    # triage(out_dir=...); each bundle carries the JAX protocol card, and
+    # one bundle of each replays in a fresh process (--crosscheck).
+    work = tempfile.mkdtemp(prefix=".actorc_", dir=HERE)
+    try:
+        fam, ak, ck, faults, max_steps = golden.FAMILY_CONFIGS["pb_hunt"]
+        tf = family(fam)
+        eng = DeviceEngine(tf.actor_cls(tf.config_cls(**ak)),
+                           EngineConfig(**dict(ck, metrics=True,
+                                               blackbox=64)), device=dev)
+        leg = dict(chunk_steps=64, max_steps=max_steps, recycle=True,
+                   batch_worlds=min(8192, w_wide), pipeline=False,
+                   faults=np.asarray(faults, np.int32))
+        hunt = hunts.paxos_hunt()
+        cfg_px = dataclasses.replace(hunt.cfg, blackbox=64)
+        eng_px = DeviceEngine(hunt.actor, cfg_px, device=dev)
+        leg_px = dict(faults=hunt.template, search=hunt.search(True),
+                      recycle=True, batch_worlds=min(8192, w_wide),
+                      chunk_steps=64, max_steps=50_000_000,
+                      stop_on_first_bug=True, pipeline=False)
+        for label, e, kw, r, card in (
+                ("pb_hunt", eng, leg, "pb", "pb_hunt"),
+                ("wide Paxos hunt", eng_px, leg_px, "paxos", "paxos_hunt")):
+            out = os.path.join(work, r)
+            os.makedirs(out)
+            sync()
+            t0 = time.perf_counter()
+            res = sweep(None, e.cfg, np.arange(w_wide), engine=e, **kw)
+            sync()
+            wall_s = time.perf_counter() - t0
+            check(res.failing_seeds, f"{label}: no bug found")
+            if r == "paxos" and paxos_failing is not None:
+                check(list(res.failing_seeds) == list(paxos_failing),
+                      f"{label}: the ring changed the failing seeds")
+            t0 = time.perf_counter()
+            rep = triage(res, out_dir=out, minimize=False,
+                         max_steps=100_000)
+            wall_t = time.perf_counter() - t0
+            check(rep.bundles and len(rep.bundles) == len(rep.classes),
+                  f"{label}: {len(rep.bundles)} bundles for "
+                  f"{len(rep.classes)} classes")
+            for key, path in rep.bundles.items():
+                b = load_bundle(path)
+                check(golden.card_digest(b["extra"]["protocol_card"])
+                      == golden.GOLDEN_CARDS[card],
+                      f"{label}: bundle {key}'s protocol card is not JAX's")
+            path = rep.bundles[rep.classes[0].key]
+            trace_out = os.path.join(out, "trace.json")
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "madsim_tpu_torch.obs", "replay",
+                 "--bundle", path, "--out", trace_out, "--crosscheck",
+                 *replay_args], cwd=HERE,
+                env=dict(os.environ, PYTHONPATH=HERE), capture_output=True,
+                text=True, timeout=300)
+            wall_r = time.perf_counter() - t0
+            with open(trace_out, encoding="utf-8") as f:
+                events = json.load(f)["traceEvents"]
+            check(proc.returncode == 0 and "invariant RAISED" in proc.stderr
+                  and "bitwise the suffix" in proc.stderr
+                  and events[-1]["name"] == "invariant:raise",
+                  f"{label}: the bundle's replay in a fresh process: rc "
+                  f"{proc.returncode}: {proc.stderr[-600:]}")
+            n = take(r)
+            log(f"[11 bundles d] {label}, {w_wide} seeds through "
+                f"{kw['batch_worlds']} slots, metrics and a 64-deep ring: "
+                f"{len(res.failing_seeds)} failing in {wall_s * 1e3:.1f} ms; "
+                f"triage(out_dir=..., minimize=False): {len(rep.classes)} "
+                f"classes, {len(rep.bundles)} bundles in {wall_t * 1e3:.1f} "
+                f"ms, each with the JAX protocol card; class "
+                f"{rep.classes[0].key} (seed {rep.classes[0].representative})"
+                f" replayed in a fresh process with --crosscheck: rc 0, the "
+                f"invariant raised, the ring bitwise the replayed trace's "
+                f"suffix, in {wall_r:.1f} s; {n} step launches")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"[11] phase 11 took {time.perf_counter() - t11:.1f} s; its step "
+        f"kernel launches by route {launches}, fold launches {folds}")
+    return launches, folds
 
 
 def main() -> int:
@@ -1900,6 +2181,7 @@ def main() -> int:
             f"kernel {mean(fold_ms):.3f} ms over {len(fold_ms)} (replay); "
             f"kernel device time {sum(chunk_ms):.3f} ms, device idle share "
             f"{1 - sum(chunk_ms) / (wall * 1e3):.3f}" + extra)
+    wide_paxos_failing = list(ref.failing_seeds)
     # ---- 9. checkpoints and the crosscheck on the card --------------------
     # (a) phase 7's sweep (b), every seed to retirement, with a checkpoint
     # writer (every 4 chunks) in the serial and the pipelined loop, each
@@ -2652,6 +2934,9 @@ def main() -> int:
     log(f"[10] phase 10 took {time.perf_counter() - t10:.1f} s; its step "
         f"kernel launches by route {p10_launches}, fold launches "
         f"{p10_folds}")
+
+    # ---- 11. the actor compiler's checks on the card ----------------------
+    p11_launches, p11_folds = phase_11(dev, paxos_failing=wide_paxos_failing)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(card)
@@ -2661,7 +2946,7 @@ def main() -> int:
         "source": "madsim_tpu_torch/csrc/step_raft.cu",
         "replaces": "madsim_tpu/engine/pallas_step.py:132",
         "launches": (main_launches + sweep_launches + hunt_launches["raft"]
-                     + p10_launches["raft"]),
+                     + p10_launches["raft"] + p11_launches["raft"]),
         "max_abs_err": fam_err["raft"],
         "ms": hl["kernel_ms"],
         "plain_ms": hl["plain_ms"],
@@ -2678,7 +2963,7 @@ def main() -> int:
             "source": f"madsim_tpu_torch/csrc/step_{fam}.cu",
             "replaces": "madsim_tpu/engine/pallas_step.py:132",
             "launches": (fam_launches[fam] + hunt_launches.get(fam, 0)
-                         + p10_launches.get(fam, 0)),
+                         + p10_launches.get(fam, 0) + p11_launches[fam]),
             "max_abs_err": fam_err[fam],
             "ms": r["kernel_ms"],
             "plain_ms": r["plain_ms"],
@@ -2713,7 +2998,7 @@ def main() -> int:
         "route": "cuda",
         "source": "madsim_tpu_torch/csrc/corpus_fold.cu",
         "replaces": "madsim_tpu/search/corpus.py:131",
-        "launches": fold_launches + p10_folds,
+        "launches": fold_launches + p10_folds + p11_folds,
         "max_abs_err": 0.0,
         "ms": fr["ms"],
         "plain_ms": fr["plain_ms"],

@@ -10,17 +10,24 @@ The PyTorch counterpart of ``madsim_tpu.actorc``:
   layout from declared ranges, widen/narrow boundaries by construction,
   merged-handler dispatch, one ``make_outbox`` assembly, the bounded-draw
   RNG discipline, generated ``kind_names`` and counter-derived
-  ``observe()``;
+  ``observe()``, behind the speclint gate
+  (:mod:`madsim_tpu_torch.analysis.speclint`);
+- :mod:`~madsim_tpu_torch.actorc.host` — the generated host reference
+  interpreter (same spec, same transition callables, numpy backend);
+- :mod:`~madsim_tpu_torch.actorc.conformance` — the lockstep per-event
+  state/outbox/bug crosscheck between the two (and, on CUDA, the step
+  kernel against the plain step at every recorded step);
 - :mod:`~madsim_tpu_torch.actorc.families` — the shipped spec-defined
   families: tpc, pb and multi-decree Paxos.
-
-Not ported yet: the host twin (``actorc/host.py``), its conformance
-crosscheck and the speclint gate (ROADMAP).
 """
 from .compile import CompiledActor, Ctx, compile_actor
+from .conformance import HostTwinMismatch, crosscheck
+from .host import HostActor, HostOutbox
 from .spec import ActorSpec, Lane, Message, SpecError, Word, validate_spec
 
 __all__ = [
     "ActorSpec", "Lane", "Message", "Word", "SpecError", "validate_spec",
     "CompiledActor", "Ctx", "compile_actor",
+    "HostActor", "HostOutbox",
+    "crosscheck", "HostTwinMismatch",
 ]

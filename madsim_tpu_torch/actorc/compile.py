@@ -22,11 +22,15 @@ assembly and the RNG rules are the JAX module's:
   restart hook's draws advance the cursor unconditionally.
 - **Restart**: volatile lanes reset for the restarting node before the
   spec's ``on_restart`` hook runs.
+- **The speclint gate**: :class:`CompiledActor` runs
+  :func:`~madsim_tpu_torch.analysis.speclint.gate_spec` (pass 4) right
+  after :func:`validate_spec`, as the JAX compiler does, so a spec with
+  findings does not lower.
 
-Not ported: the JAX compiler's speclint gate (``analysis/speclint.py``)
-and the generated host twin (``actorc/host.py``) with its conformance
-crosscheck; :class:`CompiledActor` runs :func:`validate_spec` only
-(ROADMAP). The three shipped specs lint clean in the JAX package.
+The same spec feeds :mod:`madsim_tpu_torch.actorc.host`, the plain-Python
+reference interpreter, which :mod:`madsim_tpu_torch.actorc.conformance`
+holds this lowering to, event by event. (speclint's frame walk skips this
+file by its name, ``compile.py``, to report the spec's own lines.)
 """
 from __future__ import annotations
 
@@ -492,12 +496,17 @@ class CompiledActor:
 
     The state is a dict of lanes, one tensor per declared lane with a
     leading world axis (leaves in sorted name order, as JAX flattens a
-    dict). Construction runs :func:`validate_spec`; the JAX compiler's
-    speclint gate is not ported.
+    dict). Construction runs :func:`validate_spec`, then speclint's
+    :func:`~madsim_tpu_torch.analysis.speclint.gate_spec`: a spec with
+    findings raises :class:`SpecError` with the JAX gate's text (escape
+    hatch: ``spec.lint_allow``, per code or ``("*",)``).
     """
 
     def __init__(self, spec: ActorSpec):
         validate_spec(spec)  # spec-internal checks at construction
+        # Pass 4: protocol-level verification before any lowering.
+        from ..analysis.speclint import gate_spec
+        gate_spec(spec)
         self.spec = spec
         self.num_kinds = len(spec.messages)
         # The declaration order IS the kind code table.

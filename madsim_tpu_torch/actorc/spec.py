@@ -117,14 +117,15 @@ class ActorSpec:
     ``handlers`` maps message names to transition callables ``fn(t)``
     written against the restricted
     :class:`~madsim_tpu_torch.actorc.compile.Ctx` expression surface,
-    evaluated per world by the compiler (under ``torch.func.vmap``).
-    ``init`` seeds the world's events;
+    evaluated per world by the compiler (under ``torch.func.vmap``) and
+    by the host twin (:mod:`~madsim_tpu_torch.actorc.host`, on numpy
+    values). ``init`` seeds the world's events;
     ``on_restart`` (optional) runs after the volatile-lane resets;
     ``invariant`` is the per-step bug predicate over full lane views;
     ``observe`` adds derived metrics beyond the auto-exported counters.
 
-    The last three fields feed the JAX package's speclint pass, which
-    gates compilation there and is not ported (ROADMAP):
+    The last three fields feed speclint
+    (:mod:`madsim_tpu_torch.analysis.speclint`), which gates compilation:
     ``ignore`` lists message kinds a node may legitimately receive and
     drop (exhaustiveness rule SPC011 demands every other kind be
     handled); ``terminal`` lists kinds whose handlers absorb without

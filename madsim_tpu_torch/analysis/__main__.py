@@ -1,0 +1,7 @@
+"""``python -m madsim_tpu_torch.analysis``: the speclint CLI (analysis/cli.py)."""
+import sys
+
+from .cli import main
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -26,6 +26,7 @@ from .core import (
 from .checkpoint import CheckpointError
 from .checkpoint import load as load_checkpoint
 from .checkpoint import save as save_checkpoint
+from .conformance import ConformanceError, check_actor
 from .convert import state_from_numpy, state_to_numpy
 from .lanes import PACKED, WIDE, Lanes
 from .queue import INF_TIME, Event
@@ -55,6 +56,7 @@ __all__ = [
     "Lanes", "PACKED", "WIDE",
     "state_from_numpy", "state_to_numpy",
     "save_checkpoint", "load_checkpoint", "CheckpointError",
+    "check_actor", "ConformanceError",
     "FAULT_KILL", "FAULT_RESTART", "FAULT_CLOG_NODE", "FAULT_UNCLOG_NODE",
     "FAULT_CLOG_LINK", "FAULT_UNCLOG_LINK", "FAULT_SET_LATENCY",
     "FAULT_SET_LOSS", "FAULT_PAUSE", "FAULT_RESUME", "INF_TIME",

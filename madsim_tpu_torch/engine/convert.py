@@ -32,6 +32,14 @@ def to_numpy(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def bit_view(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in a dtype whose comparisons are bitwise: uint32 (which torch
+    cannot compare on every device) and float32 leaves as int32 views."""
+    if x.dtype in (torch.uint32, torch.float32):
+        return x.view(torch.int32)
+    return x
+
+
 def from_numpy(a: np.ndarray, device) -> torch.Tensor:
     """A host array as a tensor of its dtype on ``device`` (a copy; the
     inverse of :func:`to_numpy`)."""

@@ -4,12 +4,12 @@ its canonical conformance shape.
 The port of ``madsim_tpu/engine/families.py``: raft, pb, tpc, paxos and
 the guided search's synthetic families ``pair_restart`` and
 ``guided_pair``, with the JAX registry's ``conformance()`` shapes and
-``compiled`` flags. The replay CLI resolves ``name -> (actor class, config
-class)`` here (``python -m madsim_tpu_torch.obs replay --actor <name>``
-and bundle replay), and triage names the family inside repro bundles. The
-JAX registry's ``divergent`` flag comes with the conformance check
-(``engine/conformance.py``), its one consumer (ROADMAP). Imports are lazy
-per entry.
+``compiled`` and ``divergent`` flags. Three consumers read it: the replay
+CLI resolves ``name -> (actor class, config class)`` here (``python -m
+madsim_tpu_torch.obs replay --actor <name>`` and bundle replay), triage
+names the family inside repro bundles, and the conformance check
+(:func:`~madsim_tpu_torch.engine.conformance.check_actor`) runs over every
+entry's canonical ``conformance()`` shape. Imports are lazy per entry.
 """
 from __future__ import annotations
 
@@ -23,9 +23,14 @@ class Family:
 
     name: str
     load: Callable[[], Tuple[type, type]]   # -> (actor_cls, config_cls)
-    # Canonical (actor, EngineConfig): the clean (bug switches off) shape.
+    # Canonical (actor, EngineConfig) for the conformance check — the
+    # clean (bug switches off) shape check_actor validates.
     conformance: Callable[[], Tuple[Any, Any]]
     compiled: bool = False                   # actorc-spec family?
+    # Synthetic fixture families are deliberately schedule-driven: the
+    # fault-free trajectory is seed-invariant, so check_actor's
+    # distinct-seeds-diverge requirement is waived for them.
+    divergent: bool = True
 
     @property
     def actor_cls(self) -> type:
@@ -108,7 +113,7 @@ def _pair_restart() -> Family:
         cls, cfg = load()
         acfg = cfg()
         return cls(acfg), engine_config(acfg)
-    return Family("pair_restart", load, conf)
+    return Family("pair_restart", load, conf, divergent=False)
 
 
 def _guided_pair() -> Family:
@@ -123,7 +128,7 @@ def _guided_pair() -> Family:
         cls, cfg = load()
         acfg = cfg()
         return cls(acfg), engine_config(acfg)
-    return Family("guided_pair", load, conf)
+    return Family("guided_pair", load, conf, divergent=False)
 
 
 def actor_families() -> Dict[str, Family]:

@@ -31,10 +31,22 @@ digests and the reduced pins from JAX; the full-budget pins were computed
 with JAX on the CPU by its test marked ``slow``::
 
     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_hunts.py -m slow
+
+The actor compiler's checks: :data:`GOLDEN_SPECLINT`, the findings of
+JAX's speclint on the golden fixtures (loaded for the port by
+:func:`speclint_fixture`); :data:`GOLDEN_CARDS`, the protocol cards of
+the shipped specs and their bug variants (:data:`CARD_SPECS`);
+:data:`GOLDEN_CHECK_ACTOR`, JAX's ``check_actor`` report of every
+registered family; :data:`GOLDEN_CROSSCHECK`, JAX's host-twin
+``crosscheck`` reports (:data:`CROSSCHECK_CASES`).
+``tests/test_torch_speclint.py``, ``test_torch_host_twin.py`` and
+``test_torch_conformance.py`` recompute them from JAX (the last two in
+tests marked ``slow``).
 """
 from __future__ import annotations
 
 import hashlib
+import os
 from typing import Dict
 
 import numpy as np
@@ -455,3 +467,213 @@ def minimize_digest(res) -> str:
            "one_minimal": bool(res.one_minimal)}
     return hashlib.sha256(
         json.dumps(doc, sort_keys=True).encode()).hexdigest()
+
+
+# ---------------------------------------------------------------------------
+# The actor compiler's checks: speclint, check_actor, the host-twin
+# crosscheck. Recomputed from the JAX package by tests/test_torch_speclint.py
+# and tests/test_torch_conformance.py (the check_actor and 64-seed
+# crosscheck reports by their tests marked ``slow``).
+# ---------------------------------------------------------------------------
+
+#: The speclint golden fixtures, tests/fixtures/speclint/<name>.py.
+SPECLINT_DIR = "tests/fixtures/speclint"
+
+
+def speclint_fixture(path: str):
+    """Import a speclint fixture against the port's spec model and return
+    the module. The fixtures import ``madsim_tpu.actorc.spec``: that one
+    line is rewritten to ``madsim_tpu_torch.actorc.spec`` in place, and
+    the text is compiled under the fixture's own file name, so the
+    handlers' ``co_filename`` and line numbers — which findings report —
+    and the pragmas read back from the file agree with the JAX package's
+    import of the same file."""
+    import types
+
+    path = os.path.abspath(path)
+    with open(path, encoding="utf-8") as f:
+        lines = f.read().split("\n")
+    old = "from madsim_tpu.actorc.spec import"
+    lines = [ln.replace(old, "from madsim_tpu_torch.actorc.spec import", 1)
+             if ln.startswith(old) else ln for ln in lines]
+    name = os.path.splitext(os.path.basename(path))[0]
+    mod = types.ModuleType(f"speclint_fixture_{name}")
+    mod.__file__ = path
+    exec(compile("\n".join(lines), path, "exec"), mod.__dict__)
+    return mod
+
+
+def findings_digest(findings) -> str:
+    """SHA-256 over the rendered findings (path, line, rule, message)."""
+    return hashlib.sha256("\n".join(
+        f.render() for f in findings).encode()).hexdigest()
+
+
+#: fixture -> (the rules of its findings, in order; findings_digest) of
+#: the JAX package's ``lint_spec(fixture.build(), root=<repo root>)``.
+GOLDEN_SPECLINT = {
+    "bad_capacity": (("SPC030", "SPC031"),
+        "e26b366b6399265e70c0a76c4f4016b65f314412ae88d4fdd06bb3f3c74bf59e"),
+    "bad_durability": (("SPC050",),
+        "247748d732ccb690b490fa2e3221974c993e46e4e4ff9666b9d4d335cd3c6f9e"),
+    "bad_effects": (("SPC040", "SPC041"),
+        "5165567af97652c7e22d3b38b2801403bffff5568842d54f5ea4f8e0d3474f12"),
+    "bad_noop": (("SPC012",),
+        "1b721c16f475a37db2dc6a6715065a1f4f13e655f1233ae5848504298edc0f67"),
+    "bad_timer": (("SPC021", "SPC010", "SPC020"),
+        "c9962b8cc87df9271ae42e1688208b17aaf66edf125c73a12b15f681b924ed09"),
+    "bad_unhandled": (("SPC011",),
+        "aad46a863cd444337f5f26d360e658671c0cb546cede4bb3ce4253e51d4abdf2"),
+    "bad_unreachable": (("SPC010",),
+        "dfd0607d8354525806d50719330b8460e1bacf768e41fd15e1c89c02b3ca09ea"),
+    "clean": ((),
+        "e3b0c44298fc1c149afbf4c8996fb92427ae41e4649b934ca495991b7852b855"),
+    "stale_pragma": (("DET900",),
+        "b55f80650dfddc3cc6af711768115bad88b37a3ebdb33e2b36ae2bbb5297530b"),
+}
+
+#: The shipped specs and their bug variants: name -> (family, config
+#: kwargs). Each lints clean; tpc_crosscheck, pb_hunt and paxos_hunt are
+#: the configs of FAMILY_CONFIGS and SEARCH_CONFIGS, pb_hunt_n3 that of
+#: tests/test_actorc.py's pb crosscheck.
+CARD_SPECS = {
+    "tpc": ("tpc", {}),
+    "tpc_presumed_commit": ("tpc", dict(buggy_presumed_commit=True)),
+    "tpc_crosscheck": ("tpc", dict(n=4, n_txns=4,
+                                   buggy_presumed_commit=True)),
+    "pb": ("pb", {}),
+    "pb_commit_early": ("pb", dict(buggy_commit_early=True)),
+    "pb_hunt": ("pb", dict(n=3, n_writes=4, buggy_commit_early=True)),
+    "pb_hunt_n3": ("pb", dict(n=3, n_writes=3, buggy_commit_early=True)),
+    "paxos": ("paxos", {}),
+    "paxos_forgetful": ("paxos", dict(buggy_forgetful_acceptor=True)),
+    "paxos_hunt": ("paxos", dict(buggy_forgetful_acceptor=True,
+                                 contend_all=True)),
+}
+
+
+def card_actor(name: str):
+    """The port's family actor (TPCActor, PBActor, PaxosActor) of
+    CARD_SPECS[name]: its ``spec`` is the spec, and the step kernel has a
+    policy for it."""
+    from .families import family
+
+    fam, kw = CARD_SPECS[name]
+    f = family(fam)
+    return f.actor_cls(f.config_cls(**kw))
+
+
+def card_spec(name: str):
+    """The port's spec of CARD_SPECS[name]."""
+    return card_actor(name).spec
+
+
+def card_digest(card: str) -> str:
+    return hashlib.sha256(card.encode()).hexdigest()
+
+
+#: card_digest of the JAX package's protocol_card of each CARD_SPECS spec.
+GOLDEN_CARDS = {
+    "tpc":
+        "85dcf020c83f50c9693b11fe2be2cd50c44dd7e128720718afe62b4a1f01953c",
+    "tpc_presumed_commit":
+        "85dcf020c83f50c9693b11fe2be2cd50c44dd7e128720718afe62b4a1f01953c",
+    "tpc_crosscheck":
+        "85dcf020c83f50c9693b11fe2be2cd50c44dd7e128720718afe62b4a1f01953c",
+    "pb":
+        "8b85e1045aebf5be14b787b6507aa2c1e2ff76103dc3719c0afde98f1f626ef3",
+    "pb_commit_early":
+        "8b85e1045aebf5be14b787b6507aa2c1e2ff76103dc3719c0afde98f1f626ef3",
+    "pb_hunt":
+        "8b85e1045aebf5be14b787b6507aa2c1e2ff76103dc3719c0afde98f1f626ef3",
+    "pb_hunt_n3":
+        "8b85e1045aebf5be14b787b6507aa2c1e2ff76103dc3719c0afde98f1f626ef3",
+    "paxos":
+        "4e0b544444eb40e247e5c82642f4899ce0261c4a425dc6e7e00c9b820a8e7934",
+    "paxos_forgetful":
+        "35a65e02e7ce5a63e9a967a698c905cd754c1233a351c826a0ecf5b8eb2cd0f9",
+    "paxos_hunt":
+        "35a65e02e7ce5a63e9a967a698c905cd754c1233a351c826a0ecf5b8eb2cd0f9",
+}
+
+#: check_actor over every registered family at tests/test_conformance.py's
+#: shape (its canonical conformance() config, require_divergence from the
+#: registry).
+CHECK_ACTOR_SHAPE = dict(n_worlds=32, max_steps=3_000)
+
+#: The JAX package's check_actor report of each family at CHECK_ACTOR_SHAPE.
+GOLDEN_CHECK_ACTOR = {
+    "guided_pair": {"n_worlds": 32, "steps_mean": 2.0,
+                    "draws_per_kind": [0, 0], "bug_rate": 0.0, "qmax": 3},
+    "pair_restart": {"n_worlds": 32, "steps_mean": 2.0,
+                     "draws_per_kind": [0], "bug_rate": 0.0, "qmax": 3},
+    "paxos": {"n_worlds": 32, "steps_mean": 80.09375,
+              "draws_per_kind": [1, 0, 0, 0, 0, 0, 1], "bug_rate": 0.0,
+              "qmax": 17},
+    "pb": {"n_worlds": 32, "steps_mean": 219.53125,
+           "draws_per_kind": [0, 1, 0, 0, 0, 1], "bug_rate": 0.0,
+           "qmax": 25},
+    "raft": {"n_worlds": 32, "steps_mean": 281.625,
+             "draws_per_kind": [1, 0, 1, 0, 1, 0, 0], "bug_rate": 0.0,
+             "qmax": 24},
+    "tpc": {"n_worlds": 32, "steps_mean": 44.9375,
+            "draws_per_kind": [0, 1, 0, 0, 0], "bug_rate": 0.0,
+            "qmax": 11},
+}
+
+#: The host-twin crosscheck's deployments, tests/test_actorc.py's three:
+#: name -> (CARD_SPECS entry, EngineConfig kwargs (None: the family's
+#: engine_config), seeds, fault rows, max_steps). ":64" runs each at
+#: seeds 0..63 and 400 steps.
+CROSSCHECK_CASES = {
+    "tpc": ("tpc_crosscheck",
+            dict(n_nodes=4, outbox_cap=5, queue_cap=64,
+                 t_limit_us=2_000_000, loss_rate=0.1),
+            (0, 3), [[200_000, FAULT_KILL, 0, 0],
+                     [500_000, FAULT_RESTART, 0, 0]], 250),
+    "pb": ("pb_hunt_n3",
+           dict(n_nodes=3, outbox_cap=4, queue_cap=48,
+                t_limit_us=2_000_000, loss_rate=0.2),
+           (0, 9), [[130_000, FAULT_KILL, 0, 0],
+                    [900_000, FAULT_RESTART, 0, 0]], 250),
+    "paxos": ("paxos_hunt", None, (0, 1, 5),
+              [[80_000, FAULT_RESTART, 2, 0]], 250),
+}
+CROSSCHECK_CASES.update({
+    name + ":64": (spec, ck, tuple(range(64)), faults, 400)
+    for name, (spec, ck, _seeds, faults, _steps)
+    in list(CROSSCHECK_CASES.items())})
+
+#: The JAX package's crosscheck report of each CROSSCHECK_CASES entry.
+GOLDEN_CROSSCHECK = {
+    "tpc": {"n_seeds": 2, "steps_checked": 500, "events_delivered": 22,
+            "restarts": 1, "max_steps": 250},
+    "pb": {"n_seeds": 2, "steps_checked": 500, "events_delivered": 264,
+           "restarts": 2, "max_steps": 250},
+    "paxos": {"n_seeds": 3, "steps_checked": 750, "events_delivered": 321,
+              "restarts": 3, "max_steps": 250},
+    "tpc:64": {"n_seeds": 64, "steps_checked": 25600,
+               "events_delivered": 1092, "restarts": 62, "max_steps": 400},
+    "pb:64": {"n_seeds": 64, "steps_checked": 25600,
+              "events_delivered": 7254, "restarts": 51, "max_steps": 400},
+    "paxos:64": {"n_seeds": 64, "steps_checked": 25600,
+                 "events_delivered": 6735, "restarts": 64,
+                 "max_steps": 400},
+}
+
+
+def crosscheck_case(name: str):
+    """``(actor, EngineConfig, seeds, fault rows, max_steps)`` of
+    CROSSCHECK_CASES[name] in the port: the family actor, whose ``spec``
+    the crosscheck takes and whose engine the kernel can step."""
+    spec_name, ck, seeds, faults, steps = CROSSCHECK_CASES[name]
+    actor = card_actor(spec_name)
+    if ck is None:
+        from ..actorc.families.paxos import PaxosConfig, engine_config
+
+        cfg = engine_config(PaxosConfig(**CARD_SPECS[spec_name][1]))
+    else:
+        from .core import EngineConfig
+
+        cfg = EngineConfig(**ck)
+    return actor, cfg, list(seeds), np.asarray(faults, np.int32), steps

@@ -15,12 +15,10 @@ Requires ``EngineConfig(metrics=True)``: the behavior signature is a
 hash of the MetricsBlock histograms, so a metrics-off sweep has no
 class key to bucket by (the same precondition as ``SweepResult.coverage``).
 
-A compiled family's bundle carries its protocol card in the JAX package
-(the speclint profile of its spec); speclint is not ported yet (ROADMAP
-Queue A item 9), so ``triage`` of a compiled-family sweep with
-``out_dir`` raises ``NotImplementedError`` rather than write a bundle
-without it. Bucketing and minimizing (no ``out_dir``) work for every
-family.
+A compiled family's bundle (tpc, pb, Paxos) also carries its protocol
+card: the speclint profile of its spec
+(:func:`~madsim_tpu_torch.analysis.speclint.protocol_card`), as in the
+JAX package.
 """
 from __future__ import annotations
 
@@ -143,23 +141,6 @@ def _actor_bundle_info(actor) -> Optional[Dict[str, Any]]:
     return None
 
 
-def _refuse_protocol_card(actor) -> None:
-    """Raise for a spec-backed (compiled-family) actor: its bundle
-    carries the speclint protocol card, which is not ported."""
-    if getattr(actor, "spec", None) is None:
-        return
-    from ..engine.families import actor_families
-
-    compiled = sorted(n for n, f in actor_families().items() if f.compiled)
-    raise NotImplementedError(
-        f"triage(out_dir=...) of a compiled-family sweep "
-        f"({type(actor).__name__}; the registry's compiled families: "
-        f"{', '.join(compiled)}): its repro bundle carries the "
-        "speclint protocol card, which is not ported to "
-        "madsim_tpu_torch yet (ROADMAP Queue A item 9); call "
-        "triage(result) without out_dir to bucket and minimize")
-
-
 @dataclasses.dataclass
 class TriageReport:
     """Outcome of :func:`triage`: the deduplicated, minimized corpus."""
@@ -202,8 +183,8 @@ def triage(result, out_dir: Optional[str] = None, *,
     ``device_sweep`` repro bundle per class is written there, carrying
     the MINIMIZED schedule rows and the ``minimization`` provenance
     block, replayable via ``python -m madsim_tpu_torch.obs replay
-    --bundle``; a compiled family's sweep refuses ``out_dir`` (the module
-    docstring). ``minimize_kw`` forwards to :func:`~.minimize.minimize`
+    --bundle`` (a compiled family's with its protocol card).
+    ``minimize_kw`` forwards to :func:`~.minimize.minimize`
     (``pipeline``, ``weaken``, ``tighten``, ``chunk_steps``, ...).
     """
     classes = failure_classes(result)
@@ -215,8 +196,6 @@ def triage(result, out_dir: Optional[str] = None, *,
             "this SweepResult carries no triage context (it was merged "
             "or reconstructed): re-run the sweep, or call "
             "triage(result, minimize=False) to only bucket failures")
-    if out_dir is not None and classes and ctx is not None:
-        _refuse_protocol_card(ctx.engine.actor)
     for fc in classes:
         mr = None
         if minimize:
@@ -236,6 +215,16 @@ def triage(result, out_dir: Optional[str] = None, *,
         extra: Dict[str, Any] = {
             "failure_class": fc.key, "n_seeds": fc.count,
             "seeds_sample": [int(s) for s in fc.seeds[:16]]}
+        spec = (getattr(ctx.engine.actor, "spec", None)
+                if ctx is not None else None)
+        if spec is not None:
+            # Spec-backed (actorc) actor: the bundle carries its
+            # protocol card — the speclint static profile (kinds x
+            # handlers, timer graph, lane budgets) — so a minimized
+            # bug documents the protocol shape it was found against.
+            from ..analysis.speclint import protocol_card
+
+            extra["protocol_card"] = protocol_card(spec)
         bb = _class_blackbox(result, fc)
         if bb is not None:
             # Blackbox-on sweep: attach the representative's decoded

@@ -289,6 +289,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "madsim_tpu_torch.obs, madsim_tpu_torch.obs.cli, "
             "madsim_tpu_torch.obs.observatory, "
             "madsim_tpu_torch.obs.bundle, madsim_tpu_torch.obs.timeline, "
+            "madsim_tpu_torch.analysis, madsim_tpu_torch.analysis.speclint, "
+            "madsim_tpu_torch.actorc.host, "
+            "madsim_tpu_torch.actorc.conformance, "
+            "madsim_tpu_torch.engine.conformance, "
             "madsim_tpu_torch.kernel_ab; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'madsim_tpu' or "

@@ -16,9 +16,10 @@ package on the CPU, bitwise:
 - the bug corpus: k injected classes dedupe to exactly k, with JAX's
   keys, and ``behavior_signatures`` equals JAX's and the device
   preimage (``obs.coverage.behavior_signature``);
-- a compiled family's ``triage(..., out_dir=...)`` raises
-  ``NotImplementedError`` naming item 9; the family registry's
-  ``compiled`` flags and classes.
+- a compiled family's ``triage(..., out_dir=...)``: the pb hunt's
+  bundles, which carry the speclint protocol card, are JAX's byte for
+  byte, and each package's replay CLI replays the other's; the family
+  registry's ``compiled`` flags and classes.
 
 JAX runs on a one-device mesh, as its own tests run on the CPU. W <= 64.
 Tolerance: none, every operation is integer.
@@ -346,26 +347,60 @@ def test_triage_needs_metrics_and_a_context(pair_engines):
         failure_classes(res)
 
 
-def test_compiled_family_triage_bundles_raise_naming_item_9(tmp_path):
-    """A spec-backed actor's bundle carries the speclint protocol card in
-    the JAX package: the port refuses out_dir rather than drop it, and
-    still buckets."""
+def test_compiled_family_triage_bundles_equal_jax_and_replay_across(
+        tmp_path):
+    """A spec-backed actor's bundle carries the speclint protocol card:
+    the pb hunt's triage bundles (16 seeds, metrics on, ``minimize=False``)
+    are JAX's byte for byte, card included, and each package's replay CLI
+    replays the other's bundle to the invariant raise."""
+    import filecmp
+    import io
+    from contextlib import redirect_stderr, redirect_stdout
+
+    from madsim_tpu.engine import EngineConfig as JEngineConfig
+    from madsim_tpu.obs import cli as jcli
+    from madsim_tpu.triage import triage as j_triage
+    from madsim_tpu_torch.obs import bundle as tbundle
+    from madsim_tpu_torch.obs import cli as tcli
+
     fam, ak, ck, faults, _steps = golden.FAMILY_CONFIGS["pb_hunt"]
-    tf = tfamilies.family(fam)
-    eng = T.DeviceEngine(tf.actor_cls(tf.config_cls(**ak)),
-                         T.EngineConfig(**dict(ck, metrics=True)),
-                         device="cpu")
-    seeds = np.arange(4)
+    ck = dict(ck, metrics=True)
+    jf, tf = j_families()[fam], tfamilies.family(fam)
+    je = JEngine(jf.actor_cls(jf.config_cls(**ak)), JEngineConfig(**ck))
+    te = T.DeviceEngine(tf.actor_cls(tf.config_cls(**ak)),
+                        T.EngineConfig(**ck), device="cpu")
+    seeds = np.arange(16)
     fa = np.asarray(faults, np.int32)
-    obs = eng.observe(eng.run(eng.init(seeds, faults=fa), 64))
-    res = tsweep.SweepResult(
-        seeds=seeds.astype(np.uint64), bug=np.ones(4, bool),
-        observations=obs, steps_run=64, n_devices=1,
-        triage_ctx=tsweep.TriageContext(engine=eng, faults=fa))
-    assert len(triage(res, minimize=False).classes) >= 1
-    with pytest.raises(NotImplementedError, match="item 9"):
-        triage(res, out_dir=str(tmp_path), minimize=False)
-    assert list(tmp_path.iterdir()) == []
+    kw = dict(chunk_steps=64, max_steps=4_000)
+    jr = jsweep.sweep(None, je.cfg, seeds, engine=je, mesh=MESH1,
+                      faults=fa, **kw)
+    tr = tsweep.sweep(None, te.cfg, seeds, engine=te, faults=fa, **kw)
+    assert tr.failing_seeds == jr.failing_seeds and tr.failing_seeds
+    (tmp_path / "j").mkdir()
+    (tmp_path / "t").mkdir()
+    jrep = j_triage(jr, str(tmp_path / "j"), minimize=False)
+    trep = triage(tr, str(tmp_path / "t"), minimize=False)
+    assert [c.key for c in trep.classes] == [c.key for c in jrep.classes]
+    assert trep.bundles and list(trep.bundles) == list(jrep.bundles)
+    for key, path in trep.bundles.items():
+        assert filecmp.cmp(path, jrep.bundles[key], shallow=False), key
+        card = tbundle.load_bundle(path)["extra"]["protocol_card"]
+        assert golden.card_digest(card) == golden.GOLDEN_CARDS["pb_hunt"]
+
+    def quiet(main, argv):
+        with redirect_stdout(io.StringIO()), \
+                redirect_stderr(io.StringIO()) as err:
+            rc = main(argv)
+        return rc, err.getvalue()
+
+    out = str(tmp_path / "o.json")
+    jpath = next(iter(jrep.bundles.values()))
+    tpath = next(iter(trep.bundles.values()))
+    rc, err = quiet(tcli.main, ["replay", "--bundle", jpath, "--device",
+                                "cpu", "--out", out])
+    assert rc == 0 and "invariant RAISED" in err, err
+    rc, err = quiet(jcli.main, ["replay", "--bundle", tpath, "--out", out])
+    assert rc == 0 and "invariant RAISED" in err, err
 
 
 def test_family_registry_matches_jax():
