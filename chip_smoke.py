@@ -28,7 +28,8 @@ family repro bundles). Phases, in order; any failure exits non-zero:
    all started together, with the ptxas register/spill report and the
    build time; fails unless every instantiation ``step_kernel<A, N>`` of
    both lane profiles (Raft, pb and Paxos N = 1..8, tpc N = 2..8, pair
-   N = 1..12) and the corpus fold kernel has a 0-byte stack frame and no
+   N = 1..12) and every kernel of ``corpus_fold.cu`` (the fold, its
+   chain yardstick, the empty launch) has a 0-byte stack frame and no
    spills;
 3. Threefry on the card: Random123 known answers and bitwise agreement with
    the plain torch version on 2^20 keys and counters;
@@ -54,8 +55,15 @@ family repro bundles). Phases, in order; any failure exits non-zero:
    every family (``:wide``: Raft under every fault op and at odd widths,
    tpc, pb, Paxos, both pair families, lanes off and on) at W=4096, and
    the Raft hunt at its full W, lanes off and on; then the corpus fold
-   kernel against its plain version at 8,192 and 32 slots, with its masks
-   and lineage lanes;
+   kernel against its plain version and its numpy model
+   (``fold_kernel.fold_model``), bitwise on every corpus lane, the insert
+   count and both masks: the Paxos hunt's folds at 8,192 and 32 slots
+   with lineage lanes, timed per call, on the device alone and on the
+   host, beside the bytes bound, the dependent chain of their rounds and
+   inserts and the launch floor; and adversarial folds at K = 1, 16, 32,
+   64 and 4,096 (duplicate and all-equal signatures, tied scores, unfilled
+   entries, empty and full masks, every row inserting, the insert counter
+   near 2^32, no lineage lanes, no rows);
 5. held to JAX without JAX: observe() digests of seeds 0..63 equal the
    JAX-derived constants in ``madsim_tpu_torch/engine/golden.py``, with
    the lanes off and on, and so does the SweepResult of a small recycled
@@ -100,7 +108,8 @@ family repro bundles). Phases, in order; any failure exits non-zero:
    first bug, bugs found, generations, corpus size, ancestry depth,
    operator table, digest of the schedules and the corpus), with its wall
    time, seeds/s, refills, ``_fetch`` calls, the searcher's and the fold
-   kernel's ms and the device idle share; (b) the Paxos hunt at the width
+   kernel's ms and the device idle share, and one fold launch per guided
+   refill (none in a random hunt); (b) the Paxos hunt at the width
    of phase 7's sweeps (65,536 seeds through 8,192 slots), guided, to its
    first bug, which fails again in an independent ``init`` + ``run`` under
    the schedule the search materialized for it;
@@ -173,6 +182,7 @@ Usage: python3 chip_smoke.py   (from the root of the repository)
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 import os
 import re
@@ -194,6 +204,13 @@ SLEEP_CYCLES = 200_000_000
 # Worlds of the corpus fold kernel's comparisons: the wide hunt's slots
 # and the canonical hunts' (search/hunts.py).
 FOLD_WIDE, FOLD_NARROW = 8192, 32
+# Folds queued behind a sleeping kernel to time the fold kernel on the
+# device alone, and the corpus sizes of its adversarial comparisons (the
+# hunts' 16, 32 and 64, and the kernel's bounds).
+FOLD_QUEUED = 20
+# Back-to-back folds whose host time per call is the wrapper's.
+FOLD_HOST_CALLS = 200
+FOLD_KS = (1, 16, 32, 64, 4096)
 # Worlds per CUDA block timed against each other in phase 6.
 BLOCK_SWEEP = (64, 128, 256)
 
@@ -519,7 +536,7 @@ def main() -> int:
                                                rings_from_observations)
     from madsim_tpu_torch.obs.coverage import fold_retired, ledger_zeros
     from madsim_tpu_torch.ops.threefry import threefry2x32_torch
-    from madsim_tpu_torch.parallel import sweep as sweep_mod
+    sweep_mod = importlib.import_module("madsim_tpu_torch.parallel.sweep")
     from madsim_tpu_torch.parallel.sweep import sweep
     from madsim_tpu_torch.search import hunts
     from madsim_tpu_torch.search import fold_kernel
@@ -591,17 +608,22 @@ def main() -> int:
                 f"N={least_n}..{most[fam]}: 0 bytes stack frame and no "
                 f"spills in each; registers by N "
                 + ", ".join(f"{n}: {r}" for n, r in sorted(by_n.items())))
-    fold_ptx = ptxas_report(_build.build_log.get(fold_kernel.SOURCE, ""),
-                            "corpus_fold_kernel")
-    check(len(fold_ptx) == 1, f"ptxas reported {len(fold_ptx)} corpus fold "
-          f"kernels, expected 1")
-    fold_ptx.update(ptxas_report(
-        _build.build_log.get(fold_kernel.SOURCE, ""), "fold_chain_kernel"))
-    check(len(fold_ptx) == 2, "ptxas did not report the fold chain kernel")
+    # Every kernel of corpus_fold.cu: the fold, its chain yardstick and the
+    # empty launch of the launch floor.
+    fold_ptx = {}
+    for kname in ("corpus_fold_kernel", "fold_chain_kernel",
+                  "fold_empty_kernel"):
+        found = ptxas_report(_build.build_log.get(fold_kernel.SOURCE, ""),
+                             kname)
+        check(len(found) == 1 and all(
+            {"stack", "spill_stores", "spill_loads"} <= set(f)
+            for f in found.values()), f"ptxas reported {len(found)} "
+            f"{kname}, expected 1 with its stack frame and spills")
+        fold_ptx.update(found)
     for name, f in fold_ptx.items():
         no_local_memory(name, f)
         log(f"[2 build] corpus_fold.cu: {name}: 0 bytes stack frame and "
-            f"no spills, {f['registers']} registers")
+            f"no spills, {f.get('registers', '?')} registers")
 
     # ---- 3. Threefry on the card ------------------------------------------
     kat = [((0x00000000, 0x00000000), (0x00000000, 0x00000000),
@@ -970,16 +992,77 @@ def main() -> int:
                          EngineConfig(**ck, **lanes), device=dev),
             w, faults))
 
-    # The corpus fold kernel against its plain version (harvest_fold's loop
-    # of torch ops), bitwise on the corpus, the insert count and the novel
-    # and inserted masks: the Paxos hunt's SearchConfig (corpus size and
-    # min_novelty), lineage lanes on, the rows' signatures those of a
-    # Paxos hunt batch with the metrics block after 200 steps, its
-    # retired worlds in the mask. Two folds at each width: from the
-    # template's corpus, and from the corpus the first left.
+    # The corpus fold kernel against its plain version (harvest_fold_plain,
+    # torch ops) and its numpy model (fold_kernel.fold_model, the kernel's
+    # order of work), bitwise on every corpus lane, the insert count and the
+    # novel and inserted masks.
+    # (a) The Paxos hunt's SearchConfig (corpus size and min_novelty),
+    # lineage lanes on, the rows' signatures those of a Paxos hunt batch
+    # with the metrics block after 200 steps, its retired worlds in the
+    # mask. Two folds at each width: from the template's corpus, and from
+    # the corpus the first left. Each is timed per call (a CUDA event pair
+    # around harvest_fold, the host's wrapper inside it), on the device
+    # alone (FOLD_QUEUED calls queued behind a sleeping kernel) and on the
+    # host (FOLD_HOST_CALLS back to back), beside the dependent chain of
+    # its rounds and inserts alone and the launch floor (an empty launch),
+    # each timed on the device alone the same way, and the floor per call.
     from madsim_tpu_torch.obs.coverage import behavior_signature
+    from madsim_tpu_torch.search.corpus import HostCorpus, corpus_to_device
+
+    def host_corpus(c):
+        return HostCorpus(
+            sched=c.sched.cpu().numpy(),
+            sig=c.sig.cpu().numpy().astype(np.uint32),
+            score=c.score.cpu().numpy(), filled=c.filled.cpu().numpy(),
+            entry=c.entry.cpu().numpy(), depth=c.depth.cpu().numpy())
+
+    def fold_checked(label, corpus, sched, sigs, mask, min_nov, entries,
+                     depths):
+        """One fold through the kernel, held to the plain fold and to the
+        model; returns the kernel's outputs, the model's stats and the
+        plain fold's wall ms."""
+        w = int(sigs.shape[0])
+        out_k = harvest_fold(corpus, sched, sigs, mask, min_nov, entries,
+                             depths, with_masks=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_p = harvest_fold_plain(
+            corpus, sched, sigs, mask, min_nov,
+            torch.full((w,), -1, dtype=torch.int32, device=dev)
+            if entries is None else entries,
+            torch.zeros((w,), dtype=torch.int32, device=dev)
+            if depths is None else depths, with_masks=True)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        for name, x, y in zip(corpus._fields, out_k[0], out_p[0]):
+            check(x.dtype == y.dtype and torch.equal(x, y), f"fold "
+                  f"{label}: the kernel's corpus {name} differs from the "
+                  f"plain fold's")
+        for name, x, y in zip(("n_ins", "novel", "inserted"), out_k[1:],
+                              out_p[1:]):
+            check(x.dtype == y.dtype and torch.equal(x, y), f"fold "
+                  f"{label}: the kernel's {name} differs from the plain "
+                  f"fold's")
+        def host(x):
+            return None if x is None else x.cpu().numpy()
+
+        mc, m_ins, m_nov, m_insm, stats = fold_kernel.fold_model(
+            host_corpus(corpus), host(sched), host(sigs), host(mask),
+            min_nov, host(entries), host(depths))
+        kc = host_corpus(out_k[0])
+        check(all(np.array_equal(a, b) for a, b in zip(kc, mc))
+              and int(out_k[1]) == m_ins
+              and np.array_equal(host(out_k[2]), m_nov)
+              and np.array_equal(host(out_k[3]), m_insm)
+              and (int(out_k[0].inserted) - int(corpus.inserted) - m_ins)
+              % 2**32 == 0, f"fold {label}: the kernel differs from "
+              f"fold_model")
+        return out_k, stats, plain_ms
+
     px_scfg = px_hunt.search(True)
     fold_runs = {}
+    floor_ms = fold_kernel.launch_floor_ms(dev)
+    floor_call_ms = fold_kernel.launch_floor_ms(dev, per_call=True)
     for w in (FOLD_WIDE, FOLD_NARROW):
         eng = make_engine((px_fam, px_ak, px_ck))
         state = eng.run_steps(eng.init(np.arange(w), faults=np.asarray(
@@ -990,65 +1073,162 @@ def main() -> int:
         entries = torch.arange(w, dtype=torch.int32, device=dev) + 1
         depths = (torch.arange(w, dtype=torch.int32, device=dev) % 5)
         corpus = corpus_init(px_scfg.corpus, np.asarray(px_t, np.int32), dev)
-        fold_ms, n_ins = [], []
-        for _rep in range(2):
+        k = px_scfg.corpus
+        call_ms, device_ms, host_us = [], [], []
+        n_ins, chain_ms, replaced = [], [], []
+        for rep in range(2):
             args = (corpus, sched, sigs, mask, px_scfg.min_novelty, entries,
                     depths)
+            out_k, stats, plain_ms = fold_checked(f"W={w} #{rep}", *args)
             times = []
             for _t in range(5):
                 e0 = torch.cuda.Event(enable_timing=True)
                 e1 = torch.cuda.Event(enable_timing=True)
                 e0.record()
-                out_k = harvest_fold(*args, with_masks=True)
+                harvest_fold(*args, with_masks=True)
                 e1.record()
                 e1.synchronize()
                 times.append(e0.elapsed_time(e1))
-            torch.cuda.synchronize()
+            call_ms.append(sorted(times)[len(times) // 2])
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SLEEP_CYCLES)
+            e0.record()
+            for _t in range(FOLD_QUEUED):
+                harvest_fold(*args, with_masks=True)
+            e1.record()
+            check(not e0.query(), "fold timing: the device reached the "
+                  "queued folds before they were all queued")
+            e1.synchronize()
+            device_ms.append(e0.elapsed_time(e1) / FOLD_QUEUED)
             t0 = time.perf_counter()
-            out_p = harvest_fold_plain(*args, with_masks=True)
+            for _t in range(FOLD_HOST_CALLS):
+                harvest_fold(*args, with_masks=True)
+            host_us.append((time.perf_counter() - t0) / FOLD_HOST_CALLS
+                           * 1e6)
             torch.cuda.synchronize()
-            plain_ms = (time.perf_counter() - t0) * 1e3
-            for name, x, y in zip(corpus._fields, out_k[0], out_p[0]):
-                check(torch.equal(x, y), f"fold W={w}: the kernel's corpus "
-                      f"{name} differs from the plain fold's")
-            for name, x, y in zip(("n_ins", "novel", "inserted"), out_k[1:],
-                                  out_p[1:]):
-                check(torch.equal(x, y), f"fold W={w}: the kernel's {name} "
-                      f"differs from the plain fold's")
-            fold_ms.append(sorted(times)[len(times) // 2])
             n_ins.append(int(out_k[1]))
+            replaced.append(stats["replaced"])
+            chain_ms.append(fold_kernel.chain_ms(
+                stats["rounds"], n_ins[-1], k, stats["filled"], dev))
             corpus = out_k[0]
         rows = int(mask.sum())
-        # Bytes a fold must move: the corpus's signature (int64 carrier),
-        # score and fill read once (K entries; the kernel stages them);
+        # Bytes a fold must move: the old corpus read once and the new one
+        # written once (K entries of schedule row, signature (int64
+        # carrier), score, fill, entry and depth, and the insert counter);
         # every row's mask byte and its two output bytes; each masked row's
-        # signature; and per insert the schedule row read and written, its
-        # lineage entry and depth read, and the entry's signature, score,
-        # fill, entry and depth written. Each timing is the mean of the two
-        # folds, so the inserts are too.
-        k = px_scfg.corpus
+        # signature; per entry the fold replaced, its source row's
+        # schedule, entry and depth; and the insert count. Each timing is
+        # the mean of the two folds, so the replaced entries are too.
         row_bytes = sched[0].numel() * 4
-        fold_bytes = (k * 13 + 3 * w + rows * 8
-                      + sum(n_ins) / 2 * (2 * row_bytes + 8 + 21))
-        # The latency bound: the fold's dependent chain over as many rows
-        # (each row's target depends on the last row's insert), timed
-        # alone on the card.
-        chain = fold_kernel.chain_ms(rows, k, dev)
-        fold_runs[w] = dict(ms=sum(fold_ms) / 2, rows=rows, n_ins=n_ins,
-                            plain_ms=plain_ms,
-                            bound_ms=fold_bytes / HBM_BYTES_PER_S * 1e3,
-                            latency_bound_ms=chain)
-        log(f"[4 fold] corpus fold kernel vs plain, W={w}, K={k}, "
+        fold_bytes = (2 * k * (row_bytes + 21) + 12 + 3 * w + rows * 8
+                      + sum(replaced) / 2 * (row_bytes + 8))
+        fold_runs[w] = dict(
+            ms=sum(device_ms) / 2, call_ms=sum(call_ms) / 2,
+            host_us=sum(host_us) / 2, rows=rows,
+            n_ins=n_ins, plain_ms=plain_ms,
+            bound_ms=fold_bytes / HBM_BYTES_PER_S * 1e3,
+            chain_ms=sum(chain_ms) / 2, floor_ms=floor_ms,
+            floor_call_ms=floor_call_ms)
+        log(f"[4 fold] corpus fold kernel vs plain and model, W={w}, K={k}, "
             f"min_novelty {px_scfg.min_novelty}, lineage on: two folds "
             f"bitwise equal ({rows} rows in the mask, inserts {n_ins}); "
-            f"kernel {fold_ms[0]:.3f} / {fold_ms[1]:.3f} ms per fold "
-            f"(median of 5), plain version {plain_ms:.1f} ms; bytes bound "
-            f"{fold_runs[w]['bound_ms'] * 1e3:.3f} us "
-            f"({fold_bytes:.0f} B); latency bound (the dependent chain of "
-            f"{rows} rows alone) {chain:.4f} ms = "
-            f"{chain / max(rows, 1) * 1e6:.1f} ns per row, share "
-            f"{chain / (sum(fold_ms) / 2):.3f} of the kernel's time")
+            f"kernel per call {call_ms[0]:.4f} / {call_ms[1]:.4f} ms "
+            f"(median of 5, the wrapper inside), on the device "
+            f"{device_ms[0]:.4f} / {device_ms[1]:.4f} ms per fold "
+            f"({FOLD_QUEUED} queued behind a sleep); the wrapper's host "
+            f"time {host_us[0]:.1f} / {host_us[1]:.1f} us per call "
+            f"({FOLD_HOST_CALLS} back to back); plain version "
+            f"{plain_ms:.1f} ms; bytes bound "
+            f"{fold_runs[w]['bound_ms'] * 1e3:.4f} us ({fold_bytes:.0f} B); "
+            f"the dependent chain of its rounds and inserts alone "
+            f"{chain_ms[0]:.4f} / {chain_ms[1]:.4f} ms on the device; launch "
+            f"floor {floor_ms:.4f} ms on the device, {floor_call_ms:.4f} ms "
+            f"per call; chain over device time "
+            f"{fold_runs[w]['chain_ms'] / fold_runs[w]['ms']:.3f}")
         del state
+
+    # (b) Adversarial folds at K in FOLD_KS, numpy-made from a seed, each
+    # held to the plain fold and the model: rows not a multiple of 32 and
+    # none; min_novelty from 1 to 33; duplicate and all-equal signatures;
+    # tied scores; unfilled entries; masks empty, full and sparse; every
+    # row inserting; the insert counter near 2^32; lineage lanes absent.
+    fold_rng = np.random.default_rng(11)
+
+    def adversarial(k, kind):
+        f_rows = 6
+        w = {"no_rows": 0, "every_insert": min(k, 300)}.get(kind, 300)
+        score = fold_rng.integers(-1, 12, k).astype(np.int32)
+        filled = fold_rng.random(k) < 0.6
+        sig = fold_rng.integers(0, 2**32, k, dtype=np.uint64)
+        pool = fold_rng.integers(0, 2**32, 7, dtype=np.uint64)
+        sigs = pool[fold_rng.integers(0, 7, w)]
+        mask = fold_rng.random(w) < 0.3
+        min_nov = int(fold_rng.integers(1, 34))
+        inserted = int(fold_rng.integers(0, 2**31))
+        lineage = True
+        if kind == "all_equal":
+            sigs[:] = pool[0]
+            mask[:] = True
+            min_nov = 1
+        elif kind == "ties":
+            score[:] = 3
+            filled[:] = True
+            sig[:] = pool[fold_rng.integers(0, 7, k)]
+            mask[:] = True
+            min_nov = int(fold_rng.integers(1, 8))
+        elif kind == "empty_mask":
+            mask[:] = False
+        elif kind == "every_insert":
+            filled[:] = False
+            sigs = np.arange(w, dtype=np.uint64) * 2654435761 % 2**32
+            mask[:] = True
+            min_nov = 1
+        elif kind == "no_lineage":
+            inserted = 2**31 - 3 if k % 2 else -2
+            lineage = False
+            mask[:] = True
+            min_nov = int(fold_rng.integers(1, 4))
+        elif kind == "high_novelty":
+            min_nov = 33
+            filled[:] = False
+            mask[:] = True
+        hc = HostCorpus(
+            sched=fold_rng.integers(-1, 9, (k, f_rows, 4)).astype(np.int32),
+            sig=sig.astype(np.uint32), score=score, filled=filled,
+            entry=fold_rng.integers(-1, 99, k).astype(np.int32),
+            depth=fold_rng.integers(0, 9, k).astype(np.int32))
+        c = corpus_to_device(hc, 3, inserted, dev)
+
+        def t(x, dtype):
+            return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+
+        rows = t(fold_rng.integers(-1, 9, (w, f_rows, 4)), torch.int32)
+        ent = t(fold_rng.integers(0, 999, w), torch.int32) if lineage \
+            else None
+        dep = t(fold_rng.integers(0, 9, w), torch.int32) if lineage \
+            else None
+        return (c, rows, t(sigs.astype(np.int64), torch.int64),
+                t(mask, torch.bool), min_nov, ent, dep)
+
+    kinds = ("random", "all_equal", "ties", "empty_mask", "every_insert",
+             "no_lineage", "high_novelty", "no_rows")
+    adv_ins = {}
+    for k in FOLD_KS:
+        for kind in kinds:
+            out_k, stats, _ = fold_checked(f"K={k} {kind}",
+                                           *adversarial(k, kind))
+            adv_ins[(k, kind)] = (int(out_k[1]), stats["rounds"])
+    every = [v[0] == min(k, 300) for (k, kind), v in adv_ins.items()
+             if kind == "every_insert"]
+    check(all(every), f"fold: an every-row-inserts case did not insert "
+          f"every row: {adv_ins}")
+    log(f"[4 fold] corpus fold kernel vs plain and model at K in "
+        f"{FOLD_KS}: {len(adv_ins)} adversarial folds bitwise equal "
+        f"({', '.join(kinds)}); inserts and rounds by K: "
+        + "; ".join(f"K={k}: " + ", ".join(
+            f"{kind} {adv_ins[(k, kind)][0]}/{adv_ins[(k, kind)][1]}"
+            for kind in kinds) for k in FOLD_KS))
 
     # ---- 5. held to JAX without JAX ---------------------------------------
     for name, (rk, ck, faults, max_steps) in golden.CONFIGS.items():
@@ -2053,8 +2233,10 @@ def main() -> int:
                 fold_launches += folds
                 check(launched > 0, f"hunt {hname} {mode} {loop}: the step "
                       f"kernel never launched")
-                check(mode == "random" or folds > 0, f"hunt {hname} "
-                      f"{mode} {loop}: the fold kernel never launched")
+                check(folds == (res.search.generations if mode == "guided"
+                                else 0), f"hunt {hname} {mode} {loop}: "
+                      f"{folds} fold launches over "
+                      f"{res.search.generations} refills")
                 hunt_launches[route] = hunt_launches.get(route, 0) + launched
                 pins = golden.hunt_pins(res)
                 want = golden.HUNT_PINS[hname][mode]
@@ -2126,8 +2308,9 @@ def main() -> int:
         folds = fold_kernel.launches - f0
         fold_launches += folds
         hunt_launches["paxos"] += launched
-        check(launched > 0 and folds > 0, f"wide Paxos hunt {loop}: a "
-              f"kernel never launched")
+        check(launched > 0 and folds == res.search.generations > 0,
+              f"wide Paxos hunt {loop}: {launched} step launches, {folds} "
+              f"fold launches over {res.search.generations} refills")
         check(res.failing_seeds, f"wide Paxos hunt {loop}: no bug found")
         if ref is None:
             ref = res
@@ -2991,7 +3174,9 @@ def main() -> int:
             "library_ms": None,
         })
     # The corpus fold (the search's harvest_fold, an XLA program in the
-    # JAX package), timed at the wide hunt's 8,192 slots.
+    # JAX package), timed at the wide hunt's 8,192 slots on the device
+    # alone; its time per call (the wrapper inside), its dependent chain
+    # alone and the launch floor beside it.
     fr = fold_runs[FOLD_WIDE]
     kernels.append({
         "name": "corpus_fold",
@@ -3005,9 +3190,11 @@ def main() -> int:
         "bound_ms": fr["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
-        # The sequential rows bound it, not bytes: the dependent chain of
-        # this many rows alone, timed on the card.
-        "latency_bound_ms": fr["latency_bound_ms"],
+        "call_ms": fr["call_ms"],
+        "host_us": fr["host_us"],
+        "chain_ms": fr["chain_ms"],
+        "launch_floor_ms": fr["floor_ms"],
+        "launch_floor_call_ms": fr["floor_call_ms"],
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

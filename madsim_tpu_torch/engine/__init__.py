@@ -12,6 +12,7 @@ from .core import (
     EngineConfig,
     Outbox,
     WorldState,
+    tree_select_worlds,
     FAULT_KILL,
     FAULT_RESTART,
     FAULT_CLOG_NODE,
@@ -51,6 +52,7 @@ def __getattr__(name):
 
 __all__ = [
     "DeviceEngine", "EngineConfig", "Event", "Outbox", "WorldState",
+    "tree_select_worlds",
     "RaftActor", "RaftDeviceConfig", "PBActor", "PBDeviceConfig",
     "TPCActor", "TPCDeviceConfig",
     "Lanes", "PACKED", "WIDE",

@@ -292,9 +292,11 @@ def where_worlds(pred: torch.Tensor, a: torch.Tensor,
     return torch.where(p, a, b)
 
 
-def tree_select(pred, a, b):
-    """Per-world select over two identically batched trees."""
-    return tree_map(lambda x, y: where_worlds(pred, x, y), a, b)
+def tree_select_worlds(mask, a, b):
+    """Slot-wise select over two identically batched trees: whole worlds
+    from ``a`` where the (W,) bool ``mask`` is True, from ``b`` where it is
+    False (``madsim_tpu.engine.tree_select_worlds``)."""
+    return tree_map(lambda x, y: where_worlds(mask, x, y), a, b)
 
 
 #: WorldState leaves (besides astate and rng) that a fault event writes.
@@ -722,9 +724,10 @@ class DeviceEngine:
         astate_r, ob_r, rng_r = actor.on_restart(cfg, ws.astate, a, ws.now,
                                                  ws.rng)
         w = ws.now.shape[0]
-        astate = tree_select(is_restart, astate_r, ws.astate)
-        rng = tree_select(is_restart, rng_r, ws.rng)
-        ob = tree_select(is_restart, ob_r, Outbox.empty(cfg, w, a.device))
+        astate = tree_select_worlds(is_restart, astate_r, ws.astate)
+        rng = tree_select_worlds(is_restart, rng_r, ws.rng)
+        ob = tree_select_worlds(is_restart, ob_r,
+                                Outbox.empty(cfg, w, a.device))
         return ws._replace(alive=alive, gen=gen, paused=paused,
                            clog_node=clog_node, clog_link=clog_link,
                            astate=astate, rng=rng, lat_min=lat_min,
@@ -824,19 +827,21 @@ class DeviceEngine:
                                                        now, ws1.rng)
             act_ws = ws1._replace(astate=astate2, rng=rng2)
 
-        # tree_select(do_fault, fault_ws, tree_select(deliver, act_ws, ws1)),
+        # tree_select_worlds(do_fault, fault_ws,
+        #                    tree_select_worlds(deliver, act_ws, ws1)),
         # over only the leaves that fault apply or the handler write.
         ws2 = ws1._replace(
-            astate=tree_select(do_fault, fault_ws.astate,
-                               tree_select(deliver, act_ws.astate,
-                                           ws1.astate)),
-            rng=tree_select(do_fault, fault_ws.rng,
-                            tree_select(deliver, act_ws.rng, ws1.rng)),
+            astate=tree_select_worlds(
+                do_fault, fault_ws.astate,
+                tree_select_worlds(deliver, act_ws.astate, ws1.astate)),
+            rng=tree_select_worlds(
+                do_fault, fault_ws.rng,
+                tree_select_worlds(deliver, act_ws.rng, ws1.rng)),
             **{name: where_worlds(do_fault, getattr(fault_ws, name),
                                   getattr(ws1, name))
                for name in _FAULT_FIELDS})
-        ob = tree_select(do_fault, fault_ob,
-                         tree_select(deliver, act_ob, empty_ob))
+        ob = tree_select_worlds(do_fault, fault_ob,
+                                tree_select_worlds(deliver, act_ob, empty_ob))
         src = torch.where(do_fault, ev.src.clamp(0, n - 1), dst)
         ws3 = self._push_outbox(ws2, src, ob, ws.queue, (slot, found))
 
@@ -916,7 +921,7 @@ class DeviceEngine:
         # ring's marker needs a rising bug flag, which a frozen world's
         # unchanged state raises only where no step has checked it.)
         return ws4._replace(
-            rng=tree_select(ws.active, ws4.rng, ws.rng),
+            rng=tree_select_worlds(ws.active, ws4.rng, ws.rng),
             steps=torch.where(ws.active, ws4.steps, ws.steps))
 
     # ------------------------------------------------------------------

@@ -1,1 +1,10 @@
-"""Seed sweeps over the port's batched engine."""
+"""Seed sweeps over the port's batched engine.
+
+The port of ``madsim_tpu.parallel`` on one device: :func:`sweep` and its
+:class:`SweepResult`. The module itself is ``madsim_tpu_torch.parallel.
+sweep`` (import it with ``importlib.import_module``: this package's
+``sweep`` is the function, as in the JAX package).
+"""
+from .sweep import SweepResult, sweep
+
+__all__ = ["sweep", "SweepResult"]

@@ -118,20 +118,21 @@ def harvest_fold(corpus: CorpusState, sched: torch.Tensor,
     per-row ``(novel, inserted)`` masks.
 
     On CUDA tensors the fold is one launch of the hand-written kernel
-    (:mod:`.fold_kernel`, ``csrc/corpus_fold.cu``); on the CPU it is this
-    loop of torch ops, the kernel's plain version."""
+    (:mod:`.fold_kernel`, ``csrc/corpus_fold.cu``), which takes absent
+    lineage lanes as they are; on the CPU it is this loop of torch ops, the
+    kernel's plain version."""
     w = sigs.shape[0]
     dev = sigs.device
-    if entries is None:
-        entries = torch.full((w,), -1, dtype=torch.int32, device=dev)
-    if depths is None:
-        depths = torch.zeros((w,), dtype=torch.int32, device=dev)
     if dev.type == "cuda":
         from .fold_kernel import harvest_fold_cuda
 
         out = harvest_fold_cuda(corpus, sched, sigs, fold_mask, min_novelty,
                                 entries, depths)
         return out if with_masks else out[:2]
+    if entries is None:
+        entries = torch.full((w,), -1, dtype=torch.int32, device=dev)
+    if depths is None:
+        depths = torch.zeros((w,), dtype=torch.int32, device=dev)
     return harvest_fold_plain(corpus, sched, sigs, fold_mask, min_novelty,
                               entries, depths, with_masks)
 

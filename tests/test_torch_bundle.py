@@ -44,7 +44,7 @@ from madsim_tpu_torch.obs import blackbox as tbb
 from madsim_tpu_torch.obs import bundle as tbundle
 from madsim_tpu_torch.obs import cli as tcli
 from madsim_tpu_torch.obs import timeline as ttl
-from madsim_tpu_torch.parallel import sweep as tsweep
+tsweep = importlib.import_module("madsim_tpu_torch.parallel.sweep")
 from madsim_tpu_torch.triage import triage
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -34,7 +34,7 @@ from madsim_tpu_torch.engine import (
 )
 from madsim_tpu_torch.engine import checkpoint as ckpt_mod
 from madsim_tpu_torch.engine.core import tree_paths
-from madsim_tpu_torch.parallel import sweep as tsweep
+tsweep = importlib.import_module("madsim_tpu_torch.parallel.sweep")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 jsweep = importlib.import_module("madsim_tpu.parallel.sweep")

@@ -34,7 +34,7 @@ from madsim_tpu_torch.actorc.families import paxos as tpaxos
 from madsim_tpu_torch.engine import families as tfamilies
 from madsim_tpu_torch.engine import golden
 from madsim_tpu_torch.engine.core import tree_paths
-from madsim_tpu_torch.parallel import sweep as tsweep_mod
+tsweep_mod = importlib.import_module("madsim_tpu_torch.parallel.sweep")
 from test_torch_sweep import assert_results_equal
 
 jsweep_mod = importlib.import_module("madsim_tpu.parallel.sweep")

@@ -31,7 +31,7 @@ from madsim_tpu.parallel.mesh import seed_mesh
 from madsim_tpu_torch.engine import golden
 from madsim_tpu_torch.engine.core import tree_leaves, tree_paths
 from madsim_tpu_torch.engine.families import family
-from madsim_tpu_torch.parallel import sweep as tsweep
+tsweep = importlib.import_module("madsim_tpu_torch.parallel.sweep")
 from test_torch_sweep import FAULTS, SEEDS, assert_results_equal, engines
 
 jsweep = importlib.import_module("madsim_tpu.parallel.sweep")

@@ -28,7 +28,7 @@ from madsim_tpu.search import hunts as jhunts
 import madsim_tpu_torch.engine as T
 from madsim_tpu_torch.engine import families as tfamilies
 from madsim_tpu_torch.engine import golden
-from madsim_tpu_torch.parallel import sweep as tsweep
+tsweep = importlib.import_module("madsim_tpu_torch.parallel.sweep")
 from madsim_tpu_torch.search import hunts as thunts
 from test_torch_search import assert_search_results_equal
 

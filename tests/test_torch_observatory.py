@@ -36,7 +36,7 @@ from madsim_tpu.search import hunts as jhunts
 from madsim_tpu_torch.engine import golden
 from madsim_tpu_torch.obs import cli as tcli
 from madsim_tpu_torch.obs import observatory as tobs
-from madsim_tpu_torch.parallel import sweep as tsweep
+tsweep = importlib.import_module("madsim_tpu_torch.parallel.sweep")
 from madsim_tpu_torch.search import hunts as thunts
 
 jsweep = importlib.import_module("madsim_tpu.parallel.sweep")

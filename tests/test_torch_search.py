@@ -31,7 +31,7 @@ from madsim_tpu.search import mutate as jmutate
 from madsim_tpu.search import rng as jrng
 from madsim_tpu.search.config import SearchConfig as JSearchConfig
 import madsim_tpu_torch.engine as T
-from madsim_tpu_torch.parallel import sweep as tsweep
+tsweep = importlib.import_module("madsim_tpu_torch.parallel.sweep")
 from madsim_tpu_torch.search import corpus as tcorpus
 from madsim_tpu_torch.search import hunts as thunts
 from madsim_tpu_torch.search import mutate as tmutate

@@ -23,7 +23,7 @@ import madsim_tpu_torch.engine as T
 from madsim_tpu.parallel.mesh import seed_mesh
 from madsim_tpu_torch.engine import golden
 from madsim_tpu_torch.engine.core import tree_leaves, tree_paths
-from madsim_tpu_torch.parallel import sweep as tsweep_mod
+tsweep_mod = importlib.import_module("madsim_tpu_torch.parallel.sweep")
 from madsim_tpu_torch.triage import TriageError
 
 # The module (madsim_tpu.parallel exports a function of the same name).

@@ -29,7 +29,7 @@ from madsim_tpu.parallel.mesh import seed_mesh
 from madsim_tpu.search import hunts as jhunts
 from madsim_tpu.search.config import SearchConfig as JSearchConfig
 from madsim_tpu_torch.engine.checkpoint import CheckpointError
-from madsim_tpu_torch.parallel import sweep as tsweep
+tsweep = importlib.import_module("madsim_tpu_torch.parallel.sweep")
 from madsim_tpu_torch.search import hunts as thunts
 
 jsweep = importlib.import_module("madsim_tpu.parallel.sweep")

@@ -47,7 +47,7 @@ from madsim_tpu_torch.engine.core import (FAULT_CLOG_LINK, FAULT_KILL,
                                           FAULT_SET_LATENCY, FAULT_SET_LOSS)
 from madsim_tpu_torch.obs.coverage import behavior_signature
 from madsim_tpu_torch.obs.metrics import MetricsBlock
-from madsim_tpu_torch.parallel import sweep as tsweep
+tsweep = importlib.import_module("madsim_tpu_torch.parallel.sweep")
 from madsim_tpu_torch.triage import (MinimizeResult, TriageError,
                                      behavior_signatures, failure_classes,
                                      minimize, minimize_rows, triage)

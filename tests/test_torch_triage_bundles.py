@@ -23,7 +23,7 @@ from madsim_tpu.search import hunts as jhunts
 from madsim_tpu.triage import triage as j_triage
 from madsim_tpu_torch.obs import bundle as tbundle
 from madsim_tpu_torch.obs import cli as tcli
-from madsim_tpu_torch.parallel import sweep as tsweep
+tsweep = importlib.import_module("madsim_tpu_torch.parallel.sweep")
 from madsim_tpu_torch.search import hunts as thunts
 from madsim_tpu_torch.triage import triage
 from test_torch_bundle import same_dirs
