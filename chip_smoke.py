@@ -20,7 +20,10 @@ repro bundles replayed by ``python -m madsim_tpu_torch.obs replay``) and
 the sweep observatory (``sweep(observe=..., profile_dir=...)``); then the
 actor compiler's checks (speclint and protocol cards, ``check_actor`` over
 every family, the host-twin ``crosscheck`` held to the kernel, compiled-
-family repro bundles). Phases, in order; any failure exits non-zero:
+family repro bundles); then the fleet (``SweepSession.run_group``,
+``fleet.fleet_sweep`` inline under chaos, with the corpus exchange, and
+with spawned worker processes). Phases, in order; any failure exits
+non-zero:
 
 1. card: name and power limit; uint32 <-> int64 round trip on CUDA tensors;
 2. build: one nvcc per source (``step_raft.cu``, ``step_tpc.cu``,
@@ -170,12 +173,35 @@ family repro bundles). Phases, in order; any failure exits non-zero:
    64-deep ring), ``triage(out_dir=...)``: every bundle carries the JAX
    protocol card, and one bundle of each replays in a fresh process
    (``--crosscheck``) to the invariant raise; and phase 11's own time.
+12. the fleet on the card, over the Raft hunt (bench.py:1000-1080,
+   metrics on, chunks of 64): (a) ``SweepSession.run_group`` twice, four
+   8,192-seed ranges each (a 32,768-world standing batch; the second group
+   on the recycled slots), each range equal to its solo ``sweep()`` by
+   ``contract_mismatches``, the grouped ``_fetch`` calls at most the solo
+   ones; (b) ``fleet_sweep`` of 65,536 seeds in 8 ranges on 2 workers,
+   clean and under tests/test_fleet.py's chaos (a kill, a preemption,
+   duplicated completions, dropped RPCs and heartbeats, a checkpoint
+   directory), each equal to the single-host sweep, every chaos counter
+   fired, the walls against the single-host sweep's; (c) tpc_crosscheck
+   and pb_hunt at 8,192 seeds in 4 ranges, chaotic, each equal to its
+   single-host sweep; (d) bench.py's guided_fleet (the pair hunt, 512
+   seeds in ranges of 64), independent, exchanged and exchanged under
+   chaos (a kill, a torn publish, duplicates): chaotic equal to clean on
+   schedules, the merged corpus and lineage, the pins the JAX-derived
+   ``golden.GOLDEN_GUIDED_FLEET``; the fold kernel equal to
+   ``host_harvest_fold`` on 12 random folds and on every merge the
+   exchange made; (e) ``spawn="process"``: 2 workers on CUDA, 16,384 seeds
+   in 4 ranges, w0 SIGKILLed and w1 SIGTERMed by the parent, equal to the
+   single-host sweep, each worker's library load (no ``nvcc``) and step
+   launches as it reported them; (f) tests/test_fleet.py's chaotic 64-seed
+   fleet against the JAX-derived ``golden.GOLDEN_FLEET_RAFT``; and phase
+   12's own time.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it lists each kernel route (the step kernel with Raft's, tpc's,
 pb's, Paxos's and the pair families' policy, in each lane profile, and the
-corpus fold kernel) with its launches (phases 10's and 11's among them)
-and times.
+corpus fold kernel) with its launches (phases 10's, 11's and 12's among
+them, the spawned fleet workers' as they reported them) and times.
 
 Usage: python3 chip_smoke.py   (from the root of the repository)
 """
@@ -510,6 +536,428 @@ def phase_11(dev, w_wide=None, paxos_failing=None, replay_args=()):
     log(f"[11] phase 11 took {time.perf_counter() - t11:.1f} s; its step "
         f"kernel launches by route {launches}, fold launches {folds}")
     return launches, folds
+
+
+def phase_12(dev, w_range=8192, fam_range=2048, proc_range=4096,
+             lease_ttl=3.0):
+    """Phase 12: the fleet on ``dev`` (see the module docstring).
+    ``w_range``: the seeds of each range of (a)'s groups and (b)'s fleets
+    (8 ranges in all); ``fam_range``: of each of (c)'s 4 ranges;
+    ``proc_range``: of each of (e)'s 4 ranges, whose workers' leases expire
+    after ``lease_ttl`` s. Returns the step kernel's launches by route and
+    the fold kernel's launches in this process, each counted from 0 and
+    read after the phase's last leg, and the step launches the process
+    leg's workers reported."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from madsim_tpu_torch.engine import (DeviceEngine, EngineConfig,
+                                         RaftActor, RaftDeviceConfig, golden,
+                                         step_kernel)
+    from madsim_tpu_torch.engine.families import family
+    from madsim_tpu_torch.fleet import ChaosConfig, ExchangeConfig
+    from madsim_tpu_torch.fleet import exchange as exchange_mod
+    from madsim_tpu_torch.fleet import fleet_sweep
+    from madsim_tpu_torch.fleet.merge import contract_mismatches
+    from madsim_tpu_torch.parallel import SweepSession
+    from madsim_tpu_torch.search import fold_kernel, hunts
+    from madsim_tpu_torch.search.corpus import (corpus_init,
+                                                corpus_to_device,
+                                                harvest_fold,
+                                                host_corpus_init,
+                                                host_harvest_fold)
+    sweep_mod = importlib.import_module("madsim_tpu_torch.parallel.sweep")
+
+    t12 = time.perf_counter()
+    cuda = dev.type == "cuda"
+    launches = dict.fromkeys(("raft", "tpc", "pb", "pair"), 0)
+    folds = 0
+    step_kernel.launches = fold_kernel.launches = 0
+
+    def take(r):
+        """Add the launches since the last take to route ``r``; returns
+        the step and fold launches."""
+        nonlocal folds
+        n, f = step_kernel.launches, fold_kernel.launches
+        launches[r] += n
+        folds += f
+        step_kernel.launches = fold_kernel.launches = 0
+        return n, f
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def timed(fn):
+        """``fn()`` and its wall in s, the device synced on both sides."""
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    def counted(fn):
+        """``fn()``, its wall, and the sweep module's ``_fetch`` calls."""
+        n = [0]
+        real = sweep_mod._fetch
+
+        def fetch(tree):
+            n[0] += 1
+            return real(tree)
+
+        sweep_mod._fetch = fetch
+        try:
+            out, wall = timed(fn)
+        finally:
+            sweep_mod._fetch = real
+        return out, wall, n[0]
+
+    def same(a, b, tag):
+        bad = contract_mismatches(a, b)
+        check(not bad, f"{tag}: differs from the single-host sweep on "
+              f"{', '.join(bad[:6])}")
+
+    def fired(st, keys, tag):
+        zero = [k for k in keys if not st.get(k)]
+        check(not zero, f"{tag}: chaos counters that never fired: {zero}")
+
+    chaos = ChaosConfig(**golden.FLEET_RAFT["chaos"])
+    work = tempfile.mkdtemp(prefix=".fleet_", dir=HERE)
+    try:
+        # (a) the session: two run_group calls of four ranges each over
+        # the Raft hunt (bench.py:1000-1080, metrics on), the second on
+        # the recycled standing slots; each range against its solo sweep.
+        hunt_rk = dict(n=3, buggy_double_vote=True)
+        eng = DeviceEngine(RaftActor(RaftDeviceConfig(**hunt_rk)),
+                           EngineConfig(**dict(
+                               golden.CONFIGS["hunt_faults"][1],
+                               metrics=True)), device=dev)
+        kw = dict(chunk_steps=64, max_steps=4_000)
+        n_all = 8 * w_range
+        seeds = np.arange(n_all)
+        sess = SweepSession(engine=eng, **kw)
+        for gi in range(2):
+            parts = [{"seeds": seeds[(4 * gi + r) * w_range:
+                                     (4 * gi + r + 1) * w_range],
+                      "faults": None} for r in range(4)]
+            res, wall_g, f_g = counted(lambda: sess.run_group(parts))
+            n_g, _ = take("raft")
+            walls, f_solo = [], 0
+            for part, r in zip(parts, res):
+                solo, wall_s, f_s = counted(lambda: sweep_mod.sweep(
+                    None, eng.cfg, part["seeds"], engine=eng, **kw))
+                same(solo, r, f"[12 session a] group {gi}")
+                walls.append(wall_s)
+                f_solo += f_s
+                check(r.loop_stats["session_reused_slots"] == (gi > 0),
+                      "[12 session a] the standing slots were "
+                      + ("not " if gi else "") + "recycled")
+            n_s, _ = take("raft")
+            check(f_g <= f_solo, f"[12 session a] group {gi}: {f_g} "
+                  f"_fetch calls grouped against {f_solo} solo")
+            check(not cuda or n_g > 0, "[12 session a] no step launch")
+            ls = res[0].loop_stats
+            log(f"[12 session a] group {gi} ({4 * w_range} worlds, "
+                + ("recycled slots" if gi else "fresh install")
+                + f"): 4 ranges each equal to its solo sweep "
+                f"(contract_mismatches empty); wall {wall_g * 1e3:.1f} ms "
+                f"against {sum(walls) * 1e3:.1f} ms for the 4 solo sweeps "
+                f"({', '.join(f'{x * 1e3:.1f}' for x in walls)}); chunks "
+                f"{ls['chunks']}, dispatches {ls['dispatches']}, _fetch "
+                f"calls {f_g} grouped against {f_solo} solo, device flags "
+                f"read {ls['flag_reads']}; step launches {n_g} grouped, "
+                f"{n_s} solo")
+        check(sess.reuse_hits == 7, f"[12 session a] reuse hits "
+              f"{sess.reuse_hits}, expected 7")
+
+        # (b) the inline fabric at full width: 8 ranges, 2 workers, clean
+        # and under tests/test_fleet.py's chaos (with a checkpoint
+        # directory), each against the single-host sweep.
+        single, wall_1 = timed(lambda: sweep_mod.sweep(
+            None, eng.cfg, seeds, engine=eng, **kw))
+        n_1, _ = take("raft")
+        log(f"[12 fabric b] single-host sweep of {n_all} seeds: wall "
+            f"{wall_1 * 1e3:.1f} ms, {len(single.failing_seeds)} failing, "
+            f"step launches {n_1}")
+        for name, ch, ck in (("clean", None, None),
+                             ("chaotic", chaos, os.path.join(work, "b"))):
+            res, wall = timed(lambda: fleet_sweep(
+                None, eng.cfg, seeds, engine=eng, n_workers=2,
+                range_size=w_range, chaos=ch, checkpoint_dir=ck, **kw))
+            n_b, _ = take("raft")
+            same(single, res, f"[12 fabric b] {name}")
+            st = res.loop_stats["fleet"]
+            if ch is not None:
+                fired(st, ("kills", "preemptions", "leases_expired",
+                           "leases_reissued", "duplicate_completions",
+                           "rpc_retries"), f"[12 fabric b] {name}")
+                check(st["duplicates_crosschecked"]
+                      == st["duplicate_completions"],
+                      "[12 fabric b] a duplicate was not crosschecked")
+            check(not cuda or n_b > 0, "[12 fabric b] no step launch")
+            log(f"[12 fabric b] {name} fleet: equal to the single-host "
+                f"sweep; wall {wall * 1e3:.1f} ms = {wall / wall_1:.2f}x "
+                f"the single-host sweep's; leases {st['leases_issued']} "
+                f"(reissued {st['leases_reissued']}, expired "
+                f"{st['leases_expired']}), grouped leases "
+                f"{st['grouped_leases']}, session reuse hits "
+                f"{st['session_reuse_hits']}, control RPCs per lease "
+                f"{st['control_rpcs_per_lease']} (all RPCs "
+                f"{st['rpcs_per_lease']}), kills {st['kills']}, "
+                f"preemptions {st['preemptions']}, duplicates "
+                f"{st['duplicate_completions']}, RPC retries "
+                f"{st['rpc_retries']}; acquire {st['acquire_s'] * 1e3:.1f} "
+                f"ms, sweeps {st['sweep_s'] * 1e3:.1f} ms, merge "
+                f"{st['merge_s'] * 1e3:.1f} ms; step launches {n_b}")
+
+        # (c) the compiled families, chaotic: tpc_crosscheck and pb_hunt
+        # over 4 ranges each.
+        for name, route in (("tpc_crosscheck", "tpc"), ("pb_hunt", "pb")):
+            fam, ak, ck, faults, max_steps = golden.FAMILY_CONFIGS[name]
+            tf = family(fam)
+            e = DeviceEngine(tf.actor_cls(tf.config_cls(**ak)),
+                             EngineConfig(**ck), device=dev)
+            fkw = dict(chunk_steps=64, max_steps=max_steps,
+                       faults=(np.asarray(faults, np.int32)
+                               if faults is not None else None))
+            fseeds = np.arange(4 * fam_range)
+            single_f, wall_f1 = timed(lambda: sweep_mod.sweep(
+                None, e.cfg, fseeds, engine=e, **fkw))
+            res, wall_f = timed(lambda: fleet_sweep(
+                None, e.cfg, fseeds, engine=e, n_workers=2,
+                range_size=fam_range, chaos=chaos, **fkw))
+            n_c, _ = take(route)
+            same(single_f, res, f"[12 families c] {name}")
+            st = res.loop_stats["fleet"]
+            check(not cuda or n_c > 0, f"[12 families c] {name}: no step "
+                  f"launch")
+            log(f"[12 families c] {name}: chaotic fleet of {len(fseeds)} "
+                f"seeds in 4 ranges equal to the single-host sweep "
+                f"({len(single_f.failing_seeds)} failing); wall "
+                f"{wall_f * 1e3:.1f} ms against {wall_f1 * 1e3:.1f} ms; "
+                f"kills {st['kills']}, preemptions {st['preemptions']}, "
+                f"duplicates {st['duplicate_completions']}, reissued "
+                f"{st['leases_reissued']}; step launches {n_c}")
+
+        # (d) the corpus exchange: bench.py's guided_fleet (golden.
+        # GUIDED_FLEET), independent, exchanged clean and exchanged under
+        # chaos; every merge the exchange folds is recorded for the fold
+        # kernel's comparison below.
+        h = hunts.pair_hunt()
+        eng_p = DeviceEngine(h.actor, h.cfg, device=dev)
+        g = golden.GUIDED_FLEET
+        gseeds = np.arange(g["budget"])
+        gkw = dict(engine=eng_p, faults=h.template, search=h.search(True),
+                   stop_on_first_bug=True, n_workers=g["n_workers"],
+                   range_size=g["range_size"], **h.sweep_kw)
+        xchaos = ChaosConfig(seed=7, kill_at=(("w1", 2),),
+                             duplicate_all_completions=True,
+                             tear_publish_at=(("w0", 1),),
+                             drop_rpc_rate=0.2, restart_after=2)
+        merges = []
+        real_merge = exchange_mod.merge_corpus
+
+        def recording(acc, src, min_novelty):
+            out = real_merge(acc, src, min_novelty)
+            merges.append((acc, src, min_novelty, out))
+            return out
+
+        exchange_mod.merge_corpus = recording
+        try:
+            runs = {}
+            for name, ex, ch in (
+                    ("independent", None, None),
+                    ("exchanged", ExchangeConfig(every=g["every"]), None),
+                    ("exchanged chaotic", ExchangeConfig(every=g["every"]),
+                     xchaos)):
+                res, wall = timed(lambda: fleet_sweep(
+                    None, h.cfg, gseeds, exchange=ex, chaos=ch, **gkw))
+                n_d, f_d = take("pair")
+                runs[name] = (res, wall, n_d, f_d)
+        finally:
+            exchange_mod.merge_corpus = real_merge
+        ind, exc, chx = (runs[k][0] for k in runs)
+        pins = golden.guided_fleet_pins(ind, exc)
+        check(pins == golden.GOLDEN_GUIDED_FLEET,
+              f"[12 exchange d] the guided fleet's pins differ from JAX's:"
+              f" {pins}")
+        check(golden.fleet_digest(chx) == golden.fleet_digest(exc)
+              and golden.search_digest(chx.search)
+              == golden.search_digest(exc.search)
+              and chx.search.operator_stats == exc.search.operator_stats
+              and all(np.array_equal(getattr(chx.search.lineage, f),
+                                      getattr(exc.search.lineage, f))
+                      for f in ("parent1", "parent2", "ops", "depth")),
+              "[12 exchange d] the chaotic exchanged fleet differs from "
+              "the clean one")
+        st = chx.loop_stats["fleet"]
+        fired(st, ("kills", "leases_reissued", "publishes_torn",
+                   "duplicate_completions"), "[12 exchange d] chaotic")
+        check(not cuda or all(runs[k][3] > 0 for k in runs),
+              "[12 exchange d] a guided fleet launched no fold")
+        for name, (res, wall, n_d, f_d) in runs.items():
+            s = res.loop_stats["fleet"]
+            log(f"[12 exchange d] {name}: wall {wall * 1e3:.1f} ms, "
+                f"{len(res.failing_seeds)} failing (first "
+                f"{res.failing_seeds[:1]}), epochs merged "
+                f"{s.get('epochs_merged', '-')}, publishes "
+                f"{s.get('publishes', '-')} (torn "
+                f"{s.get('publishes_torn', '-')}, duplicate "
+                f"{s.get('publishes_duplicate', '-')}), kills {s['kills']}; "
+                f"step launches {n_d}, fold launches {f_d}")
+        log(f"[12 exchange d] pins equal JAX's (golden.GOLDEN_GUIDED_FLEET):"
+            f" exchanged {pins['exchanged_seeds_to_bug']} seeds into its "
+            f"range (global seed {pins['exchanged_first_global_seed']}), "
+            f"independent {pins['independent_seeds_to_bug']}; chaotic "
+            f"exchanged == clean on observations, schedules, the merged "
+            f"corpus, lineage and operator stats")
+        # The fold kernel against host_harvest_fold (the exchange's merge
+        # fold): 12 random folds shaped as tests/test_exchange.py's, each
+        # twice, and every merge this leg's exchange made. Their launches
+        # are comparisons and are not counted.
+        rng = np.random.RandomState(7)
+        tmpl = h.template
+        n_cmp = 0
+
+        def kernel_vs_host(dc, hc, sched, sigs, mask, mn, entries, depths,
+                           tag):
+            def t(a):
+                return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+            out = harvest_fold(dc, t(sched), t(sigs.astype(np.int64)),
+                               t(mask), mn, entries=t(entries),
+                               depths=t(depths), with_masks=True)
+            want = host_harvest_fold(hc, sched, sigs, mask, mn,
+                                     entries=entries, depths=depths,
+                                     with_masks=True)
+            for name in ("sched", "sig", "score", "filled", "entry",
+                         "depth"):
+                check(np.array_equal(
+                    getattr(out[0], name).cpu().numpy().astype(np.int64),
+                    np.asarray(getattr(want[0], name)).astype(np.int64)),
+                    f"[12 fold d] {tag}: corpus lane {name} differs from "
+                    f"host_harvest_fold")
+            check(int(out[1]) == want[1]
+                  and np.array_equal(out[2].cpu().numpy(), want[2])
+                  and np.array_equal(out[3].cpu().numpy(), want[3]),
+                  f"[12 fold d] {tag}: the insert count or a mask differs")
+            return out[0], want[0]
+
+        for trial in range(12):
+            k = int(rng.randint(1, 7))
+            w = int(rng.randint(1, 9))
+            mn = int(rng.randint(1, 5))
+            sched = rng.randint(-1, 60, size=(w, tmpl.shape[0], 4)) \
+                .astype(np.int32)
+            mask = rng.rand(w) < 0.7
+            entries = rng.randint(1, 500, size=(w,)).astype(np.int32)
+            depths = rng.randint(0, 9, size=(w,)).astype(np.int32)
+            dc = corpus_init(k, tmpl, device=dev)
+            hc = host_corpus_init(k, tmpl)
+            for rnd in range(2):
+                sigs = rng.randint(0, 2**32, size=(w,),
+                                   dtype=np.uint64).astype(np.uint32)
+                dc, hc = kernel_vs_host(dc, hc, sched, sigs, mask, mn,
+                                        entries, depths,
+                                        f"random fold {trial}.{rnd}")
+                n_cmp += 1
+        for i, (acc, src, mn, _out) in enumerate(merges):
+            kernel_vs_host(corpus_to_device(acc, 0, 0, dev), acc,
+                           np.asarray(src.sched, np.int32),
+                           np.asarray(src.sig, np.uint32),
+                           np.asarray(src.filled, bool), mn,
+                           np.asarray(src.entry, np.int32),
+                           np.asarray(src.depth, np.int32), f"merge {i}")
+        check(not cuda or fold_kernel.launches == n_cmp + len(merges),
+              f"[12 fold d] {fold_kernel.launches} fold launches for "
+              f"{n_cmp + len(merges)} comparisons")
+        fold_kernel.launches = 0
+        log(f"[12 fold d] the fold kernel equals host_harvest_fold (every "
+            f"corpus lane, the insert count, both masks) on {n_cmp} random "
+            f"folds and on the {len(merges)} merges of this leg's "
+            f"exchanges")
+
+        # (e) real processes: spawned workers on the card, one SIGKILLed
+        # and one SIGTERMed by the parent.
+        pseeds = np.arange(4 * proc_range)
+        single_p, _ = timed(lambda: sweep_mod.sweep(
+            None, eng.cfg, pseeds, engine=eng, **kw))
+        take("raft")
+        if cuda:
+            torch.cuda.empty_cache()
+        recs = []
+        res_p, wall_p = timed(lambda: fleet_sweep(
+            RaftActor(RaftDeviceConfig(**hunt_rk)), eng.cfg, pseeds,
+            n_workers=2, range_size=proc_range, spawn="process",
+            device=None if cuda else "cpu", lease_ttl=lease_ttl,
+            checkpoint_dir=os.path.join(work, "e"), observe=recs.append,
+            kill_after_heartbeats={"w0": 2},
+            preempt_after_heartbeats={"w1": 3}, serve_timeout_s=600.0,
+            **kw))
+        same(single_p, res_p, "[12 process e]")
+        st = res_p.loop_stats["fleet"]
+        check(st["restarts"].get("w0", 0) >= 1 and st["leases_expired"] >= 1
+              and st["leases_released"] >= 1,
+              f"[12 process e] the kill and the preemption did not both "
+              f"land: restarts {st['restarts']}, expired "
+              f"{st['leases_expired']}, released {st['leases_released']}")
+        proc_launches = 0
+        lives = []
+        for wid, rep in sorted(st["worker_reports"].items()):
+            for life in rep["lives"]:
+                if cuda:
+                    check(life.get("device", "").startswith("cuda"),
+                          f"[12 process e] {wid} ran on {life.get('device')}")
+                    check(all(v == 0.0 for v in life["nvcc_s"].values()),
+                          f"[12 process e] {wid} ran nvcc: "
+                          f"{life['nvcc_s']}")
+                proc_launches += life.get("step_launches", 0)
+                lives.append(f"{wid} pid {life['pid']}: load "
+                             f"{life.get('load_s', 0.0) * 1e3:.1f} ms, nvcc "
+                             f"{life.get('nvcc_s', {})}, step launches "
+                             f"{life.get('step_launches', 'none reported')}")
+        resumed = sum(1 for r in recs if r.get("event") == "lease_issued"
+                      and r.get("resume_checkpoint"))
+        check(not cuda or proc_launches > 0,
+              "[12 process e] the workers reported no step launch")
+        log(f"[12 process e] {len(pseeds)} seeds in 4 ranges, 2 spawned "
+            f"workers on {'CUDA' if cuda else dev}, w0 SIGKILLed at its 2nd "
+            f"heartbeat and respawned, w1 SIGTERMed at its 3rd: equal to "
+            f"the single-host sweep; wall {wall_p:.2f} s with the spawns; "
+            f"restarts {st['restarts']}, leases {st['leases_issued']} "
+            f"(expired {st['leases_expired']}, released "
+            f"{st['leases_released']}, {resumed} issued with a checkpoint "
+            f"to resume); workers: " + "; ".join(lives))
+
+        # (f) held to JAX without JAX: tests/test_fleet.py's chaotic Raft
+        # fleet (golden.FLEET_RAFT) against golden.GOLDEN_FLEET_RAFT.
+        fr = golden.FLEET_RAFT
+        eng_f = DeviceEngine(RaftActor(RaftDeviceConfig(**fr["raft"])),
+                             EngineConfig(**fr["engine"]), device=dev)
+        res_f, wall = timed(lambda: fleet_sweep(
+            None, eng_f.cfg, np.arange(fr["n_seeds"]), engine=eng_f,
+            n_workers=fr["n_workers"], range_size=fr["range_size"],
+            chaos=chaos, checkpoint_dir=os.path.join(work, "f"),
+            **fr["sweep_kw"]))
+        n_f, _ = take("raft")
+        check(golden.fleet_digest(res_f) == golden.GOLDEN_FLEET_RAFT,
+              "[12 golden f] the chaotic Raft fleet's digest differs from "
+              "JAX's")
+        log(f"[12 golden f] tests/test_fleet.py's chaotic fleet "
+            f"({fr['n_seeds']} seeds, ranges of {fr['range_size']}): "
+            f"fleet_digest equals golden.GOLDEN_FLEET_RAFT; "
+            f"{len(res_f.failing_seeds)} failing, kills "
+            f"{res_f.loop_stats['fleet']['kills']}; wall {wall * 1e3:.1f} "
+            f"ms; step launches {n_f}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"[12] phase 12 took {time.perf_counter() - t12:.1f} s; its step "
+        f"kernel launches by route {launches}, fold launches {folds}, and "
+        f"the process leg's workers' step launches {proc_launches}")
+    return launches, folds, proc_launches
 
 
 def main() -> int:
@@ -3120,6 +3568,9 @@ def main() -> int:
 
     # ---- 11. the actor compiler's checks on the card ----------------------
     p11_launches, p11_folds = phase_11(dev, paxos_failing=wide_paxos_failing)
+
+    # ---- 12. the fleet on the card -----------------------------------------
+    p12_launches, p12_folds, p12_workers = phase_12(dev)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(card)
@@ -3129,7 +3580,8 @@ def main() -> int:
         "source": "madsim_tpu_torch/csrc/step_raft.cu",
         "replaces": "madsim_tpu/engine/pallas_step.py:132",
         "launches": (main_launches + sweep_launches + hunt_launches["raft"]
-                     + p10_launches["raft"] + p11_launches["raft"]),
+                     + p10_launches["raft"] + p11_launches["raft"]
+                     + p12_launches["raft"] + p12_workers),
         "max_abs_err": fam_err["raft"],
         "ms": hl["kernel_ms"],
         "plain_ms": hl["plain_ms"],
@@ -3146,7 +3598,8 @@ def main() -> int:
             "source": f"madsim_tpu_torch/csrc/step_{fam}.cu",
             "replaces": "madsim_tpu/engine/pallas_step.py:132",
             "launches": (fam_launches[fam] + hunt_launches.get(fam, 0)
-                         + p10_launches.get(fam, 0) + p11_launches[fam]),
+                         + p10_launches.get(fam, 0) + p11_launches[fam]
+                         + p12_launches.get(fam, 0)),
             "max_abs_err": fam_err[fam],
             "ms": r["kernel_ms"],
             "plain_ms": r["plain_ms"],
@@ -3183,7 +3636,7 @@ def main() -> int:
         "route": "cuda",
         "source": "madsim_tpu_torch/csrc/corpus_fold.cu",
         "replaces": "madsim_tpu/search/corpus.py:131",
-        "launches": fold_launches + p10_folds + p11_folds,
+        "launches": fold_launches + p10_folds + p11_folds + p12_folds,
         "max_abs_err": 0.0,
         "ms": fr["ms"],
         "plain_ms": fr["plain_ms"],

@@ -313,6 +313,11 @@ class PaxosActor(CompiledActor):
         super().__init__(paxos_spec(xcfg))
         self.xcfg = xcfg
 
+    def __reduce__(self):
+        # The spec's handlers are closures: pickle the config and
+        # compile again (a spawned fleet worker receives the actor).
+        return type(self), (self.xcfg,)
+
 
 def engine_config(xcfg: PaxosConfig = PaxosConfig(),
                   metrics: bool = False) -> EngineConfig:

@@ -42,6 +42,13 @@ registered family; :data:`GOLDEN_CROSSCHECK`, JAX's host-twin
 ``tests/test_torch_speclint.py``, ``test_torch_host_twin.py`` and
 ``test_torch_conformance.py`` recompute them from JAX (the last two in
 tests marked ``slow``).
+
+The fleet's constants: :data:`GOLDEN_FLEET_RAFT`, the :func:`fleet_digest`
+of JAX's chaotic Raft fleet (:data:`FLEET_RAFT`), recomputed from JAX by
+``tests/test_torch_fleet.py``; :data:`GOLDEN_GUIDED_FLEET`, the
+:func:`guided_fleet_pins` of bench.py's guided fleet (:data:`GUIDED_FLEET`),
+independent and with the corpus exchange, recomputed from JAX by the test
+marked ``slow`` in ``tests/test_torch_exchange.py``.
 """
 from __future__ import annotations
 
@@ -437,6 +444,105 @@ def sweep_digest(res) -> str:
     _update(h, res.observations)
     h.update(res.summary().encode())
     return h.hexdigest()
+
+
+def fleet_digest(res) -> str:
+    """SHA-256 over a fleet result's contract fields: its seeds and bug
+    flags, the coverage ledger's hits and first seen seeds (when metrics
+    ran), every observation and the schedule fingerprint."""
+    h = hashlib.sha256()
+    _update(h, {"seeds": res.seeds, "bug": res.bug})
+    if res.coverage is not None:
+        _update(h, {"cov_hits": res.coverage.hits,
+                    "cov_first_seen": res.coverage.first_seen_seed})
+    _update(h, res.observations)
+    h.update(str(res.faults_sha256).encode())
+    return h.hexdigest()
+
+
+#: The chaotic Raft fleet of tests/test_fleet.py: the Raft config, the
+#: EngineConfig, the ChaosConfig fields (a kill, a preemption, duplicated
+#: completions, dropped RPCs and heartbeats), and the fleet's shape (with a
+#: checkpoint directory).
+FLEET_RAFT = dict(
+    raft=dict(n=3, buggy_double_vote=True),
+    engine=dict(n_nodes=3, outbox_cap=4, queue_cap=64, t_limit_us=1_500_000,
+                stop_on_bug=True, metrics=True),
+    chaos=dict(seed=11, kill_at=(("w0", 2),), preempt_at=(("w1", 5),),
+               duplicate_all_completions=True, drop_rpc_rate=0.25,
+               drop_heartbeat_rate=0.1, restart_after=2),
+    n_seeds=64, range_size=16, n_workers=2,
+    sweep_kw=dict(chunk_steps=64, max_steps=20_000))
+
+#: :func:`fleet_digest` of JAX's chaotic FLEET_RAFT fleet
+#: (``fleet_sweep(..., mesh=seed_mesh(n_devices=1))``), recomputed from
+#: JAX by tests/test_torch_fleet.py.
+GOLDEN_FLEET_RAFT = (
+    "e534d9a697616cee83fd9d3d0269320108eb24feb78cb99109b0f29217e4d036")
+
+#: bench.py's guided_fleet leg: ``search/hunts.py``'s ``pair_hunt()``
+#: (guided, its ``sweep_kw``, ``stop_on_first_bug``) over ``budget``
+#: seeds in ranges of ``range_size``, two workers, independent and with
+#: ``ExchangeConfig(every=1)``.
+GUIDED_FLEET = dict(budget=512, range_size=64, every=1, n_workers=2)
+
+
+def guided_fleet_pins(independent, exchanged) -> dict:
+    """What the guided fleet is held to: the fewest seeds into a range
+    before its first find (None: no range found the bug), both ways; the
+    bugs found; the exchanged fleet's first failing global seed (1-based),
+    merged corpus size, ancestry depth, operator table and
+    :func:`search_digest`; and each fleet's :func:`fleet_digest`."""
+    from ..fleet.lease import split_ranges
+
+    ranges = split_ranges(GUIDED_FLEET["budget"],
+                          GUIDED_FLEET["range_size"])
+
+    def best(res):
+        per = [s - r.lo + 1 for r in ranges
+               for s in sorted(int(x) for x in res.failing_seeds)
+               if r.lo <= s < r.hi]
+        return min(per) if per else None
+
+    f = exchanged.failing_seeds
+    r = exchanged.search
+    return dict(independent_seeds_to_bug=best(independent),
+                exchanged_seeds_to_bug=best(exchanged),
+                independent_bugs_found=len(independent.failing_seeds),
+                exchanged_bugs_found=len(f),
+                exchanged_first_global_seed=(int(f[0]) + 1) if f else None,
+                merged_corpus_size=int(r.corpus_size),
+                lineage_depth=int(r.lineage_depth()),
+                operator_stats=r.operator_stats,
+                search_digest=search_digest(r),
+                fleet_digest_independent=fleet_digest(independent),
+                fleet_digest_exchanged=fleet_digest(exchanged))
+
+
+#: :func:`guided_fleet_pins` of JAX's guided fleets on one device
+#: (``mesh=seed_mesh(n_devices=1)``), recomputed from JAX by
+#: tests/test_torch_exchange.py's test marked ``slow``. The exchanged
+#: fleet finds the pair bug 39 seeds into its range, at global seed 295;
+#: no independent range finds it.
+GOLDEN_GUIDED_FLEET = dict(
+    independent_seeds_to_bug=None,
+    exchanged_seeds_to_bug=39,
+    independent_bugs_found=0,
+    exchanged_bugs_found=1,
+    exchanged_first_global_seed=295,
+    merged_corpus_size=2,
+    lineage_depth=1,
+    operator_stats=_ops(
+        splice=(190, 0, 0, 1), disable=(71, 0, 0, 0),
+        time_jitter=(201, 0, 0, 0), node_rotate=(161, 0, 0, 1),
+        op_flip=(64, 0, 0, 0)),
+    search_digest=(
+        "afc795130e0389da3ed9abe78581f269705b2e1e24f4798331c0183b99d69217"),
+    fleet_digest_independent=(
+        "a4979718f237206a249ad223b4740e82c8cc5f9dd67c73590032e885386bf2e5"),
+    fleet_digest_exchanged=(
+        "4d7c11553850ef126253cb34f5bf3177cf091d4c1d2c205c506c5ad8017e64b0"),
+)
 
 
 #: bench.py's minimize_bug leg at its full width: a 64-row restart schedule

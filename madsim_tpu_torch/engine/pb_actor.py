@@ -48,3 +48,8 @@ class PBActor(CompiledActor):
 
         super().__init__(pb_spec(pcfg))
         self.pcfg = pcfg
+
+    def __reduce__(self):
+        # The spec's handlers are closures: pickle the config and
+        # compile again (a spawned fleet worker receives the actor).
+        return type(self), (self.pcfg,)

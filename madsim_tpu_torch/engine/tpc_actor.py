@@ -50,3 +50,8 @@ class TPCActor(CompiledActor):
 
         super().__init__(tpc_spec(tcfg))
         self.tcfg = tcfg
+
+    def __reduce__(self):
+        # The spec's handlers are closures: pickle the config and
+        # compile again (a spawned fleet worker receives the actor).
+        return type(self), (self.tcfg,)

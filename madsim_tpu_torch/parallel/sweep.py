@@ -61,6 +61,11 @@ are those of the same sweep without it. ``profile_dir=`` captures a
 window of dispatches with ``torch.profiler``. ``SweepResult.minimize``
 shrinks a failing seed's schedule (madsim_tpu_torch/triage).
 
+:class:`SweepSession` is a fleet worker's persistent session
+(madsim_tpu_torch/fleet): ``run`` is a sweep with its engine bound, and
+``run_group`` advances several seed ranges as one standing batch whose
+slots later groups recycle.
+
 Not ported here: multi-device meshes, which raise ``NotImplementedError``
 naming their ROADMAP item.
 """
@@ -2017,3 +2022,323 @@ def _fused_hunt(eng: DeviceEngine, state, idx, seeds: np.ndarray,
             "cov_hist": cov_all, "cov": (cov_hits, cov_first),
             "bufs": bufs, "sched_buf": sched_buf, "corpus": corpus,
             "lin_buf": lin_buf, "op_tab": op_tab}
+
+
+# ---------------------------------------------------------------------------
+# The persistent session of a fleet worker
+# ---------------------------------------------------------------------------
+
+class SweepSession:
+    """A persistent sweep session: the JAX ``SweepSession`` on one device.
+
+    A fleet worker holds one session across its leases, so the engine, the
+    chunk and superstep geometry and the standing batch are set up once:
+
+    * :meth:`run` is ``sweep()`` with the session's engine and geometry
+      bound (checkpoint/resume, ``search=`` and every other sweep mode per
+      lease).
+    * :meth:`run_group` advances SEVERAL seed ranges as one standing batch
+      and returns one ``SweepResult`` per range whose contract fields (ids,
+      bug flags, observations, coverage ledger, schedule fingerprint) are
+      bitwise those of a fresh ``sweep()`` of that range: worlds are
+      position-independent and every range installs at chunk 0, and the
+      chunks past a range's retirement are gated no-ops of frozen worlds.
+      The standing slots are recycled between groups: the next group's
+      worlds enter through :meth:`DeviceEngine.refill` with an all-slots
+      mask, in place, when its width equals the last group's.
+
+    The grouped loop is the solo pipelined loop's (supersteps queued a
+    superstep ahead of the read, one ``_fetch`` per superstep, each
+    superstep's gate word on the device), and at the end ONE ``_fetch`` of
+    every range's coverage ledger and one ``observe`` pull. Any exception
+    out of the loop (a fleet worker's kill or preemption is raised from
+    the ``observe`` callback) drops the standing batch: launches may still
+    be queued on it, and the next group installs fresh.
+
+    A ``mesh`` raises ``NotImplementedError`` naming its ROADMAP item. Not
+    thread-safe: one session per worker.
+    """
+
+    #: sweep() keyword arguments run_group understands; a lease whose sweep
+    #: arguments leave this set runs solo through :meth:`run`.
+    GROUPABLE_KW = frozenset(
+        {"chunk_steps", "max_steps", "superstep_max", "coverage_buckets"})
+
+    def __init__(self, actor: Any = None, cfg: Optional[EngineConfig] = None,
+                 *, engine: Optional[DeviceEngine] = None,
+                 mesh: Optional[Any] = None, chunk_steps: int = 512,
+                 max_steps: int = 1_000_000, superstep_max: int = 16,
+                 coverage_buckets: Optional[int] = None):
+        if mesh is not None:
+            raise _unported("SweepSession(mesh=...) over several devices",
+                            "12")
+        if engine is None:
+            if cfg is None:
+                raise ValueError(
+                    "SweepSession needs engine=DeviceEngine(...) or "
+                    "(actor, cfg) to build one")
+            engine = DeviceEngine(actor, cfg)
+        if superstep_max < 1:
+            raise ValueError("superstep_max must be >= 1")
+        self.engine = engine
+        self.chunk_steps = int(chunk_steps)
+        self.max_steps = int(max_steps)
+        self.superstep_max = int(superstep_max)
+        self.coverage_buckets = coverage_buckets
+        #: Ranges served without a fresh per-lease setup.
+        self.reuse_hits = 0
+        self._runs = 0
+        self._k_warm = 1          # adaptive K, carried across groups
+        self._slot_state = None   # the standing batch between groups
+        self._slot_w = 0
+
+    def run(self, seeds, faults: Optional[np.ndarray] = None,
+            **kw) -> SweepResult:
+        """One range through the full ``sweep()`` with the session's engine
+        and geometry (every per-lease mode available)."""
+        kw.setdefault("chunk_steps", self.chunk_steps)
+        kw.setdefault("max_steps", self.max_steps)
+        kw.setdefault("superstep_max", self.superstep_max)
+        if self.coverage_buckets is not None:
+            kw.setdefault("coverage_buckets", self.coverage_buckets)
+        # A solo sweep leaves the standing batch in no known state.
+        self._slot_state = None
+        first = self._runs == 0
+        self._runs += 1
+        if not first:
+            self.reuse_hits += 1
+        return sweep(None, self.engine.cfg, seeds, faults=faults,
+                     engine=self.engine, **kw)
+
+    @staticmethod
+    def _part_sha256(faults: Optional[np.ndarray]) -> Optional[str]:
+        """The solo sweep's ``faults_sha256`` of one range (on one device
+        the schedule is hashed unpadded)."""
+        if faults is None:
+            return None
+        fp = np.ascontiguousarray(np.asarray(faults, np.int32))
+        return hashlib.sha256(fp.tobytes()).hexdigest()
+
+    def run_group(self, parts: List[Dict[str, Any]],
+                  observe: Any = None) -> List[SweepResult]:
+        """Advance several seed ranges as one standing batch; one
+        ``SweepResult`` per range, its contract fields bitwise a fresh
+        ``sweep()`` of the range.
+
+        ``parts``: ``[{"seeds": (n_i,) uint64, "faults": None | (F, 4)
+        shared | (n_i, F, 4) per-world}, ...]``, all of one faults form.
+        ``observe``: the solo sweep's sink, one ``madsim.sweep.telemetry/1``
+        record per superstep read (the fleet worker's heartbeat)."""
+        from ..obs import observatory as _obsy
+
+        if not parts:
+            raise ValueError("run_group needs at least one range")
+        eng = self.engine
+        dev = eng.device
+        chunk_steps, superstep_max = self.chunk_steps, self.superstep_max
+        cov_on = bool(eng.cfg.metrics)
+        cov_k = (int(self.coverage_buckets) if self.coverage_buckets
+                 else DEFAULT_BUCKETS)
+
+        # -- the ranges as one batch --------------------------------------
+        seeds_list: List[np.ndarray] = []
+        faults_list: List[Optional[np.ndarray]] = []
+        for p in parts:
+            s = np.asarray(p["seeds"], np.uint64)
+            if s.shape[0] == 0:
+                raise ValueError("run_group ranges must be non-empty")
+            f = p.get("faults")
+            if f is not None:
+                f = np.asarray(f, np.int32)
+                if f.ndim not in (2, 3) or f.shape[-1] != 4:
+                    raise ValueError(
+                        f"range fault schedules must be (F, 4) or "
+                        f"(n_i, F, 4); got shape {f.shape}")
+                if f.ndim == 3 and f.shape[0] != s.shape[0]:
+                    raise ValueError(
+                        f"per-world schedules carry one (F, 4) block per "
+                        f"seed: got leading dim {f.shape[0]} for "
+                        f"{s.shape[0]} seeds")
+            seeds_list.append(s)
+            faults_list.append(f)
+        forms = {(None if f is None else f.ndim) for f in faults_list}
+        if len(forms) > 1:
+            raise ValueError(
+                "run_group ranges must agree on the faults form "
+                "(all None, all shared (F, 4), or all per-world)")
+        form = forms.pop()
+        n_list = [int(s.shape[0]) for s in seeds_list]
+        offs = np.concatenate([[0], np.cumsum(n_list)]).astype(int)
+        w = int(offs[-1])
+        seeds_c = np.concatenate(seeds_list)
+        if form is None:
+            faults_init = None
+        elif form == 2:
+            faults_init = faults_list[0]
+            for f in faults_list[1:]:
+                if not np.array_equal(f, faults_init):
+                    raise ValueError(
+                        "shared (F, 4) templates must be identical "
+                        "across grouped ranges")
+        else:
+            faults_init = np.concatenate(faults_list, axis=0)
+
+        # -- install: recycle the standing slots, else a fresh init --------
+        reused = self._slot_state is not None and self._slot_w == w
+        if reused:
+            prev, self._slot_state = self._slot_state, None
+            state = eng.refill(prev, np.ones(w, bool), seeds_c,
+                               faults=faults_init)
+        else:
+            self._slot_state = None
+            state = eng.init(seeds_c, faults=faults_init)
+        first = self._runs == 0
+        self._runs += 1
+        self.reuse_hits += len(parts) - (1 if first else 0)
+
+        emit_telemetry, close_telemetry = _obsy.make_observer(observe)
+        t_loop0 = perf_counter()
+        flag_reads0 = Lookahead.host_reads
+        perf = {"dispatches": 0, "scalar_fetches": 0, "device_wait_s": 0.0,
+                "dispatch_s": 0.0, "dispatch_depth": 0}
+
+        # -- the solo pipelined loop, without its refill and shrink edges --
+        c_max = -(-self.max_steps // chunk_steps)
+        chunks = 0
+        k_cur = max(1, min(self._k_warm, superstep_max))
+        epoch_fresh = True
+        inflight: Optional[_Flight] = None
+        stop = False
+
+        def dispatch(reserve: int = 0) -> None:
+            nonlocal state, inflight, epoch_fresh
+            k = max(1, min(k_cur, c_max - chunks - reserve, superstep_max))
+            if epoch_fresh:
+                k = 1
+            min_one = epoch_fresh
+            epoch_fresh = False
+            t0 = perf_counter()
+            state, any_bug, n_active, k_done, hist = eng.superstep(
+                state, 0, False, k, chunk_steps=chunk_steps,
+                k_max=superstep_max, min_one=min_one)
+            perf["dispatch_s"] += perf_counter() - t0
+            perf["dispatches"] += 1
+            inflight = _Flight(any_bug, n_active, k_done, hist, k, w, 0)
+
+        try:
+            if c_max > 0:
+                dispatch()
+            while inflight is not None:
+                prev, inflight = inflight, None
+                if not stop and chunks + prev.planned < c_max:
+                    dispatch(reserve=prev.planned)
+                t0 = perf_counter()
+                bug_h, n_act_h, k_done_h, _hist_h = _fetch(
+                    (prev.any_bug, prev.n_active, prev.k_done, prev.hist))
+                perf["device_wait_s"] += perf_counter() - t0
+                perf["scalar_fetches"] += 1
+                perf["dispatch_depth"] = max(
+                    perf["dispatch_depth"], 1 if inflight is not None else 0)
+                k_done = int(k_done_h)
+                n_act = int(n_act_h)
+                chunks += k_done
+                if k_done == prev.planned:
+                    k_cur = min(k_cur * 2, superstep_max)
+                else:
+                    k_cur = max(k_done, 1)
+                if not stop and n_act == 0:
+                    stop = True
+                if emit_telemetry is not None:
+                    emit_telemetry({
+                        "schema": "madsim.sweep.telemetry/1",
+                        "elapsed_s": round(perf_counter() - t_loop0, 6),
+                        "chunks": int(chunks),
+                        "steps": int(chunks * chunk_steps),
+                        "batch_worlds": int(w),
+                        "n_active": int(n_act),
+                        "occupancy": round(n_act / w, 4) if w else 0.0,
+                        "seeds_total": int(w),
+                        "seeds_done": int(max(w - n_act, 0)),
+                        "bug_seen": bool(bug_h),
+                        "session_group": len(parts),
+                        "dispatch_depth": 1 if inflight is not None else 0,
+                    })
+                if stop:
+                    break
+                if inflight is None and chunks < c_max:
+                    dispatch()
+        except BaseException:
+            # A kill or preemption mid-group: launches may still be queued
+            # on the standing batch, which changes in place. Drop it; the
+            # next group installs fresh.
+            self._slot_state = None
+            self._slot_w = 0
+            if close_telemetry is not None:
+                close_telemetry()
+            raise
+
+        # -- per-range extraction: two boundary folds per range (the worlds
+        # that retired during the group, then those still live; the ledger
+        # is fold-order invariant, so the pair equals the solo sweep's
+        # mid-loop and end folds), every ledger in ONE _fetch, and one
+        # observe pull.
+        ledgers_h = None
+        if cov_on:
+            ledgers = []
+            for i, n_i in enumerate(n_list):
+                idx_np = np.full(w, -1, np.int32)
+                idx_np[offs[i]:offs[i + 1]] = np.arange(n_i, dtype=np.int32)
+                idx_r = torch.from_numpy(idx_np).to(dev)
+                hits, first_seen = ledger_zeros(cov_k, dev)
+                hits, first_seen = _cov_endfolder(state, hits, first_seen,
+                                                  idx_r, n_i, False)
+                hits, first_seen = _cov_endfolder(state, hits, first_seen,
+                                                  idx_r, n_i, True)
+                ledgers.append((hits, first_seen))
+            ledgers_h = _fetch(ledgers)
+        obs_all = eng.observe(state)
+
+        self._slot_state = state
+        self._slot_w = w
+        self._k_warm = k_cur
+
+        issued = w * chunk_steps * chunks
+        live_steps = int(np.asarray(obs_all["steps"]).sum())
+        loop_stats_base = {
+            "pipelined": True,
+            "session": True,
+            "session_group": len(parts),
+            "session_reused_slots": bool(reused),
+            "superstep_max": int(superstep_max),
+            "chunk_steps": int(chunk_steps),
+            "chunks": int(chunks),
+            "dispatches": int(perf["dispatches"]),
+            "chunks_per_dispatch": round(
+                chunks / max(perf["dispatches"], 1), 3),
+            "dispatch_depth": int(perf["dispatch_depth"]),
+            "device_wait_s": round(perf["device_wait_s"], 6),
+            "dispatch_s": round(perf["dispatch_s"], 6),
+            "scalar_fetches": int(perf["scalar_fetches"]),
+            "flag_reads": int(Lookahead.host_reads - flag_reads0),
+            "loop_wall_s": round(perf_counter() - t_loop0, 6),
+        }
+        results: List[SweepResult] = []
+        for i, (s, f) in enumerate(zip(seeds_list, faults_list)):
+            lo, hi = int(offs[i]), int(offs[i + 1])
+            # Copies: on the CPU ``observe`` shares the standing batch's
+            # memory, which the next group refills in place.
+            obs = {k: np.array(v[lo:hi]) for k, v in obs_all.items()}
+            coverage = None
+            if cov_on:
+                hits_h, first_h = ledgers_h[i]
+                coverage = coverage_from_device(cov_k, hits_h, first_h, [])
+            results.append(SweepResult(
+                seeds=s, bug=obs["bug"], observations=obs,
+                steps_run=chunks * chunk_steps, n_devices=1,
+                world_utilization=live_steps / issued if issued else 0.0,
+                loop_stats=dict(loop_stats_base),
+                faults_sha256=self._part_sha256(f), coverage=coverage,
+                triage_ctx=TriageContext(engine=eng, faults=f)))
+        if close_telemetry is not None:
+            close_telemetry()
+        return results

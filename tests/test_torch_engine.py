@@ -294,6 +294,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "madsim_tpu_torch.actorc.host, "
             "madsim_tpu_torch.actorc.conformance, "
             "madsim_tpu_torch.engine.conformance, "
+            "madsim_tpu_torch.fleet, madsim_tpu_torch.fleet.lease, "
+            "madsim_tpu_torch.fleet.rpc, madsim_tpu_torch.fleet.chaos, "
+            "madsim_tpu_torch.fleet.merge, "
+            "madsim_tpu_torch.fleet.coordinator, "
+            "madsim_tpu_torch.fleet.worker, madsim_tpu_torch.fleet.exchange, "
+            "madsim_tpu_torch.fleet.fabric, madsim_tpu_torch.fleet.process, "
             "madsim_tpu_torch.kernel_ab; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'madsim_tpu' or "
@@ -310,7 +316,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 # name belongs to what stays outside the port (ROADMAP, Queue A's preface:
 # analysis passes 1-2, host-test bundles).
 UNPORTED_EXPORTS = {
-    "parallel": {"SweepSession": "item 11", "seed_mesh": "item 12",
+    "parallel": {"seed_mesh": "item 12",
                  "multihost_mesh": "item 12", "shard_worlds": "item 12",
                  "world_spec": "item 12", "world_sharding": "item 12",
                  "sharded_engine": "item 12"},
@@ -321,8 +327,8 @@ UNPORTED_EXPORTS = {
                  "run_parity_pass": "host runtime",
                  "scan_source": "host runtime", "Allowlist": "host runtime"},
 }
-PORT_SUBPACKAGES = ("actorc", "analysis", "engine", "obs", "ops", "parallel",
-                    "search", "triage")
+PORT_SUBPACKAGES = ("actorc", "analysis", "engine", "fleet", "obs", "ops",
+                    "parallel", "search", "triage")
 
 
 def test_port_subpackages_are_the_parity_list():
