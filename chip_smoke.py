@@ -22,18 +22,21 @@ actor compiler's checks (speclint and protocol cards, ``check_actor`` over
 every family, the host-twin ``crosscheck`` held to the kernel, compiled-
 family repro bundles); then the fleet (``SweepSession.run_group``,
 ``fleet.fleet_sweep`` inline under chaos, with the corpus exchange, and
-with spawned worker processes). Phases, in order; any failure exits
+with spawned worker processes); then the bridge's decision kernel
+(``madsim_tpu_torch.bridge.BridgeKernel``: ``step``, ``drain``,
+``reset_slot(s)``, ``metrics``). Phases, in order; any failure exits
 non-zero:
 
 1. card: name and power limit; uint32 <-> int64 round trip on CUDA tensors;
 2. build: one nvcc per source (``step_raft.cu``, ``step_tpc.cu``,
-   ``step_pb.cu``, ``step_paxos.cu``, ``step_pair.cu``, ``corpus_fold.cu``),
+   ``step_pb.cu``, ``step_paxos.cu``, ``step_pair.cu``, ``corpus_fold.cu``,
+   ``bridge_step.cu``),
    all started together, with the ptxas register/spill report and the
    build time; fails unless every instantiation ``step_kernel<A, N>`` of
    both lane profiles (Raft, pb and Paxos N = 1..8, tpc N = 2..8, pair
-   N = 1..12) and every kernel of ``corpus_fold.cu`` (the fold, its
-   chain yardstick, the empty launch) has a 0-byte stack frame and no
-   spills;
+   N = 1..12), every kernel of ``corpus_fold.cu`` (the fold, its
+   chain yardstick, the empty launch) and both of ``bridge_step.cu`` (the
+   round and the drain) has a 0-byte stack frame and no spills;
 3. Threefry on the card: Random123 known answers and bitwise agreement with
    the plain torch version on 2^20 keys and counters;
 4. kernel vs plain step, whole runs: six configurations at W=4096 (two of
@@ -196,12 +199,31 @@ non-zero:
    launches as it reported them; (f) tests/test_fleet.py's chaotic 64-seed
    fleet against the JAX-derived ``golden.GOLDEN_FLEET_RAFT``; and phase
    12's own time.
+13. the bridge decision kernel on the card (``cap=128``, ``k_events=4``):
+   (a) ``BridgeKernel(device="cuda")`` driven by the synthetic realistic
+   and edge streams (``bridge/synthetic.py``) at W=512 and 4,096, metrics
+   off and on, in lockstep with the plain version on the CPU: every
+   StepOut and DrainOut field, the clock, the lanes ``[:, :cap]`` and the
+   metrics equal after every round and drain, and each stream's digest
+   equal to the JAX-derived ``bridge.golden.GOLDEN_BRIDGE``; (b) the three
+   recorded JAX ``bridge.sweep`` streams (ping-pong, chaos at k=1, the
+   drain world at k=2; 512 seeds) replayed open-loop, every output and
+   the final state equal to JAX's; the launches and host-device copies
+   of (a) and (b); (c) each kernel's device time (launches queued behind
+   a sleep) at W=512 and 4,096 beside its bound (the bytes this data
+   needs: every deadline read once, the batch, the outputs and the slots
+   written) and the plain version's time on the card, the wall per round
+   of ``BridgeKernel.step`` and ``.drain`` on CUDA and on the CPU at W=64,
+   512 and 4,096 on the synthetic realistic stream, and the wall per call
+   on the three recorded sweeps (W=512), each with the card's name and
+   power limit; and phase 13's own time.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it lists each kernel route (the step kernel with Raft's, tpc's,
-pb's, Paxos's and the pair families' policy, in each lane profile, and the
-corpus fold kernel) with its launches (phases 10's, 11's and 12's among
-them, the spawned fleet workers' as they reported them) and times.
+pb's, Paxos's and the pair families' policy, in each lane profile, the
+corpus fold kernel, and the bridge's round and drain) with its launches
+(phases 10's, 11's and 12's among them, the spawned fleet workers' as they
+reported them) and times.
 
 Usage: python3 chip_smoke.py   (from the root of the repository)
 """
@@ -960,6 +982,339 @@ def phase_12(dev, w_range=8192, fam_range=2048, proc_range=4096,
     return launches, folds, proc_launches
 
 
+def phase_13(dev, widths=(512, 4096), wall_widths=(64, 512, 4096),
+             card=""):
+    """Phase 13: the bridge decision kernel on ``dev`` (see the module
+    docstring). ``widths``: the W of (a)'s synthetic streams (each held to
+    ``bridge.golden.GOLDEN_BRIDGE`` where it has that W) and of (c)'s
+    device times; ``wall_widths``: the W of (c)'s walls per round;
+    ``card``: the card's name and power limit, printed beside each time.
+    Returns the numbers of the kernels line's ``bridge_step`` and
+    ``bridge_drain`` entries: launches counted from 0 over (a) and (b),
+    the main path, and read just after it."""
+    import numpy as np
+    import torch
+
+    from madsim_tpu_torch.bridge import cuda as bcuda
+    from madsim_tpu_torch.bridge import golden as bgolden
+    from madsim_tpu_torch.bridge.kernel import (INF_NS, BridgeKernel,
+                                                DrainOut, HostBatch,
+                                                batch_tensors, drain_plain,
+                                                step_plain)
+    from madsim_tpu_torch.bridge.synthetic import SyntheticStream, drive
+    from madsim_tpu_torch.engine.convert import (bridge_state_from_numpy,
+                                                 bridge_state_to_numpy)
+
+    t13 = time.perf_counter()
+    cuda = dev.type == "cuda"
+    syn = bgolden.SYNTHETIC
+    cap, k = syn["cap"], syn["k_events"]
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def same_state(a, b, where):
+        sa, sb = bridge_state_to_numpy(a), bridge_state_to_numpy(b)
+        for name in sa:
+            x, y = sa[name], sb[name]
+            if name.startswith("lane_"):
+                x, y = x[:, :cap], y[:, :cap]
+            check(np.array_equal(x, y), f"{where}: {name} differs from the "
+                  f"plain version's")
+
+    # (a) The synthetic streams at full width, CUDA against the plain
+    # version on the CPU at every round and drain, and the digests.
+    bcuda.reset_counts()
+    rounds = 0
+    for w in widths:
+        for mode in ("realistic", "edge"):
+            for metrics in (False, True):
+                seeds = np.arange(w)
+                gk = BridgeKernel(seeds, cap=cap, k_events=k, device=dev,
+                                  metrics=metrics)
+                ck = BridgeKernel(seeds, cap=cap, k_events=k, device="cpu",
+                                  metrics=metrics)
+                stream = SyntheticStream(seeds, cap=cap, mode=mode,
+                                         seed=syn["seed"])
+                digest = bgolden.StreamDigest()
+                n = dict(step=0, drain=0, reset=0)
+                where = f"[13 a] {mode} W={w} metrics={metrics}"
+                t0 = time.perf_counter()
+                for op, outs in drive(stream, [ck, gk], syn["rounds"][mode]):
+                    n[op] += 1
+                    if op == "reset":
+                        digest.add(op, outs)
+                        continue
+                    digest.add(op, outs[1])
+                    bad = bgolden.outputs_differ(outs[1], outs[0])
+                    check(not bad, f"{where}: {op} {n[op]}: {bad} differ "
+                          f"from the plain version's")
+                    same_state(ck, gk, f"{where}: after {op} {n[op]}")
+                digest.final(gk)
+                key = bgolden.golden_key(mode, w, metrics)
+                pinned = key in bgolden.GOLDEN_BRIDGE
+                check(not pinned or digest.hexdigest()
+                      == bgolden.GOLDEN_BRIDGE[key],
+                      f"{where}: the digest differs from GOLDEN_BRIDGE")
+                rounds += n["step"] + n["drain"]
+                log(f"{where}: {n['step']} rounds, {n['drain']} drains, "
+                    f"{n['reset']} resets, every output, the clock, the "
+                    f"lanes [:, :cap] and the metrics equal to the plain "
+                    f"version's after each; digest "
+                    f"{'equals GOLDEN_BRIDGE' if pinned else 'not pinned'}; "
+                    f"{time.perf_counter() - t0:.1f} s")
+
+    # (b) The recorded JAX sweeps, open-loop, to JAX's outputs.
+    for name in sorted(bgolden.RECORDINGS):
+        rec = bgolden.load_recording(name)
+        seeds, kw = bgolden.recording_kernel_args(rec)
+        gk = BridgeKernel(seeds, device=dev, **kw)
+        n = dict(step=0, drain=0)
+        for i, op, got, want in bgolden.replay(rec, gk):
+            n[op] += 1
+            bad = bgolden.outputs_differ(got, want)
+            check(not bad, f"[13 b] {name}: op {i} ({op}): {bad} differ "
+                  f"from JAX's")
+        st = bridge_state_to_numpy(gk)
+        for f in ("clock", "lane_dl", "lane_seq"):
+            have = st[f] if f == "clock" else st[f][:, :kw["cap"]]
+            check(np.array_equal(have, rec[f"final.{f}"]),
+                  f"[13 b] {name}: the final {f} differs from JAX's")
+        rounds += n["step"] + n["drain"]
+        log(f"[13 b] {name} ({bgolden.RECORDINGS[name][1]}): {n['step']} "
+            f"rounds and {n['drain']} drains replayed, every output and "
+            f"the final state equal to JAX's")
+    sync()
+    launches = dict(step=bcuda.step_launches, drain=bcuda.drain_launches)
+    copies = dict(h2d=bcuda.h2d_copies, d2h=bcuda.d2h_copies)
+    if cuda:
+        check(launches["step"] > 0 and launches["drain"] > 0,
+              f"[13] the main path launched the bridge kernels "
+              f"{launches} times")
+        check(copies["h2d"] == launches["step"]
+              and copies["d2h"] == launches["step"] + launches["drain"],
+              f"[13] copies {copies} for launches {launches}: expected one "
+              f"H2D and one D2H a round, one D2H a drain")
+    log(f"[13] main path: launches {launches} over {rounds} rounds and "
+        f"drains; copies {copies} (a round: 1 H2D + 1 D2H; a drain: 1 D2H)")
+
+    # (c) Times. The kernels' device time: launches queued behind a
+    # sleeping kernel, so the event pair holds no host launch cost.
+    def device_ms(launch, n=50):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES // 4)
+        e0.record()
+        for _ in range(n):
+            launch()
+        e1.record()
+        check(not e0.query(), "[13 c] timing: the device reached the timed "
+              "launches before they were all queued")
+        e1.synchronize()
+        return e0.elapsed_time(e1) / n
+
+    def event_ms(fn, n=5):
+        fn()
+        sync()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(n):
+            fn()
+        e1.record()
+        e1.synchronize()
+        return e0.elapsed_time(e1) / n
+
+    def warm(kern, w, n_rounds=8):
+        stream = SyntheticStream(np.arange(w), cap=cap, mode="realistic",
+                                 seed=syn["seed"])
+        for _ in drive(stream, [kern], n_rounds):
+            pass
+        return stream
+
+    def needed_bytes(gk, batch, S):
+        """The bytes a round and a drain must move from ``gk``'s state
+        with ``batch``, by this data: every deadline [:, :cap] read once
+        (the minimum needs them all), the clock, the NET keys, the batch
+        and the outputs; 8 B for each deadline the batch changes and 8 B
+        for the seq of each timer and surviving live send; 16 B a pop
+        (the seq read at the least deadline, the emptied deadline), and a
+        whole row of seqs for each world whose lanes are all empty at its
+        pops (every lane is a candidate). The round's data from the plain
+        version on the CPU, from a copy of the state; the drain follows
+        that round."""
+        ck = BridgeKernel(np.arange(gk.W), cap=cap, k_events=k,
+                          device="cpu")
+        bridge_state_from_numpy(ck, bridge_state_to_numpy(gk))
+        so = ck.step(batch)
+        after_step = ck.state.lane_dl[:, :cap].numpy().copy()
+        do = DrainOut(*[np.asarray(x) for x in ck.drain()])
+        after_drain = ck.state.lane_dl[:, :cap].numpy()
+
+        def in_range(slot, mask):
+            slot = np.asarray(slot)
+            return np.asarray(mask, bool) & (slot >= 0) & (slot < cap)
+
+        def pops(out, lanes_after):
+            # A world left empty with a pop to spare had a pop see every
+            # lane empty.
+            valid = np.asarray(out.event_valid, bool)
+            empty = (lanes_after == INF_NS).all(1) & (valid.sum(1) < k)
+            seq_reads = 8 * k * int((~empty).sum()) + 8 * cap * int(
+                empty.sum())
+            return seq_reads + 8 * int(valid.sum())
+
+        w = gk.W
+        lanes = w * cap * 8
+        b = batch
+        writes = (8 * int(in_range(b.c_slot, b.c_mask).sum())
+                  + 16 * int(in_range(b.t_slot, b.t_mask).sum())
+                  + 16 * int((in_range(b.s_slot, b.s_mask)
+                              & np.asarray(b.s_live, bool)
+                              & np.asarray(so.send_ok, bool)).sum()))
+        batch_bytes = sum(np.asarray(x).nbytes for x in batch)
+        step_out = w * (8 + 1 + 1 + k * (4 + 8 + 1)) + w * S
+        drain_out = w * (1 + k * (8 + 1))
+        step = (lanes + 16 * w + 16 * w + batch_bytes + step_out + writes
+                + pops(so, after_step))
+        drain = lanes + 8 * w + drain_out + pops(do, after_drain)
+        return step, drain
+
+    kern_times = {}
+    for w in widths:
+        gk = BridgeKernel(np.arange(w), cap=cap, k_events=k, device=dev)
+        stream = warm(gk, w)
+        batch = stream.batch()
+        step_bytes, drain_bytes = needed_bytes(gk, batch, stream.S)
+        if cuda:
+            stage = bcuda.stage_batch(gk, batch)
+            stage.dev_in.copy_(stage.host_in)
+            stream_c = torch.cuda.current_stream(dev)
+            dev_out = torch.empty(
+                bcuda._layout(bcuda.drain_fields(w, k))[1],
+                dtype=torch.uint8, device=dev)
+            sync()
+            step_ms = device_ms(lambda: bcuda.launch_step(gk, stage,
+                                                          stream_c))
+            drain_ms = device_ms(lambda: bcuda.launch_drain(gk, dev_out,
+                                                            stream_c))
+            bt = batch_tensors(batch, dev)
+            plain_step = event_ms(lambda: step_plain(
+                gk.state, None, gk._net_k0, gk._net_k1, bt, cap=cap,
+                k_events=k))
+            plain_drain = event_ms(lambda: drain_plain(
+                gk.state, None, cap=cap, k_events=k))
+        else:
+            step_ms = drain_ms = plain_step = plain_drain = float("nan")
+        kern_times[w] = dict(
+            step_ms=step_ms, drain_ms=drain_ms, plain_step_ms=plain_step,
+            plain_drain_ms=plain_drain,
+            step_bound_ms=step_bytes / HBM_BYTES_PER_S * 1e3,
+            drain_bound_ms=drain_bytes / HBM_BYTES_PER_S * 1e3,
+            step_mb=step_bytes / 1e6, drain_mb=drain_bytes / 1e6)
+        t = kern_times[w]
+        shape = (f"{bcuda.warps_per_block(cap)} worlds (warps) a block"
+                 if cuda else "no launch")
+        log(f"[13 c] W={w}, cap={cap}, k={k}, {shape} ({card}): bridge_step "
+            f"{step_ms:.4f} ms on the device against a bound of "
+            f"{t['step_bound_ms']:.5f} ms ({t['step_mb']:.2f} MB), plain "
+            f"round on the card {plain_step:.3f} ms; bridge_drain "
+            f"{drain_ms:.4f} ms against {t['drain_bound_ms']:.5f} ms "
+            f"({t['drain_mb']:.2f} MB), plain drain {plain_drain:.3f} ms; "
+            f"bound/time step {t['step_bound_ms'] / step_ms:.3f}, drain "
+            f"{t['drain_bound_ms'] / drain_ms:.3f}")
+
+    # Wall per round of BridgeKernel.step and .drain (outputs read) on the
+    # card and on the CPU: the realistic stream, after two warm rounds.
+    walls = {}
+    for w in wall_widths:
+        for where in (("cuda", "cpu") if cuda else ("cpu",)):
+            kern = BridgeKernel(np.arange(w), cap=cap, k_events=k,
+                                device=dev if where == "cuda" else "cpu")
+            stream = SyntheticStream(np.arange(w), cap=cap,
+                                     mode="realistic", seed=syn["seed"])
+            step_s = []
+            for r in range(26):
+                batch = stream.batch()
+                t0 = time.perf_counter()
+                out = kern.step(batch)
+                if r >= 2:
+                    step_s.append(time.perf_counter() - t0)
+                stream.after_step(out)
+            drain_s = []
+            for r in range(26):
+                t0 = time.perf_counter()
+                d = kern.drain()
+                _ = [np.asarray(x) for x in d]
+                if r >= 2:
+                    drain_s.append(time.perf_counter() - t0)
+            walls[(where, w)] = (float(np.median(step_s)) * 1e3,
+                                 float(np.median(drain_s)) * 1e3)
+        line = ", ".join(f"{where} step {walls[(where, w)][0]:.3f} ms, "
+                         f"drain {walls[(where, w)][1]:.3f} ms"
+                         for where in ("cuda", "cpu") if (where, w) in walls)
+        ratio = ""
+        if ("cuda", w) in walls:
+            (gs, gd), (cs, cd) = walls[("cuda", w)], walls[("cpu", w)]
+            ratio = f"; CPU/CUDA step {cs / gs:.2f}x, drain {cd / gd:.2f}x"
+        log(f"[13 c] wall per round at W={w} ({card}), median of 24: "
+            f"{line}{ratio}")
+
+    # The same walls on the recorded JAX sweeps (W=512, the batch widths
+    # the host driver padded to), replayed open-loop: each step and drain
+    # call (outputs read), the median over the recording after its first
+    # round (which allocates the staging buffers).
+    rec_walls = {}
+    for name in sorted(bgolden.RECORDINGS):
+        rec = bgolden.load_recording(name)
+        seeds, kw = bgolden.recording_kernel_args(rec)
+        per = {}
+        for where in (("cuda", "cpu") if cuda else ("cpu",)):
+            kern = BridgeKernel(seeds, device=dev if where == "cuda"
+                                else "cpu", **kw)
+            times = dict(step=[], drain=[])
+            for i, code in enumerate(rec["ops"].tolist()):
+                op = bgolden.OPS[code]
+                if op == "reset":
+                    kern.reset_slots([tuple(p) for p in
+                                      rec[f"{i}.r"].tolist()])
+                    continue
+                t0 = time.perf_counter()
+                if op == "step":
+                    kern.step(HostBatch(*[rec[f"{i}.b.{n}"]
+                                          for n in HostBatch._fields]))
+                else:
+                    _ = [np.asarray(x) for x in kern.drain()]
+                times[op].append(time.perf_counter() - t0)
+            per[where] = {op: float(np.median(v[1:] if len(v) > 1 else v))
+                          * 1e3 for op, v in times.items() if v}
+            n_ops = {op: len(v) for op, v in times.items()}
+            rec_walls[f"{where}:{name}"] = per[where]
+        widths_seen = sorted({tuple(rec[f"{i}.b.{n}"].shape[1]
+                                    for n in ("t_slot", "c_slot", "s_slot"))
+                              for i, c in enumerate(rec["ops"].tolist())
+                              if bgolden.OPS[c] == "step"})
+        line = "; ".join(
+            f"{where} " + ", ".join(f"{op} {ms:.3f} ms"
+                                    for op, ms in per[where].items())
+            for where in per)
+        ratio = ""
+        if "cuda" in per:
+            ratio = "; CPU/CUDA " + ", ".join(
+                f"{op} {per['cpu'][op] / per['cuda'][op]:.2f}x"
+                for op in per["cuda"])
+        log(f"[13 c] wall per call on the recorded {name} sweep (W="
+            f"{len(seeds)}, k={kw['k_events']}, {n_ops['step']} rounds, "
+            f"{n_ops['drain']} drains, (T, C, S) {widths_seen}) ({card}): "
+            f"{line}{ratio}")
+    log(f"[13] phase 13 took {time.perf_counter() - t13:.1f} s")
+    top = max(widths)
+    return dict(launches=launches, copies=copies, times=kern_times[top],
+                w=top, walls={f"{a}:{b}": v for (a, b), v in walls.items()},
+                rec_walls=rec_walls)
+
+
 def main() -> int:
     import torch
 
@@ -971,6 +1326,7 @@ def main() -> int:
     import numpy as np
 
     from madsim_tpu_torch import _build
+    from madsim_tpu_torch.bridge import cuda as bridge_cuda
     from madsim_tpu_torch.engine import (
         FAULT_CLOG_LINK, FAULT_CLOG_NODE, FAULT_KILL, FAULT_PAUSE,
         FAULT_RESTART, FAULT_RESUME, FAULT_SET_LATENCY, FAULT_SET_LOSS,
@@ -1019,7 +1375,8 @@ def main() -> int:
     least = {f.route: f.least_n for f in step_kernel.FAMILIES}
     most = {f.route: f.max_n for f in step_kernel.FAMILIES}
     t0 = time.perf_counter()
-    took = _build.build_all(list(sources.values()) + [fold_kernel.SOURCE])
+    took = _build.build_all(list(sources.values()) + [fold_kernel.SOURCE,
+                                                      bridge_cuda.SOURCE])
     log(f"[2 build] nvcc of {', '.join(s + '.cu' for s in took)} in "
         f"parallel: " + ", ".join(f"{s} {t:.1f} s" for s, t in took.items())
         + f"; wall {time.perf_counter() - t0:.1f} s")
@@ -1072,6 +1429,18 @@ def main() -> int:
         no_local_memory(name, f)
         log(f"[2 build] corpus_fold.cu: {name}: 0 bytes stack frame and "
             f"no spills, {f.get('registers', '?')} registers")
+    # Both kernels of bridge_step.cu: the round and the drain.
+    for kname in ("bridge_step_kernel", "bridge_drain_kernel"):
+        found = ptxas_report(_build.build_log.get(bridge_cuda.SOURCE, ""),
+                             kname)
+        check(len(found) == 1 and all(
+            {"stack", "spill_stores", "spill_loads"} <= set(f)
+            for f in found.values()), f"ptxas reported {len(found)} "
+            f"{kname}, expected 1 with its stack frame and spills")
+        for name, f in found.items():
+            no_local_memory(name, f)
+            log(f"[2 build] bridge_step.cu: {name}: 0 bytes stack frame "
+                f"and no spills, {f.get('registers', '?')} registers")
 
     # ---- 3. Threefry on the card ------------------------------------------
     kat = [((0x00000000, 0x00000000), (0x00000000, 0x00000000),
@@ -3571,6 +3940,9 @@ def main() -> int:
 
     # ---- 12. the fleet on the card -----------------------------------------
     p12_launches, p12_folds, p12_workers = phase_12(dev)
+
+    # ---- 13. the bridge decision kernel on the card ------------------------
+    p13 = phase_13(dev, card=card)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(card)
@@ -3649,6 +4021,30 @@ def main() -> int:
         "launch_floor_ms": fr["floor_ms"],
         "launch_floor_call_ms": fr["floor_call_ms"],
     })
+    # The bridge's round and drain (JAX's _step and _drain_step, XLA
+    # programs), timed on the device at the widest W of phase 13.
+    bt = p13["times"]
+    for name, line, what in (("bridge_step", 127, "step"),
+                             ("bridge_drain", 236, "drain")):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "madsim_tpu_torch/csrc/bridge_step.cu",
+            "replaces": f"madsim_tpu/bridge/kernel.py:{line}",
+            "launches": p13["launches"][what],
+            "max_abs_err": 0.0,
+            "ms": bt[f"{what}_ms"],
+            "plain_ms": bt[f"plain_{what}_ms"],
+            "bound_ms": bt[f"{what}_bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+            "w": p13["w"],
+            "wall_ms_per_round": {k: v[0 if what == "step" else 1]
+                                  for k, v in p13["walls"].items()},
+            "recorded_wall_ms_per_call": {
+                k: v[what] for k, v in p13["rec_walls"].items()
+                if what in v},
+        })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,11 +4,13 @@ The simulator has no weights: its parameters are the configs, and its data
 is the world state. A JAX ``WorldState`` pulled to the host as numpy arrays
 in ``jax.tree.leaves`` order becomes the port's state with
 :func:`state_from_numpy`, and :func:`state_to_numpy` turns it back — so a
-state made by either package can be stepped by the other.
+state made by either package can be stepped by the other. The bridge
+kernel's state, NET keys and metrics cross the same way
+(:func:`bridge_state_to_numpy`, :func:`bridge_state_from_numpy`).
 """
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -84,3 +86,48 @@ def state_from_numpy(leaves: List[np.ndarray], cfg: EngineConfig, actor,
 def state_to_numpy(state: WorldState) -> List[np.ndarray]:
     """The state's leaves as host numpy arrays, in leaf order."""
     return [to_numpy(x) for x in tree_leaves(state)]
+
+
+#: A bridge kernel's arrays besides its metrics, with JAX's dtypes.
+BRIDGE_ARRAYS = {"clock": np.int64, "lane_dl": np.int64,
+                 "lane_seq": np.int64, "net_k0": np.uint32,
+                 "net_k1": np.uint32}
+
+
+def bridge_state_to_numpy(kernel) -> Dict[str, np.ndarray]:
+    """A bridge kernel's ``BridgeState``, NET keys and ``BridgeMetrics``
+    (when on) as host arrays with JAX's dtypes, by field name (copies).
+    Takes the port's ``BridgeKernel`` or JAX's."""
+    st = kernel.state
+    out = {"clock": st.clock, "lane_dl": st.lane_dl, "lane_seq": st.lane_seq,
+           "net_k0": kernel._net_k0, "net_k1": kernel._net_k1}
+    if kernel._mb is not None:
+        out.update(kernel._mb._asdict())
+    # Copies: a CPU tensor's numpy view would follow the kernel.
+    out = {k: np.array(to_numpy(v), copy=True) for k, v in out.items()}
+    for k, dt in BRIDGE_ARRAYS.items():
+        out[k] = out[k].astype(dt)
+    return out
+
+
+def bridge_state_from_numpy(kernel, arrays: Dict[str, np.ndarray]) -> None:
+    """Loads :func:`bridge_state_to_numpy`'s arrays (from either package)
+    into the port's ``BridgeKernel``, in place on its device: its shapes
+    must match, and its metrics are loaded when both sides have them on
+    (ValueError otherwise)."""
+    st = kernel.state
+    dst = {"clock": st.clock, "lane_dl": st.lane_dl,
+           "lane_seq": st.lane_seq, "net_k0": kernel._net_k0,
+           "net_k1": kernel._net_k1}
+    if kernel._mb is not None:
+        missing = [k for k in kernel._mb._fields if k not in arrays]
+        if missing:
+            raise ValueError(f"the kernel has metrics on, and the arrays lack "
+                             f"{missing}")
+        dst.update(kernel._mb._asdict())
+    for name, t in dst.items():
+        a = np.asarray(arrays[name])
+        if tuple(a.shape) != tuple(t.shape):
+            raise ValueError(f"{name} is {list(a.shape)}; the kernel holds "
+                             f"{list(t.shape)}")
+        t.copy_(torch.from_numpy(a.astype(np.int64)))

@@ -28,7 +28,12 @@ from .blackbox import (
     rings_from_observations,
 )
 from .bundle import load_bundle, write_sweep_bundle
-from .coverage import DEFAULT_BUCKETS, SweepCoverage, behavior_signature
+from .coverage import (
+    DEFAULT_BUCKETS,
+    SweepCoverage,
+    behavior_signature,
+    coverage_of_counters,
+)
 from .metrics import (
     BLOCK_FIELDS,
     NUM_FAULT_KINDS,
@@ -52,6 +57,7 @@ __all__ = [
     "MetricsBlock", "NUM_FAULT_KINDS", "BLOCK_FIELDS",
     "aggregate_metrics", "metrics_from_observations",
     "SweepCoverage", "DEFAULT_BUCKETS", "behavior_signature",
+    "coverage_of_counters",
     "JsonlEmitter", "ProfilerWindow", "make_observer",
     "prometheus_text", "write_prometheus",
     "trace_to_chrome", "polls_to_chrome", "render_text",

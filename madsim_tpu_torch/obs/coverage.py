@@ -147,6 +147,41 @@ class SweepCoverage:
         }
 
 
+def coverage_of_counters(counters: Dict[str, np.ndarray],
+                         n_buckets: int = DEFAULT_BUCKETS
+                         ) -> Dict[str, object]:
+    """Host-side ledger over a dict of per-slot counter vectors (JAX's
+    ``coverage_of_counters``): the bridge kernel's metrics block, pulled
+    once at the sweep's end, bucketized and FNV-folded in numpy u64 over
+    its columns in sorted key order."""
+    keys = sorted(counters)
+    if not keys:
+        return {"n_buckets": n_buckets, "distinct_behaviors": 0,
+                "worlds_folded": 0}
+    w = np.asarray(counters[keys[0]]).shape[0]
+    h = np.full((w,), _FNV_SEED, np.uint32)
+    for k in keys:
+        col = np.asarray(counters[k], np.uint64)
+        bl = np.zeros((w,), np.uint32)
+        nz = col > 0
+        # bit_length by a binary count (no float log2 on u64).
+        x = col.copy()
+        for s in (32, 16, 8, 4, 2, 1):
+            hi = x >> np.uint64(s)
+            move = hi > 0
+            bl[move] += np.uint32(s)
+            x[move] = hi[move]
+        bl += nz.astype(np.uint32)
+        h = (h ^ bl) * np.uint32(_FNV_PRIME)
+    buckets = h % np.uint32(n_buckets)
+    hits = np.bincount(buckets, minlength=n_buckets)
+    return {
+        "n_buckets": int(n_buckets),
+        "distinct_behaviors": int(np.count_nonzero(hits)),
+        "worlds_folded": int(w),
+    }
+
+
 def coverage_from_device(n_buckets: int, hits, first_seen,
                          novelty: Optional[list]) -> SweepCoverage:
     """Assemble the host dataclass from the pulled ledger arrays."""

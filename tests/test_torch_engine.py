@@ -300,6 +300,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "madsim_tpu_torch.fleet.coordinator, "
             "madsim_tpu_torch.fleet.worker, madsim_tpu_torch.fleet.exchange, "
             "madsim_tpu_torch.fleet.fabric, madsim_tpu_torch.fleet.process, "
+            "madsim_tpu_torch.bridge, madsim_tpu_torch.bridge.kernel, "
+            "madsim_tpu_torch.bridge.cuda, madsim_tpu_torch.bridge.synthetic, "
+            "madsim_tpu_torch.bridge.golden, "
             "madsim_tpu_torch.kernel_ab; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'madsim_tpu' or "
@@ -320,15 +323,17 @@ UNPORTED_EXPORTS = {
                  "multihost_mesh": "item 12", "shard_worlds": "item 12",
                  "world_spec": "item 12", "world_sharding": "item 12",
                  "sharded_engine": "item 12"},
-    "obs": {"coverage_of_counters": "item 10",
-            "write_test_bundle": "host runtime"},
+    "obs": {"write_test_bundle": "host runtime"},
+    "bridge": {name: "host runtime" for name in (
+        "sweep", "sweep_traced", "sweep_pooled", "Outcome", "BridgeRuntime",
+        "BridgeNetSim", "BridgeTime", "BridgePoolError", "SliceDriver")},
     "analysis": {"main_trace": "item 12", "run_lint": "host runtime",
                  "run_escape_pass": "host runtime",
                  "run_parity_pass": "host runtime",
                  "scan_source": "host runtime", "Allowlist": "host runtime"},
 }
-PORT_SUBPACKAGES = ("actorc", "analysis", "engine", "fleet", "obs", "ops",
-                    "parallel", "search", "triage")
+PORT_SUBPACKAGES = ("actorc", "analysis", "bridge", "engine", "fleet", "obs",
+                    "ops", "parallel", "search", "triage")
 
 
 def test_port_subpackages_are_the_parity_list():
