@@ -212,11 +212,14 @@ non-zero:
    of (a) and (b); (c) each kernel's device time (launches queued behind
    a sleep) at W=512 and 4,096 beside its bound (the bytes this data
    needs: every deadline read once, the batch, the outputs and the slots
-   written) and the plain version's time on the card, the wall per round
-   of ``BridgeKernel.step`` and ``.drain`` on CUDA and on the CPU at W=64,
-   512 and 4,096 on the synthetic realistic stream, and the wall per call
-   on the three recorded sweeps (W=512), each with the card's name and
-   power limit; and phase 13's own time.
+   written), the launch floor (an empty kernel on the same grid, queued
+   the same way), the worlds a block and the plain version's time on the
+   card, the wall per round of ``BridgeKernel.step`` and ``.drain`` on
+   CUDA and on the CPU at W=64, 512 and 4,096 on the synthetic realistic
+   stream, the median split of a CUDA round's and drain's wall there
+   (staging, the copies' enqueues, the launch, the wait, the output), and
+   the wall per call on the three recorded sweeps (W=512), each with the
+   card's name and power limit; and phase 13's own time.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it lists each kernel route (the step kernel with Raft's, tpc's,
@@ -1187,6 +1190,8 @@ def phase_13(dev, widths=(512, 4096), wall_widths=(64, 512, 4096),
         stream = warm(gk, w)
         batch = stream.batch()
         step_bytes, drain_bytes = needed_bytes(gk, batch, stream.S)
+        lanes, _, per = bcuda.launch_shape(w, cap)
+        paths = bcuda.lane_copy_paths(w, cap)
         if cuda:
             stage = bcuda.stage_batch(gk, batch)
             stage.dev_in.copy_(stage.host_in)
@@ -1199,6 +1204,8 @@ def phase_13(dev, widths=(512, 4096), wall_widths=(64, 512, 4096),
                                                           stream_c))
             drain_ms = device_ms(lambda: bcuda.launch_drain(gk, dev_out,
                                                             stream_c))
+            floor_ms = device_ms(lambda: bcuda.launch_empty(w, cap,
+                                                            stream_c))
             bt = batch_tensors(batch, dev)
             plain_step = event_ms(lambda: step_plain(
                 gk.state, None, gk._net_k0, gk._net_k1, bt, cap=cap,
@@ -1206,22 +1213,26 @@ def phase_13(dev, widths=(512, 4096), wall_widths=(64, 512, 4096),
             plain_drain = event_ms(lambda: drain_plain(
                 gk.state, None, cap=cap, k_events=k))
         else:
-            step_ms = drain_ms = plain_step = plain_drain = float("nan")
+            step_ms = drain_ms = floor_ms = float("nan")
+            plain_step = plain_drain = float("nan")
         kern_times[w] = dict(
             step_ms=step_ms, drain_ms=drain_ms, plain_step_ms=plain_step,
-            plain_drain_ms=plain_drain,
+            plain_drain_ms=plain_drain, launch_floor_ms=floor_ms,
+            worlds_per_block=per, lanes_per_world=lanes,
             step_bound_ms=step_bytes / HBM_BYTES_PER_S * 1e3,
             drain_bound_ms=drain_bytes / HBM_BYTES_PER_S * 1e3,
             step_mb=step_bytes / 1e6, drain_mb=drain_bytes / 1e6)
         t = kern_times[w]
-        shape = (f"{bcuda.warps_per_block(cap)} worlds (warps) a block"
-                 if cuda else "no launch")
-        log(f"[13 c] W={w}, cap={cap}, k={k}, {shape} ({card}): bridge_step "
-            f"{step_ms:.4f} ms on the device against a bound of "
-            f"{t['step_bound_ms']:.5f} ms ({t['step_mb']:.2f} MB), plain "
+        log(f"[13 c] W={w}, cap={cap}, k={k}, {lanes} lanes a world, {per} "
+            f"worlds a block, {-(-w // per)} blocks (warps copying their "
+            f"rows in bulk {paths.count('bulk')}, by lane "
+            f"{paths.count('async')}) ({card}): "
+            f"bridge_step {step_ms:.4f} ms on the device against a bound "
+            f"of {t['step_bound_ms']:.5f} ms ({t['step_mb']:.2f} MB), plain "
             f"round on the card {plain_step:.3f} ms; bridge_drain "
             f"{drain_ms:.4f} ms against {t['drain_bound_ms']:.5f} ms "
             f"({t['drain_mb']:.2f} MB), plain drain {plain_drain:.3f} ms; "
+            f"launch floor (an empty kernel on the grid) {floor_ms:.4f} ms; "
             f"bound/time step {t['step_bound_ms'] / step_ms:.3f}, drain "
             f"{t['drain_bound_ms'] / drain_ms:.3f}")
 
@@ -1260,6 +1271,42 @@ def phase_13(dev, widths=(512, 4096), wall_widths=(64, 512, 4096),
             ratio = f"; CPU/CUDA step {cs / gs:.2f}x, drain {cd / gd:.2f}x"
         log(f"[13 c] wall per round at W={w} ({card}), median of 24: "
             f"{line}{ratio}")
+
+    # Where a CUDA round's and drain's wall goes: the median of each piece
+    # that bridge/cuda.py stamps (STEP_SPLIT, DRAIN_SPLIT), the realistic
+    # stream, 24 rounds and drains after two warm ones; a drain's wait and
+    # output are its fields' reads (the first waits on the copy).
+    splits = {}
+    for w in (wall_widths if cuda else ()):
+        kern = BridgeKernel(np.arange(w), cap=cap, k_events=k, device=dev)
+        stream = SyntheticStream(np.arange(w), cap=cap, mode="realistic",
+                                 seed=syn["seed"])
+        pieces = dict(step=[], drain=[])
+        for r in range(26):
+            batch = stream.batch()
+            stamps = []
+            out = bcuda.step(kern, batch, split=stamps)
+            stream.after_step(out)
+            stamps_d = []
+            d = bcuda.drain(kern, split=stamps_d)
+            stamps_d.append(time.perf_counter())
+            np.asarray(d.more_due)
+            stamps_d.append(time.perf_counter())
+            _ = np.asarray(d.event_seq), np.asarray(d.event_valid)
+            stamps_d.append(time.perf_counter())
+            if r >= 2:
+                pieces["step"].append(np.diff(stamps))
+                pieces["drain"].append(np.diff(stamps_d)[
+                    [0, 1, 2, 3, 5, 6]])
+        names = dict(step=bcuda.STEP_SPLIT,
+                     drain=bcuda.DRAIN_SPLIT + ("wait", "output_read"))
+        for op in ("step", "drain"):
+            med = np.median(np.stack(pieces[op]), axis=0) * 1e3
+            splits[f"{op}:{w}"] = dict(zip(names[op], med.tolist()))
+            log(f"[13 c] the wall of a CUDA {op} at W={w} ({card}), median "
+                f"ms of 24: " + ", ".join(
+                    f"{n} {v:.4f}" for n, v in zip(names[op], med))
+                + f"; sum {med.sum():.4f}")
 
     # The same walls on the recorded JAX sweeps (W=512, the batch widths
     # the host driver padded to), replayed open-loop: each step and drain
@@ -1312,7 +1359,7 @@ def phase_13(dev, widths=(512, 4096), wall_widths=(64, 512, 4096),
     top = max(widths)
     return dict(launches=launches, copies=copies, times=kern_times[top],
                 w=top, walls={f"{a}:{b}": v for (a, b), v in walls.items()},
-                rec_walls=rec_walls)
+                rec_walls=rec_walls, kern_times=kern_times, splits=splits)
 
 
 def main() -> int:
@@ -1429,14 +1476,18 @@ def main() -> int:
         no_local_memory(name, f)
         log(f"[2 build] corpus_fold.cu: {name}: 0 bytes stack frame and "
             f"no spills, {f.get('registers', '?')} registers")
-    # Both kernels of bridge_step.cu: the round and the drain.
-    for kname in ("bridge_step_kernel", "bridge_drain_kernel"):
+    # Every kernel of bridge_step.cu: the round and the drain at 8, 16 and
+    # 32 lanes a world (32 with and without the bulk copy), and the empty
+    # launch of the launch floor.
+    for kname, want in (("bridge_step_kernel", 4),
+                        ("bridge_drain_kernel", 4),
+                        ("bridge_empty_kernel", 1)):
         found = ptxas_report(_build.build_log.get(bridge_cuda.SOURCE, ""),
                              kname)
-        check(len(found) == 1 and all(
+        check(len(found) == want and all(
             {"stack", "spill_stores", "spill_loads"} <= set(f)
             for f in found.values()), f"ptxas reported {len(found)} "
-            f"{kname}, expected 1 with its stack frame and spills")
+            f"{kname}, expected {want} with its stack frame and spills")
         for name, f in found.items():
             no_local_memory(name, f)
             log(f"[2 build] bridge_step.cu: {name}: 0 bytes stack frame "
@@ -4039,8 +4090,18 @@ def main() -> int:
             "bound_by": "bytes",
             "library_ms": None,
             "w": p13["w"],
+            "worlds_per_block": bt["worlds_per_block"],
+            "lanes_per_world": bt["lanes_per_world"],
+            "launch_floor_ms": bt["launch_floor_ms"],
+            "ms_by_w": {w: t[f"{what}_ms"]
+                        for w, t in p13["kern_times"].items()},
+            "launch_floor_ms_by_w": {w: t["launch_floor_ms"]
+                                     for w, t in p13["kern_times"].items()},
             "wall_ms_per_round": {k: v[0 if what == "step" else 1]
                                   for k, v in p13["walls"].items()},
+            "wall_split_ms": {k.split(":")[1]: v
+                              for k, v in p13["splits"].items()
+                              if k.startswith(what + ":")},
             "recorded_wall_ms_per_call": {
                 k: v[what] for k, v in p13["rec_walls"].items()
                 if what in v},

@@ -3,7 +3,7 @@ card, in turns.
 
 Usage (on a machine with the GPU)::
 
-    python3 -m madsim_tpu_torch.kernel_ab [--fold] OLD_ROOT NEW_ROOT
+    python3 -m madsim_tpu_torch.kernel_ab [--fold | --bridge] OLD_ROOT NEW_ROOT
 
 ``OLD_ROOT`` and ``NEW_ROOT`` are roots of two checkouts of this
 repository (for example the parent commit unpacked with ``git archive``
@@ -31,8 +31,29 @@ pairs, each around one call, the wrapper inside) and on the device alone
 (the best of 3 runs of 20 calls queued behind a sleeping kernel).
 ``--fold`` times the fold kernel only.
 
+``--bridge`` times only the bridge's round and drain kernels
+(``csrc/bridge_step.cu``, through each checkout's ``bridge/cuda.py``) at
+W=512 and 4,096, ``cap=128``, ``k_events=4`` (``chip_smoke.py`` phase 13's
+shape): one batch of the realistic synthetic stream after 8 warm rounds,
+each kernel's device time per launch over 50 launches queued behind a
+sleeping kernel, the best of 3: ``step_W``/``drain_W`` repeat the launch on
+one state (as phase 13 does: the batch's timers fall due again, so most
+rounds pop k events, and the state stays in L2); ``fresh_step_W`` and
+``fresh_drain_W`` launch each on its own copy of the warm state (the
+round the stream sends next; 50 copies pass the L2). With them the
+launch floor (an empty kernel on the round's grid, where the checkout has
+one). Before them, in a fresh process, the wall per call of
+``BridgeKernel.step`` and ``.drain`` (``wall_step_W``, ``wall_drain_W``;
+the drain's outputs read) at W=64, 512 and 4,096 on the realistic stream,
+the median of 24 after two warm rounds (as ``chip_smoke.py`` phase 13
+(c)), and the median split of 24 more rounds, each made of the checkout's
+own ``stage_batch`` and ``launch_step`` as its ``step`` makes it
+(``split_W``: staging, the H2D enqueue, the launch, the D2H enqueue, the
+wait, the output copy).
+
 Prints the card's name and power limit, then one JSON line per timing:
-``{"root": ..., "ms": {deployment: ms/step}, "fold_ms": {name: ms}}``.
+``{"root": ..., "ms": {deployment: ms/step}, "fold_ms": {name: ms}}``
+(``{"root": ..., "bridge_ms": {name: ms}}`` under ``--bridge``).
 """
 from __future__ import annotations
 
@@ -46,6 +67,10 @@ SOURCES = ("step_raft", "step_tpc", "step_pb", "step_paxos", "step_pair",
 # What the fold's timing builds: its kernel and the Paxos policy that makes
 # its signatures.
 FOLD_SOURCES = ("step_paxos", "corpus_fold")
+BRIDGE_SOURCES = ("bridge_step",)
+BRIDGE_WIDTHS = (512, 4096)
+BRIDGE_WALL_WIDTHS = (64, 512, 4096)
+BRIDGE_QUEUED = 50
 CHUNK = 100
 SLEEP_CYCLES = 200_000_000
 FOLD_ROWS = (8192, 32)
@@ -105,6 +130,128 @@ def _fold_here(dev) -> dict:
             e1.synchronize()
             best = min(best, e0.elapsed_time(e1) / FOLD_QUEUED)
         out[f"{w}_rows_device"] = best
+    return out
+
+
+def _bridge_here(dev) -> dict:
+    """Device ms per launch of the bridge's round, drain and launch floor
+    at each of BRIDGE_WIDTHS, and the walls per call of ``BridgeKernel``'s
+    round and drain at each of BRIDGE_WALL_WIDTHS, with the package on
+    sys.path."""
+    import time
+    import types
+
+    import numpy as np
+    import torch
+
+    from madsim_tpu_torch.bridge import cuda as bcuda
+    from madsim_tpu_torch.bridge.kernel import (BridgeKernel, BridgeState,
+                                                StepOut)
+    from madsim_tpu_torch.bridge.synthetic import SyntheticStream, drive
+
+    def best_ms(launch, before=None):
+        """``launch(q)`` for q in range(BRIDGE_QUEUED), queued; ``before``
+        runs ahead of each timing."""
+        launch(0)
+        torch.cuda.synchronize()
+        best = float("inf")
+        for _ in range(3):
+            if before is not None:
+                before()
+                torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SLEEP_CYCLES // 4)
+            e0.record()
+            for q in range(BRIDGE_QUEUED):
+                launch(q)
+            e1.record()
+            if e0.query():
+                raise RuntimeError("the device reached the queued launches "
+                                   "before they were all queued")
+            e1.synchronize()
+            best = min(best, e0.elapsed_time(e1) / BRIDGE_QUEUED)
+        return best
+
+    out = {}
+    stream_c = torch.cuda.current_stream(dev)
+    pieces = ("staging", "h2d_enqueue", "launch", "d2h_enqueue", "wait",
+              "output_copy")
+    for w in BRIDGE_WALL_WIDTHS:
+        kern = BridgeKernel(np.arange(w), cap=128, k_events=4, device=dev)
+        syn = SyntheticStream(np.arange(w), cap=128, mode="realistic",
+                              seed=13)
+        step_s, drain_s, split = [], [], []
+        for _ in range(26):
+            batch = syn.batch()
+            t0 = time.perf_counter()
+            res = kern.step(batch)
+            step_s.append(time.perf_counter() - t0)
+            syn.after_step(res)
+        for _ in range(26):
+            t0 = time.perf_counter()
+            [np.asarray(x) for x in kern.drain()]
+            drain_s.append(time.perf_counter() - t0)
+        for _ in range(26):
+            batch = syn.batch()
+            t = [time.perf_counter()]
+            stage = bcuda.stage_batch(kern, batch)
+            t.append(time.perf_counter())
+            stage.dev_in.copy_(stage.host_in, non_blocking=True)
+            t.append(time.perf_counter())
+            bcuda.launch_step(kern, stage, stream_c)
+            t.append(time.perf_counter())
+            stage.host_out.copy_(stage.dev_out, non_blocking=True)
+            t.append(time.perf_counter())
+            stream_c.synchronize()
+            t.append(time.perf_counter())
+            raw = stage.host_out.numpy().copy()
+            res = StepOut(*bcuda._views(raw, stage.out_fields,
+                                        stage.out_offs))
+            t.append(time.perf_counter())
+            syn.after_step(res)
+            split.append(np.diff(t))
+        out[f"wall_step_{w}"] = float(np.median(step_s[2:])) * 1e3
+        out[f"wall_drain_{w}"] = float(np.median(drain_s[2:])) * 1e3
+        out[f"split_{w}"] = dict(zip(pieces, (np.median(
+            np.stack(split[2:]), axis=0) * 1e3).tolist()))
+    for w in BRIDGE_WIDTHS:
+        kern = BridgeKernel(np.arange(w), cap=128, k_events=4, device=dev)
+        syn = SyntheticStream(np.arange(w), cap=128, mode="realistic",
+                              seed=13)
+        for _ in drive(syn, [kern], 8):
+            pass
+        stage = bcuda.stage_batch(kern, syn.batch())
+        stage.dev_in.copy_(stage.host_in)
+        dev_out = torch.empty(bcuda._layout(bcuda.drain_fields(w, 4))[1],
+                              dtype=torch.uint8, device=dev)
+        warm = BridgeState(*[x.clone() for x in kern.state])
+        copies = [types.SimpleNamespace(
+            state=BridgeState(*[x.clone() for x in warm]), W=w, cap=128,
+            k_events=4, _net_k0=kern._net_k0, _net_k1=kern._net_k1,
+            _mb_block=None) for _ in range(BRIDGE_QUEUED)]
+
+        def reset():
+            for c in copies + [kern]:
+                for a, b in zip(c.state, warm):
+                    a.copy_(b)
+
+        out[f"fresh_step_{w}"] = best_ms(
+            lambda q: bcuda.launch_step(copies[q], stage, stream_c), reset)
+        out[f"fresh_drain_{w}"] = best_ms(
+            lambda q: bcuda.launch_drain(copies[q], dev_out, stream_c),
+            reset)
+        reset()
+        out[f"step_{w}"] = best_ms(
+            lambda q: bcuda.launch_step(kern, stage, stream_c))
+        out[f"drain_{w}"] = best_ms(
+            lambda q: bcuda.launch_drain(kern, dev_out, stream_c))
+        if hasattr(bcuda, "launch_empty"):
+            out[f"floor_{w}"] = best_ms(
+                lambda q: bcuda.launch_empty(w, 128, stream_c))
+            lanes, _, per = bcuda.launch_shape(w, 128)
+            out[f"lanes_per_world_{w}"] = lanes
+            out[f"worlds_per_block_{w}"] = per
     return out
 
 
@@ -176,20 +323,38 @@ def _wait(proc: subprocess.Popen, what: str) -> str:
     return out
 
 
+def _compare(roots, extra) -> None:
+    """Builds both checkouts, then times them old, new, new, old."""
+    builds = [_child("--build", r, *extra) for r in roots]
+    for b, r in zip(builds, roots):
+        _wait(b, f"the build of {r}")
+    old, new = roots
+    for root in (old, new, new, old):
+        out = _wait(_child("--time", root, *extra), f"the timing of {root}")
+        times = json.loads(out.strip().splitlines()[-1])
+        print(json.dumps({"root": root, **times}), flush=True)
+
+
 def main(argv) -> int:
     if argv[:1] in (["--build"], ["--time"]):
         # The checkout under test, not this file's package, is imported.
         sys.path[0] = argv[1]
+        only = argv[2] if argv[2:] else None
         if argv[0] == "--build":
             from madsim_tpu_torch import _build
 
-            _build.build_all(FOLD_SOURCES if argv[2:] == ["--fold"]
-                             else SOURCES)
+            _build.build_all({"--fold": FOLD_SOURCES,
+                              "--bridge": BRIDGE_SOURCES}.get(only, SOURCES))
+        elif only == "--bridge":
+            import torch
+
+            print(json.dumps({"bridge_ms": _bridge_here(
+                torch.device("cuda"))}))
         else:
-            print(json.dumps(_time_here(argv[2:] == ["--fold"])))
+            print(json.dumps(_time_here(only == "--fold")))
         return 0
-    fold_only = argv[:1] == ["--fold"]
-    argv = argv[1:] if fold_only else argv
+    mode = argv[0] if argv[:1] in (["--fold"], ["--bridge"]) else None
+    argv = argv[1:] if mode else argv
     if len(argv) != 2:
         print(__doc__, file=sys.stderr)
         return 2
@@ -198,20 +363,10 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 1
-    roots = [os.path.abspath(r) for r in argv]
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    builds = [_child("--build", r, *(["--fold"] if fold_only else []))
-              for r in roots]
-    for b, r in zip(builds, roots):
-        _wait(b, f"the build of {r}")
-    old, new = roots
-    for root in (old, new, new, old):
-        out = _wait(_child("--time", root, *(["--fold"] if fold_only else [])),
-                    f"the timing of {root}")
-        times = json.loads(out.strip().splitlines()[-1])
-        print(json.dumps({"root": root, **times}), flush=True)
+    _compare([os.path.abspath(r) for r in argv], [mode] if mode else [])
     return 0
 
 
