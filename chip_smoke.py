@@ -24,8 +24,11 @@ family repro bundles); then the fleet (``SweepSession.run_group``,
 ``fleet.fleet_sweep`` inline under chaos, with the corpus exchange, and
 with spawned worker processes); then the bridge's decision kernel
 (``madsim_tpu_torch.bridge.BridgeKernel``: ``step``, ``drain``,
-``reset_slot(s)``, ``metrics``). Phases, in order; any failure exits
-non-zero:
+``reset_slot(s)``, ``metrics``); then the world-axis split
+(``sweep(mesh=seed_mesh(...))``, ``multihost_mesh``, ``minimize(mesh=)``,
+``SweepSession(mesh=)``, ``fleet_sweep(mesh=)``) and the program checks
+(``python -m madsim_tpu_torch.analysis trace``). Phases, in order; any
+failure exits non-zero:
 
 1. card: name and power limit; uint32 <-> int64 round trip on CUDA tensors;
 2. build: one nvcc per source (``step_raft.cu``, ``step_tpc.cu``,
@@ -220,13 +223,33 @@ non-zero:
    (staging, the copies' enqueues, the launch, the wait, the output), and
    the wall per call on the three recorded sweeps (W=512), each with the
    card's name and power limit; and phase 13's own time.
+14. the world-axis split on the card, each leg timed: (a) phase 7's sweep
+   (b) (65,536 seeds through 8,192 slots, metrics on) on ``seed_mesh()``
+   equal to ``mesh=None`` on every SweepResult field in the serial,
+   pipelined and fused loops; (b) the same sweep split 4 ways over the one
+   card (``seed_mesh(devices=[cuda:0] * 4)``) and on
+   ``multihost_mesh(devices=[cuda:0] * 4, n_hosts=2)``: bug, observations
+   and coverage equal to (a), the two meshes equal on every field,
+   ``n_devices`` 4, every launch a block of 2,048 worlds (the serial
+   loop's launches 4 a step), ``_fetch`` calls per chunk no more than one
+   device's; (c) 64 seeds through 32 slots (the hunt at 0.4 s with a
+   kill and a restart) on 4 blocks of the card equal to 4 blocks of the
+   CPU on every field, in each loop; (d) phase 8's guided Paxos hunt (512
+   seeds) on 4 blocks holding the JAX pins, one fold launch a refill, and
+   at 64 seeds (8 chunks) equal to the CPU's 4 blocks on every field and
+   the search report; (e) ``minimize`` of ``golden.MINIMIZE_BUG`` on 4
+   blocks (the JAX pin), ``SweepSession.run_group`` twice on 4 blocks
+   and a clean ``fleet_sweep`` on (2, 2), each equal to one device; (f)
+   ``python -m madsim_tpu_torch.analysis trace`` exits 0 (started with
+   the phase, in a process of its own), its line per program logged; and
+   phase 14's own time.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it lists each kernel route (the step kernel with Raft's, tpc's,
 pb's, Paxos's and the pair families' policy, in each lane profile, the
 corpus fold kernel, and the bridge's round and drain) with its launches
-(phases 10's, 11's and 12's among them, the spawned fleet workers' as they
-reported them) and times.
+(phases 10's, 11's, 12's and 14's among them, the spawned fleet workers'
+as they reported them) and times.
 
 Usage: python3 chip_smoke.py   (from the root of the repository)
 """
@@ -1360,6 +1383,344 @@ def phase_13(dev, widths=(512, 4096), wall_widths=(64, 512, 4096),
     return dict(launches=launches, copies=copies, times=kern_times[top],
                 w=top, walls={f"{a}:{b}": v for (a, b), v in walls.items()},
                 rec_walls=rec_walls, kern_times=kern_times, splits=splits)
+
+
+def phase_14(dev, w=65_536, batch_w=8_192, w_cmp=64, range_w=4_096,
+             trace_args=(), hunt_over=None):
+    """Phase 14: the world-axis split on ``dev`` (see the module
+    docstring). ``w`` seeds through ``batch_w`` slots are sweep (b) of
+    phase 7; ``w_cmp`` seeds are the legs held to the CPU's split;
+    ``range_w`` the session's and the fleet's ranges; ``trace_args`` go to
+    ``python -m madsim_tpu_torch.analysis trace``; ``hunt_over`` (a dict of
+    EngineConfig fields) changes the Raft hunt's config, for a rehearsal on
+    the CPU. Returns the step kernel's launches by route and the fold
+    kernel's, each counted from 0 and read after the phase's last leg, and
+    each leg's wall in s."""
+    import threading
+
+    t14 = time.perf_counter()
+    # (f) runs beside the other legs: the program checks in a process of
+    # their own, whose output a thread reads, stamping the wall from the
+    # process's start to its exit.
+    trace = subprocess.Popen(
+        [sys.executable, "-m", "madsim_tpu_torch.analysis", "trace",
+         *trace_args], cwd=HERE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    reaped = {}
+
+    def reap():
+        reaped["out"], reaped["err"] = trace.communicate()
+        reaped["wall"] = time.perf_counter() - t14
+
+    reaper = threading.Thread(target=reap, daemon=True)
+    reaper.start()
+    try:
+        return _phase_14_legs(dev, trace, reaper, reaped, t14, w, batch_w,
+                              w_cmp, range_w, hunt_over)
+    finally:
+        if trace.poll() is None:
+            trace.kill()
+            trace.wait()
+
+
+def _phase_14_legs(dev, trace, reaper, reaped, t14, w, batch_w, w_cmp,
+                   range_w, hunt_over):
+    """Phase 14's legs (a) to (e), then (f)'s result from ``trace``, whose
+    output, and wall from start to exit, the thread ``reaper`` puts in
+    ``reaped``."""
+    import numpy as np
+    import torch
+
+    from madsim_tpu_torch.engine import (DeviceEngine, EngineConfig,
+                                         FAULT_KILL, FAULT_RESTART,
+                                         RaftActor, RaftDeviceConfig, golden,
+                                         step_kernel)
+    from madsim_tpu_torch.fleet import fleet_sweep
+    from madsim_tpu_torch.fleet.merge import contract_mismatches
+    from madsim_tpu_torch.parallel import (SweepSession, multihost_mesh,
+                                           seed_mesh)
+    from madsim_tpu_torch.search import fold_kernel, hunts
+    from madsim_tpu_torch.triage import minimize
+    from madsim_tpu_torch.triage.synthetic import (PairRestartActor,
+                                                   PairRestartConfig,
+                                                   engine_config,
+                                                   pair_schedule)
+    sweep_mod = importlib.import_module("madsim_tpu_torch.parallel.sweep")
+
+    cuda = dev.type == "cuda"
+    cpu = torch.device("cpu")
+    launches = dict.fromkeys(("raft", "paxos", "pair"), 0)
+    folds = 0
+    walls = {}
+    step_kernel.launches = fold_kernel.launches = 0
+    loops = {"serial": dict(pipeline=False), "pipelined": dict(pipeline=True),
+             "fused": dict(fused=True)}
+
+    def take(route):
+        nonlocal folds
+        launches[route] += step_kernel.launches
+        folds += fold_kernel.launches
+        step_kernel.launches = fold_kernel.launches = 0
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def run(fn):
+        """``fn()`` and its ``_fetch`` calls, the device synced after."""
+        n = [0]
+        real = sweep_mod._fetch
+
+        def fetch(tree):
+            n[0] += 1
+            return real(tree)
+
+        sweep_mod._fetch = fetch
+        try:
+            out = fn()
+            sync()
+        finally:
+            sweep_mod._fetch = real
+        return out, n[0]
+
+    def leg(name, t0):
+        walls[name] = time.perf_counter() - t0
+        log(f"[14 mesh] leg {name}: {walls[name]:.2f} s")
+
+    def contract(a, b, tag):
+        """What JAX's tests hold equal across meshes: the bug flags, every
+        observation and the coverage ledger."""
+        bad = contract_mismatches(a, b)
+        check(not bad, f"{tag}: differs on {', '.join(bad[:6])}")
+
+    def every_field(a, b, tag):
+        """Every SweepResult field, the loop's counts among them."""
+        contract(a, b, tag)
+        for f in ("steps_run", "n_devices", "world_utilization",
+                  "faults_sha256"):
+            check(getattr(a, f) == getattr(b, f), f"{tag}: {f} "
+                  f"{getattr(a, f)} against {getattr(b, f)}")
+        for f in ("seeds", "n_active_history", "n_active_chunks"):
+            check(np.array_equal(getattr(a, f), getattr(b, f)),
+                  f"{tag}: {f} differs")
+        if a.coverage is not None:
+            check(np.array_equal(a.coverage.novelty_curve,
+                                 b.coverage.novelty_curve),
+                  f"{tag}: the novelty curve differs")
+        if a.search is not None:
+            check(golden.hunt_pins(a) == golden.hunt_pins(b),
+                  f"{tag}: the search report differs")
+        for k in ("chunks", "dispatches", "scalar_fetches",
+                  "retire_fetches", "epochs_on_device", "superstep_max"):
+            check(a.loop_stats[k] == b.loop_stats[k], f"{tag}: "
+                  f"loop_stats {k} {a.loop_stats[k]} against "
+                  f"{b.loop_stats[k]}")
+
+    hunt_rk, hunt_ck = golden.CONFIGS["hunt_faults"][:2]
+
+    def hunt_engine(d, **over):
+        ck = dict(hunt_ck, **(hunt_over or {}))
+        return DeviceEngine(RaftActor(RaftDeviceConfig(**hunt_rk)),
+                            EngineConfig(**dict(ck, **over)), device=d)
+
+    eng = hunt_engine(dev, stop_on_bug=True, metrics=True)
+    seeds = np.arange(w)
+    kw = dict(chunk_steps=64, max_steps=1_000_000, recycle=True,
+              batch_worlds=batch_w)
+    one = seed_mesh() if cuda else seed_mesh([dev])
+    four = seed_mesh([dev] * 4)
+    two_by_two = multihost_mesh([dev] * 4, n_hosts=2)
+    check(one.devices.shape == (1,) and four.devices.shape == (4,)
+          and two_by_two.devices.shape == (2, 2), "the meshes' shapes")
+
+    # (a) one device, full width: seed_mesh() against mesh=None.
+    t0 = time.perf_counter()
+    ref = {}
+    for loop, lkw in loops.items():
+        base, f_base = run(lambda: sweep_mod.sweep(
+            None, eng.cfg, seeds, engine=eng, **kw, **lkw))
+        on_one, _ = run(lambda: sweep_mod.sweep(
+            None, eng.cfg, seeds, engine=eng, mesh=one, **kw, **lkw))
+        every_field(base, on_one, f"[14 mesh a] {loop}")
+        check(not base.observations["active"].any(),
+              f"[14 mesh a] {loop}: seeds left active")
+        ref[loop] = (base, f_base)
+    take("raft")
+    leg("a", t0)
+    log(f"[14 mesh a] {w} seeds through {batch_w} slots, metrics on, on "
+        f"seed_mesh() ({one}): every SweepResult field equals mesh=None in "
+        f"the serial, pipelined and fused loops; "
+        f"{len(ref['serial'][0].failing_seeds)} failing")
+
+    # (b) a 4-way split of the card, flat and 2-D, full width.
+    t0 = time.perf_counter()
+    for loop, lkw in loops.items():
+        widths = []
+        real_launch = step_kernel.launch
+
+        def launch(e, leaves, k=1, gate=None):
+            widths.append(int(leaves[0].shape[0]))
+            return real_launch(e, leaves, k, gate)
+
+        step_kernel.launch = launch
+        n0 = step_kernel.launches
+        try:
+            r4, f4 = run(lambda: sweep_mod.sweep(
+                None, eng.cfg, seeds, engine=eng, mesh=four, **kw, **lkw))
+        finally:
+            step_kernel.launch = real_launch
+        n4 = step_kernel.launches - n0
+        r22, f22 = run(lambda: sweep_mod.sweep(
+            None, eng.cfg, seeds, engine=eng, mesh=two_by_two, **kw, **lkw))
+        base, f_base = ref[loop]
+        contract(base, r4, f"[14 mesh b] {loop}, 4 blocks")
+        every_field(r4, r22, f"[14 mesh b] {loop}, (2, 2) against 4")
+        check(r4.n_devices == r22.n_devices == 4,
+              f"[14 mesh b] {loop}: n_devices {r4.n_devices}")
+        check(f4 / r4.loop_stats["chunks"]
+              <= f_base / base.loop_stats["chunks"],
+              f"[14 mesh b] {loop}: {f4} _fetch calls over "
+              f"{r4.loop_stats['chunks']} chunks on 4 blocks against "
+              f"{f_base} over {base.loop_stats['chunks']} on one device")
+        if cuda:
+            check(max(widths) <= batch_w // 4, f"[14 mesh b] {loop}: a "
+                  f"launch of {max(widths)} worlds, more than a block")
+            if loop == "serial":
+                check(n4 == 4 * r4.loop_stats["chunks"] * 64,
+                      f"[14 mesh b] serial: {n4} launches for "
+                      f"{r4.loop_stats['chunks']} chunks of 64 steps")
+        log(f"[14 mesh b] {loop}: 4 blocks of the card and (2, 2): bug, "
+            f"observations and coverage equal the one-device run, the two "
+            f"meshes equal on every field; n_devices 4, {n4} step launches "
+            f"(blocks of {min(widths) if widths else 0}-"
+            f"{max(widths) if widths else 0} worlds), _fetch calls "
+            f"{f4} over {r4.loop_stats['chunks']} chunks against {f_base} "
+            f"over {base.loop_stats['chunks']} on one device, device flags "
+            f"read {r4.loop_stats['flag_reads']}")
+    take("raft")
+    leg("b", t0)
+
+    # (c) the card's 4-way split against the CPU's, every field, each loop.
+    t0 = time.perf_counter()
+    small = dict(stop_on_bug=True, metrics=True, t_limit_us=400_000)
+    faults = np.array([[150_000, FAULT_KILL, 0, 0],
+                       [300_000, FAULT_RESTART, 0, 0]], np.int32)
+    ckw = dict(chunk_steps=16, max_steps=4_000, recycle=True,
+               batch_worlds=w_cmp // 2, faults=faults)
+    eng_d, eng_c = hunt_engine(dev, **small), hunt_engine(cpu, **small)
+    for loop, lkw in loops.items():
+        rd, _ = run(lambda: sweep_mod.sweep(
+            None, eng_d.cfg, np.arange(w_cmp), engine=eng_d, mesh=four,
+            **ckw, **lkw))
+        rc, _ = run(lambda: sweep_mod.sweep(
+            None, eng_c.cfg, np.arange(w_cmp), engine=eng_c,
+            mesh=seed_mesh([cpu] * 4), **ckw, **lkw))
+        every_field(rc, rd, f"[14 mesh c] {loop}")
+        check(rd.failing_seeds and rd.loop_stats["retire_fetches"] > 0,
+              f"[14 mesh c] {loop}: no bug or no refill")
+    take("raft")
+    leg("c", t0)
+    log(f"[14 mesh c] {w_cmp} seeds through {w_cmp // 2} slots on 4 blocks "
+        f"of the card equal 4 blocks of the CPU on every field in each "
+        f"loop")
+
+    # (d) the guided Paxos hunt of phase 8 on the 4-way split.
+    t0 = time.perf_counter()
+    hunt = hunts.paxos_hunt()
+    eng_p = DeviceEngine(hunt.actor, hunt.cfg, device=dev)
+    hkw = dict(hunt.sweep_kw, faults=hunt.template,
+               stop_on_first_bug=golden.HUNT_STOP_FIRST["paxos"],
+               search=hunt.search(True))
+    f0 = fold_kernel.launches
+    res_p, _ = run(lambda: sweep_mod.sweep(
+        None, eng_p.cfg, np.arange(golden.HUNT_BUDGET), engine=eng_p,
+        mesh=four, **hkw))
+    n_folds = fold_kernel.launches - f0
+    pins = golden.hunt_pins(res_p)
+    check(pins == golden.HUNT_PINS["paxos"]["guided"],
+          f"[14 mesh d] the guided Paxos hunt on 4 blocks: {pins} differ "
+          f"from the JAX pins")
+    check(not cuda or n_folds == res_p.search.generations,
+          f"[14 mesh d] {n_folds} fold launches over "
+          f"{res_p.search.generations} refills")
+    eng_pc = DeviceEngine(hunt.actor, hunt.cfg, device=cpu)
+    # The CPU steps a compiled family slowly: the budget is 8 chunks.
+    small_p = dict(hkw, batch_worlds=w_cmp // 2, max_steps=256)
+    rd, _ = run(lambda: sweep_mod.sweep(
+        None, eng_p.cfg, np.arange(w_cmp), engine=eng_p, mesh=four,
+        **small_p))
+    rc, _ = run(lambda: sweep_mod.sweep(
+        None, eng_pc.cfg, np.arange(w_cmp), engine=eng_pc,
+        mesh=seed_mesh([cpu] * 4), **small_p))
+    every_field(rc, rd, "[14 mesh d] the guided Paxos hunt on 4 blocks")
+    check(rd.search.generations > 0, "[14 mesh d] no refill at w_cmp")
+    take("paxos")
+    leg("d", t0)
+    log(f"[14 mesh d] the guided Paxos hunt ({golden.HUNT_BUDGET} seeds) "
+        f"on 4 blocks holds the JAX pins ({pins['seeds_to_bug']} seeds to "
+        f"the first bug, {pins['generations']} generations), "
+        f"{n_folds} fold launches, one a refill; at {w_cmp} seeds "
+        f"({rd.search.generations} refills) it equals the CPU's 4 blocks "
+        f"on every field and the search report")
+
+    # (e) triage, the session and the fleet on the split.
+    t0 = time.perf_counter()
+    acfg = PairRestartConfig()
+    eng_t = DeviceEngine(PairRestartActor(acfg), engine_config(acfg),
+                         device=dev)
+    mb = golden.MINIMIZE_BUG
+    rows = pair_schedule(n_rows=mb["n_rows"], need=mb["need"], acfg=acfg)
+    mr = minimize(None, eng_t.cfg, mb["seed"], rows, engine=eng_t,
+                  mesh=four, chunk_steps=mb["chunk_steps"],
+                  max_steps=mb["max_steps"])
+    check(golden.minimize_digest(mr) == golden.GOLDEN_MINIMIZE,
+          "[14 mesh e] minimize on 4 blocks: not the JAX pin")
+    take("pair")
+    skw = dict(chunk_steps=64, max_steps=4_000)
+    eng_s = hunt_engine(dev, metrics=True)
+    sess = SweepSession(engine=eng_s, mesh=four, **skw)
+    parts = [{"seeds": np.arange(r * range_w, (r + 1) * range_w - r),
+              "faults": None} for r in range(2)]
+    for gi in range(2):
+        res_g = sess.run_group(parts)
+        for part, r in zip(parts, res_g):
+            solo = sweep_mod.sweep(None, eng_s.cfg, part["seeds"],
+                                   engine=eng_s, **skw)
+            contract(solo, r, f"[14 mesh e] session group {gi}")
+            check(r.n_devices == 4, "[14 mesh e] session n_devices")
+    fl = fleet_sweep(None, eng_s.cfg, np.arange(4 * range_w), engine=eng_s,
+                     mesh=two_by_two, n_workers=2, range_size=range_w,
+                     **skw)
+    single = sweep_mod.sweep(None, eng_s.cfg, np.arange(4 * range_w),
+                             engine=eng_s, **skw)
+    contract(single, fl, "[14 mesh e] the fleet on (2, 2)")
+    check(fl.n_devices == 4, "[14 mesh e] the fleet's n_devices")
+    take("raft")
+    leg("e", t0)
+    log(f"[14 mesh e] minimize (golden.MINIMIZE_BUG) on 4 blocks: the JAX "
+        f"pin, {mr.rounds} rounds; SweepSession.run_group of ranges of "
+        f"{range_w} and {range_w - 1} seeds twice on 4 blocks, each equal "
+        f"to the one-device solo sweep; a clean fleet_sweep of "
+        f"{4 * range_w} seeds on (2, 2), 2 workers, equal to the one-device "
+        f"sweep")
+
+    # (f) the program checks, started with the phase.
+    t0 = time.perf_counter()
+    reaper.join(timeout=600)
+    check(not reaper.is_alive(), "[14 trace] analysis trace did not exit "
+          "within 600 s of the end of (e)")
+    out, err = reaped["out"], reaped["err"]
+    for line in out.splitlines():
+        log(f"[14 trace] {line}")
+    check(trace.returncode == 0, f"[14 trace] analysis trace exited "
+          f"{trace.returncode}: {err[-2000:]}")
+    walls["trace"] = reaped["wall"]
+    log(f"[14 trace] the analysis trace process: {walls['trace']:.2f} s "
+        f"from its start to its exit")
+    leg("f (the wait after (e))", t0)
+    walls["phase"] = time.perf_counter() - t14
+    log(f"[14 mesh] phase 14: {walls['phase']:.1f} s")
+    return launches, folds, walls
 
 
 def main() -> int:
@@ -3994,6 +4355,9 @@ def main() -> int:
 
     # ---- 13. the bridge decision kernel on the card ------------------------
     p13 = phase_13(dev, card=card)
+
+    # ---- 14. the world-axis split on the card ------------------------------
+    p14_launches, p14_folds, _p14_walls = phase_14(dev)
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(card)
@@ -4004,7 +4368,8 @@ def main() -> int:
         "replaces": "madsim_tpu/engine/pallas_step.py:132",
         "launches": (main_launches + sweep_launches + hunt_launches["raft"]
                      + p10_launches["raft"] + p11_launches["raft"]
-                     + p12_launches["raft"] + p12_workers),
+                     + p12_launches["raft"] + p12_workers
+                     + p14_launches["raft"]),
         "max_abs_err": fam_err["raft"],
         "ms": hl["kernel_ms"],
         "plain_ms": hl["plain_ms"],
@@ -4022,7 +4387,8 @@ def main() -> int:
             "replaces": "madsim_tpu/engine/pallas_step.py:132",
             "launches": (fam_launches[fam] + hunt_launches.get(fam, 0)
                          + p10_launches.get(fam, 0) + p11_launches[fam]
-                         + p12_launches.get(fam, 0)),
+                         + p12_launches.get(fam, 0)
+                         + p14_launches.get(fam, 0)),
             "max_abs_err": fam_err[fam],
             "ms": r["kernel_ms"],
             "plain_ms": r["plain_ms"],
@@ -4059,7 +4425,8 @@ def main() -> int:
         "route": "cuda",
         "source": "madsim_tpu_torch/csrc/corpus_fold.cu",
         "replaces": "madsim_tpu/search/corpus.py:131",
-        "launches": fold_launches + p10_folds + p11_folds + p12_folds,
+        "launches": (fold_launches + p10_folds + p11_folds + p12_folds
+                     + p14_folds),
         "max_abs_err": 0.0,
         "ms": fr["ms"],
         "plain_ms": fr["plain_ms"],

@@ -42,7 +42,7 @@ from torch.func import vmap
 
 from ..engine.actor_util import make_outbox
 from ..engine.core import EngineConfig, Outbox
-from ..engine.lanes import narrow, popcount32, widen
+from ..engine.lanes import narrow, on_device, popcount32, widen
 from ..engine.queue import Event, FLAG_TIMER
 from ..engine.rng import DevRng, _u32_to_range, next_u32, uniform_u32
 from ..ops.threefry import i64_to_u32, threefry2x32_i64, u32_to_i64
@@ -72,8 +72,8 @@ def _t(x, dev) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x
     if isinstance(x, bool):
-        return torch.tensor(x, device=dev)
-    return torch.tensor(x, dtype=torch.int32, device=dev)
+        return on_device(x, dev)
+    return on_device(x, dev, torch.int32)
 
 
 def _sel(x: torch.Tensor, i) -> torch.Tensor:
@@ -421,8 +421,7 @@ class _InitCtx:
         self._events: List[Event] = []
 
     def _i32(self, x) -> torch.Tensor:
-        return torch.as_tensor(x, device=self._dev).to(
-            torch.int32).expand(self._w)
+        return on_device(x, self._dev).to(torch.int32).expand(self._w)
 
     def event(self, msg: str, time, dst=0, src=None, words=()) -> None:
         """Schedule one seed event (a timer when ``msg`` is declared one —

@@ -1,4 +1,4 @@
-"""``python -m madsim_tpu_torch.analysis``: the speclint CLI (analysis/cli.py)."""
+"""``python -m madsim_tpu_torch.analysis``: the analysis CLI (analysis/cli.py)."""
 import sys
 
 from .cli import main

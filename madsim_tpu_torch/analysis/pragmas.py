@@ -1,13 +1,14 @@
 """Finding records and inline suppression pragmas for speclint.
 
 The port's copy of the part of ``madsim_tpu/analysis/pragmas.py`` that
-pass 4 uses: :class:`Finding`, :func:`extract_pragmas` and
-:func:`apply_pragmas`. A ``# detlint: allow[SPC030]`` comment on (or
-immediately above) the offending line suppresses that finding; a pragma
-that suppresses nothing is itself an error (DET900), so allow-comments
-cannot rot in place after the code they excused changes. The JAX
-module's allowlist file (``detlint-allow.txt``) serves passes 1–3, which
-the port does not have.
+passes 3 and 4 use: :class:`Finding`, :func:`extract_pragmas`,
+:func:`apply_pragmas` and :class:`Allowlist`. A ``# detlint:
+allow[SPC030]`` comment on (or immediately above) the offending line
+suppresses that finding; a pragma that suppresses nothing is itself an
+error (DET900), so allow-comments cannot rot in place after the code they
+excused changes. An allowlist file (``path-prefix[:RULE]`` lines),
+given to ``analysis trace --allowlist``, applies to tracelint's
+``trace/<program>`` pseudo-paths.
 """
 from __future__ import annotations
 
@@ -101,3 +102,35 @@ def apply_pragmas(findings: List[Finding],
                     f"finding — delete the stale pragma"))
     kept.sort(key=lambda f: (f.line, f.rule))
     return kept
+
+
+class Allowlist:
+    """``path-prefix[:RULE]`` entries; '#' starts a comment (the JAX
+    package's class, less the stale-entry report of passes 1-2)."""
+
+    def __init__(self, entries: List[Tuple[str, Optional[str]]]):
+        self._entries = list(entries)
+
+    @classmethod
+    def parse(cls, text: str) -> "Allowlist":
+        entries: List[Tuple[str, Optional[str]]] = []
+        for raw in text.splitlines():
+            line = raw.split("#", 1)[0].strip()
+            if not line:
+                continue
+            prefix, _, rule = line.partition(":")
+            entries.append((prefix.strip(), rule.strip().upper() or None))
+        return cls(entries)
+
+    @classmethod
+    def load(cls, path: str) -> "Allowlist":
+        with open(path, encoding="utf-8") as f:
+            return cls.parse(f.read())
+
+    def allows(self, finding: Finding) -> bool:
+        return any(finding.path.startswith(prefix)
+                   and (rule is None or rule == finding.rule)
+                   for prefix, rule in self._entries)
+
+    def filter(self, findings: List[Finding]) -> List[Finding]:
+        return [f for f in findings if not self.allows(f)]

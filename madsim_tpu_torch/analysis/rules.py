@@ -9,9 +9,16 @@ transitions leaning on DSL features the lowering flattens, volatile
 state read with no restart reconstruction), plus the two hygiene codes:
 DET900 (a stale ``# detlint: allow[...]`` pragma) and SPC900 (a stale
 ``lint_allow`` entry). The rows' text is the JAX package's, so a
-finding renders byte for byte the same in both packages. The other
-passes' rules (DET0xx, TRC, BUD, PAR) belong to passes 1–3, which the
-port does not have (ROADMAP).
+finding renders byte for byte the same in both packages.
+
+Pass 3 (tracelint, :mod:`.tracelint`) keeps the rules that mean something
+without XLA, with rows of the port's own: TRC001 (a program's device part
+reads back to the host outside its declared reads), TRC002 (an op with no
+deterministic implementation), TRC004 (a program that declares it writes
+its state in place allocates a new one) and the ledger's BUD001/BUD002.
+:data:`NOT_CARRIED` names the JAX rules that do not carry over. Passes 1
+and 2 (DET0xx, PAR) check the JAX package's host runtime, which is
+outside the port.
 """
 from __future__ import annotations
 
@@ -69,4 +76,36 @@ RULES: Dict[str, Rule] = {r.code: r for r in [
     Rule("SPC900", "stale lint_allow entry: its code suppressed nothing",
          "delete the code from the spec's lint_allow tuple (or the defect "
          "it excused came back)"),
+    Rule("TRC001", "host re-entry: a device-to-host read inside a program",
+         "a read that is not one of the program's declared reads (the "
+         "sweep's _fetch/_to_host pulls, the device loops' flag reads) "
+         "stalls the queue the loops keep ahead of the host: keep the value "
+         "on the device, or route a deliberate pull through _fetch"),
+    Rule("TRC002", "op without a deterministic implementation",
+         "the program raised under torch.use_deterministic_algorithms(True)"
+         ": use an exact formulation (integer scatters, stable sorts)"),
+    Rule("TRC004", "a program that declares in-place state allocated new "
+         "state",
+         "a state leaf's storage changed across the call: write the state "
+         "in place (copy_ into the leaves), as the step kernel does"),
+    Rule("BUD001", "program exceeds its checked-in budget",
+         "if intentional, re-measure and regenerate "
+         "madsim_tpu_torch/analysis/budgets.json via "
+         "tools/update_torch_budgets.py --reason '...' in the same PR"),
+    Rule("BUD002", "budget ledger out of sync with the program registry",
+         "run tools/update_torch_budgets.py to add/remove the program "
+         "entry (or fix the program that failed to build)"),
 ]}
+
+#: The JAX package's pass-3 rules and metrics that do not carry over to
+#: PyTorch and CUDA, and why (``analysis trace --list-rules``).
+NOT_CARRIED = {
+    "TRC003": "numerics under jax_enable_x64: torch has no x64 flag; every "
+              "dtype of the port is explicit",
+    "TRC005": "narrow-lane widenings in a jaxpr: the port's programs are "
+              "not traced; the packed lanes are the step kernel's and "
+              "state_bytes_per_world budgets their width",
+    "flops, bytes_accessed, temp_bytes, peak_over_arg": "XLA's "
+              "cost_analysis and memory_analysis: there is no compiled "
+              "XLA program to ask",
+}

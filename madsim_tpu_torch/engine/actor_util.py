@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from .core import EngineConfig, Outbox
+from .lanes import on_device
 
 
 def pad_payload(cfg: EngineConfig, words) -> torch.Tensor:
@@ -38,11 +39,10 @@ def make_outbox(cfg: EngineConfig, n: int, msg_valid, msg_kind, msg_payload,
         return torch.cat([xs, x[:, None]], dim=1)
 
     def i32(x):
-        return torch.as_tensor(x, dtype=torch.int32, device=dev).expand(w)
+        return on_device(x, dev, torch.int32).expand(w)
 
     return Outbox(
-        valid=app(msg_valid, torch.as_tensor(timer_valid, device=dev)
-                  .expand(w)),
+        valid=app(msg_valid, on_device(timer_valid, dev).expand(w)),
         is_timer=app(torch.zeros((w, n), dtype=torch.bool, device=dev),
                      torch.ones((w,), dtype=torch.bool, device=dev)),
         kind=app(msg_kind.to(torch.int32), i32(timer_kind)),

@@ -60,14 +60,21 @@ def save(engine, state, path: Union[str, Path],
          extra_meta: Optional[Dict[str, str]] = None,
          extra_arrays: Optional[Dict[str, np.ndarray]] = None) -> None:
     """Write a state (any world count; its leaves tensors on any device or
-    host arrays) to ``path``, atomically: the bytes land in a temporary
-    file that is flushed and fsync'd before ``os.replace`` publishes it,
-    so a crash at any point leaves the previous checkpoint whole.
+    host arrays; a batch split over a mesh, ``parallel/mesh.py``
+    ``Sharded``, is written gathered) to ``path``, atomically: the bytes
+    land in a temporary file that is flushed and fsync'd before
+    ``os.replace`` publishes it, so a crash at any point leaves the
+    previous checkpoint whole. A split sweep resumes on a mesh of the
+    same size (the sweep's padded seeds are in its metadata).
 
     ``extra_arrays``: named host arrays saved beside the leaves
     (``aux_<name>``), read back by ``load(..., with_aux=True)``.
     ``extra_meta``: string pairs a later :func:`load` can require.
     """
+    from ..parallel.mesh import Sharded
+
+    if isinstance(state, Sharded):
+        state = state.gather()
     leaves = [to_numpy(x) for x in tree_leaves(state)]
     arrays = {f"leaf_{i:05d}": a for i, a in enumerate(leaves)}
     aux = {f"{_AUX_PREFIX}{k}": np.asarray(v)

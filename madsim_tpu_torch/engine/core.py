@@ -382,6 +382,49 @@ class Lookahead:
         return any(v for _i, v in self.read(every))
 
 
+def world_blocks(state) -> tuple:
+    """The world blocks of ``state``: a split state's blocks
+    (``parallel/mesh.py`` ``Sharded``), else the state itself."""
+    shards = getattr(state, "shards", None)
+    return tuple(shards) if shards is not None else (state,)
+
+
+def split_like(x: torch.Tensor, blocks) -> list:
+    """A whole-axis tensor cut into ``blocks``' widths, each piece on its
+    block's device (a view where that is ``x``'s)."""
+    out, at = [], 0
+    for b in blocks:
+        w = b.active.shape[0]
+        out.append(x[at:at + w].to(b.active.device))
+        at += w
+    return out
+
+
+def block_totals(blocks):
+    """``(any_bug, n_active)`` over every block, on the first block's
+    device."""
+    dev = blocks[0].active.device
+    any_bug = blocks[0].bug.any()
+    n_act = blocks[0].active.sum(dtype=torch.int32)
+    for b in blocks[1:]:
+        any_bug = any_bug | b.bug.any().to(dev)
+        n_act = n_act + b.active.sum(dtype=torch.int32).to(dev)
+    return any_bug, n_act
+
+
+def run_blocks(eng, blocks, k: int,
+               gate: Optional[torch.Tensor] = None) -> None:
+    """``k`` steps of every block, each by its own launches on its own
+    device, gated (where ``gate``, an int32 scalar, is given) by a copy of
+    it there."""
+    at = {} if gate is None else {gate.device: gate}
+    for b in blocks:
+        d = b.active.device
+        if gate is not None and d not in at:
+            at[d] = gate.to(d)
+        eng.run_steps(b, k, gate=at.get(d))
+
+
 class DeviceEngine:
     """Batched simulation of W worlds of one actor under one config.
 
@@ -429,8 +472,10 @@ class DeviceEngine:
     # Initialization
     # ------------------------------------------------------------------
     def init(self, seeds, faults: Optional[np.ndarray] = None,
-             configs: Optional[np.ndarray] = None) -> WorldState:
-        """Build W worlds from a vector of u64 seeds.
+             configs: Optional[np.ndarray] = None, *,
+             device=None) -> WorldState:
+        """Build W worlds from a vector of u64 seeds, on ``device`` (default
+        the engine's).
 
         ``faults``: optional int32 rows ``[time_us, op, a, b]``, shape
         (F, 4) (every world) or (W, F, 4); rows with time < 0 are
@@ -474,12 +519,15 @@ class DeviceEngine:
                                  f"in the payload: payload_words must be "
                                  f">= {need_words} (packed={self.cfg.packed})")
 
-        return self._init_host(seeds, faults, configs)
+        return self._init_host(seeds, faults, configs, device)
 
-    def _init_host(self, seeds: np.ndarray, faults, configs) -> WorldState:
+    def _init_host(self, seeds: np.ndarray, faults, configs,
+                   device=None) -> WorldState:
         """:meth:`init` after the fault rows' validation: ``faults`` is a
         (W, F, 4) host array, or a device tensor the caller vouches for
-        (:meth:`refill`)."""
+        (:meth:`refill`). The worlds are built on ``device`` (default the
+        engine's)."""
+        device = self.device if device is None else device
         w = seeds.shape[0]
         lo = (seeds & np.uint64(0xFFFFFFFF)).astype(np.uint32)
         hi = (seeds >> np.uint64(32)).astype(np.uint32)
@@ -499,8 +547,8 @@ class DeviceEngine:
 
         def dev(x):
             if isinstance(x, torch.Tensor):
-                return x.to(device=self.device, dtype=torch.int32)
-            return torch.from_numpy(np.array(x, order="C")).to(self.device)
+                return x.to(device=device, dtype=torch.int32)
+            return torch.from_numpy(np.array(x, order="C")).to(device)
 
         return self._init_batched(dev(lo), dev(hi), dev(faults), dev(lat_min),
                                   dev(lat_max), dev(loss))
@@ -642,13 +690,23 @@ class DeviceEngine:
                     f"per-slot fault schedules carry one (F, 4) block "
                     f"per batch slot: got leading dim {faults.shape[0]} "
                     f"but the refill batch holds {w} slots")
+        # The fresh worlds are built where the batch lies (a block of a
+        # split batch may lie on another device than the engine's).
+        dev = state.now.device
         if isinstance(faults, torch.Tensor):
             fresh = self._init_host(np.asarray(new_seeds, dtype=np.uint64),
-                                    faults, configs)
+                                    faults, configs, dev)
         else:
-            fresh = self.init(new_seeds, faults=faults, configs=configs)
-        mask = torch.from_numpy(np.asarray(slot_mask, bool).copy()).to(
-            state.now.device)
+            fresh = self.init(new_seeds, faults=faults, configs=configs,
+                              device=dev)
+        mask = torch.from_numpy(np.asarray(slot_mask, bool).copy()).to(dev)
+        return self._refill_select(mask, fresh, state)
+
+    @staticmethod
+    def _refill_select(mask: torch.Tensor, fresh, state):
+        """The recycle-slot select (the JAX ``_refill_select``): the worlds
+        where the (W,) bool ``mask`` is True take ``fresh``'s leaves, written
+        into ``state`` in place."""
         for dst, src in zip(tree_leaves(state), tree_leaves(fresh)):
             dst.copy_(where_worlds(mask, src, dst))
         return state
@@ -674,9 +732,7 @@ class DeviceEngine:
                        device=dev),
             torch.full((w,), float(np.float32(cfg.loss_rate)),
                        dtype=torch.float32, device=dev))
-        for dst, src in zip(tree_leaves(state), tree_leaves(fresh)):
-            dst.copy_(where_worlds(slot_mask, src, dst))
-        return state
+        return self._refill_select(slot_mask, fresh, state)
 
     # ------------------------------------------------------------------
     # The plain step (JAX _build_step, batched over the world axis)
@@ -990,7 +1046,7 @@ class DeviceEngine:
         self.last_run = {"launches": i, "stepped": stepped}
         return state
 
-    def superstep(self, state: WorldState, stop_threshold: int,
+    def superstep(self, state, stop_threshold: int,
                   stop_on_bug: bool, k_chunks: int, *, chunk_steps: int,
                   k_max: int, min_one: bool = False, cov=None):
         """Up to ``k_chunks`` chunks of ``chunk_steps`` steps behind one host
@@ -1008,11 +1064,18 @@ class DeviceEngine:
         stops queuing a chunk after the gate closes without the device
         waiting on it; on the CPU it stops at the first closed gate.
 
+        ``state`` may be split over devices (``parallel/mesh.py``
+        ``Sharded``): each block is stepped by launches of its own on its
+        own device, gated by a copy of the gate word there, and the
+        active count and bug flag are reduced over the blocks onto the
+        first block's device, where the gate is decided (the JAX
+        superstep's psum over the mesh). The scalars returned live there.
+
         ``cov``: ``(hits, first_seen, idx, n_real)``, the coverage ledger,
-        the slot→seed index and the real seed count: after each chunk the
-        worlds whose active flag fell in it, holding a real seed id, fold
-        into the ledger (a chunk behind a closed gate changes no flag, so
-        it folds nothing).
+        the slot→seed index (whole, on the first block's device) and the
+        real seed count: after each chunk the worlds whose active flag fell
+        in it, holding a real seed id, fold into the ledger (a chunk
+        behind a closed gate changes no flag, so it folds nothing).
 
         Returns ``(state, any_bug, n_active, k_done, hist)`` as device
         tensors, ``hist[j]`` the active count after chunk ``j`` (-1 for a
@@ -1020,18 +1083,19 @@ class DeviceEngine:
         first_seen), cov_hist)``, the cumulative distinct count after each
         chunk run. ``state`` is updated in place.
         """
-        from ..obs.coverage import distinct_count, fold_retired
+        from ..obs.coverage import distinct_count, fold_shards
 
-        dev = state.active.device
+        blocks = world_blocks(state)
+        dev = blocks[0].active.device
         cuda = dev.type == "cuda"
-        any_bug = state.bug.any()
-        n_act = state.active.sum(dtype=torch.int32)
+        any_bug, n_act = block_totals(blocks)
         hist = torch.full((k_max,), -1, dtype=torch.int32, device=dev)
         k_done = torch.zeros((), dtype=torch.int32, device=dev)
         running = torch.ones((), dtype=torch.bool, device=dev)
         cov_hist = None
         if cov is not None:
             hits, first, idx, n_real = cov
+            idx_b = split_like(idx, blocks)
             cov_hist = torch.full((k_max,), -1, dtype=torch.int32,
                                   device=dev)
         ahead = Lookahead(cuda)
@@ -1046,17 +1110,16 @@ class DeviceEngine:
             ahead.push(~running)
             if ahead.stopped():
                 break
-            act0 = state.active.clone() if cov is not None else None
-            self.run_steps(state, chunk_steps,
-                           gate=(~running).to(torch.int32))
-            any_bug = state.bug.any()
-            n_act = state.active.sum(dtype=torch.int32)
+            act0 = ([b.active.clone() for b in blocks] if cov is not None
+                    else None)
+            run_blocks(self, blocks, chunk_steps, (~running).to(torch.int32))
+            any_bug, n_act = block_totals(blocks)
             hist[i] = torch.where(running, n_act, -1)
             k_done = k_done + running.to(torch.int32)
             if cov is not None:
-                mask = act0 & ~state.active & (idx >= 0) & (idx < n_real)
-                hits, first = fold_retired(hits, first, state.metrics, mask,
-                                           idx)
+                hits, first = fold_shards(hits, first, [
+                    (b.metrics, a0 & ~b.active & (ib >= 0) & (ib < n_real),
+                     ib) for b, a0, ib in zip(blocks, act0, idx_b)])
                 cov_hist[i] = torch.where(running, distinct_count(hits), -1)
         if cov is not None:
             return state, any_bug, n_act, k_done, hist, (hits, first), \

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -44,6 +45,35 @@ PACKED = Lanes(node=torch.int8, code=torch.int8, slot=torch.int16,
 
 _INT_TYPES = (torch.int8, torch.int16, torch.int32, torch.int64,
               torch.uint8)
+
+
+def on_device(x, device, dtype=None) -> torch.Tensor:
+    """``x`` as a tensor on ``device``, with ``torch.as_tensor``'s dtypes.
+    On a CUDA device a Python or numpy scalar is written by a fill kernel:
+    ``as_tensor`` would copy it from pageable host memory, which waits for
+    the device's stream to drain."""
+    if device is not None and torch.device(device).type == "cuda" \
+            and isinstance(x, (bool, int, float, np.generic)):
+        if dtype is None:
+            dtype = torch.as_tensor(x).dtype
+        if isinstance(x, np.generic):
+            x = x.item()
+        return torch.full((), x, dtype=dtype, device=device)
+    return torch.as_tensor(x, dtype=dtype, device=device)
+
+
+_TABLES: dict = {}
+
+
+def const_table(values: tuple, dtype, device) -> torch.Tensor:
+    """A small constant table on ``device``, copied there once (per
+    values, dtype and device) and shared by later calls, which must not
+    write it."""
+    key = (values, dtype, str(device))
+    t = _TABLES.get(key)
+    if t is None:
+        t = _TABLES[key] = torch.tensor(values, dtype=dtype, device=device)
+    return t
 
 
 def widen(x: torch.Tensor) -> torch.Tensor:
@@ -134,7 +164,7 @@ def upd(x: torch.Tensor, i: torch.Tensor, v) -> torch.Tensor:
 
     ``x``: (W, n, ...); ``v`` broadcasts against (W, ...)."""
     m = _shaped(onehot(i, x.shape[1]), x.ndim)
-    v = narrow(torch.as_tensor(v, device=x.device), x.dtype)
+    v = narrow(on_device(v, x.device), x.dtype)
     if v.dim() > 0:
         v = v.unsqueeze(1)
     return torch.where(m, v, x)
@@ -147,7 +177,7 @@ def upd2(x: torch.Tensor, i: torch.Tensor, j: torch.Tensor,
     m = (onehot(i, x.shape[1])[:, :, None]
          & onehot(j, x.shape[2])[:, None, :])
     m = m.reshape(m.shape + (1,) * (x.ndim - 3))
-    v = narrow(torch.as_tensor(v, device=x.device), x.dtype)
+    v = narrow(on_device(v, x.device), x.dtype)
     if v.dim() > 0:
         v = v.reshape(v.shape[:1] + (1, 1) + v.shape[1:])
     return torch.where(m, v, x)

@@ -20,7 +20,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .lanes import narrow, onehot, prefix_count, take_small, widen
+from .lanes import narrow, on_device, onehot, prefix_count, take_small, widen
 
 INF_TIME = 2**31 - 1
 
@@ -114,18 +114,17 @@ def push(q: EventQueue, ev: Event, enable=True
     dev = q.time.device
 
     def lane(x):
-        return torch.as_tensor(x, device=dev).to(torch.int32).expand(w)
+        return on_device(x, dev).to(torch.int32).expand(w)
 
     t = lane(ev.time)
-    en = torch.as_tensor(enable, device=dev).to(torch.bool).expand(w) \
-        & (t < INF_TIME)
+    en = on_device(enable, dev).to(torch.bool).expand(w) & (t < INF_TIME)
     free = q.time == INF_TIME
     free_any = free.any(dim=1)
     # The first free slot: the free one with no free slot before it.
     do = free & (prefix_count(free) == 0) & en[:, None]
     meta = pack_meta(lane(ev.kind), lane(ev.flags), lane(ev.src),
                      lane(ev.dst), lane(ev.gen))
-    pay = narrow(torch.as_tensor(ev.payload, device=dev).to(torch.int32),
+    pay = narrow(on_device(ev.payload, dev).to(torch.int32),
                  q.payload.dtype).expand(w, -1)
     out = EventQueue(
         time=torch.where(do, t[:, None], q.time),

@@ -24,7 +24,7 @@ import torch
 
 from .actor_util import bcast_payload, make_outbox, pad_payload
 from .core import EngineConfig, Outbox
-from .lanes import popcount32, take_small, upd, upd2, widen
+from .lanes import on_device, popcount32, take_small, upd, upd2, widen
 from .queue import FLAG_TIMER, INF_TIME, Event, _wrap_i32
 from .rng import DevRng, uniform_u32
 
@@ -82,7 +82,7 @@ def _event(time, kind, cfg: EngineConfig, w: int, device, flags=0, src=0,
            dst=0, gen=0, word0=0) -> Event:
     """A batch of one event per world (payload [word0, 0, ...])."""
     def i32(x):
-        return torch.as_tensor(x, dtype=torch.int32, device=device).expand(w)
+        return on_device(x, device, torch.int32).expand(w)
 
     payload = torch.zeros((w, cfg.payload_words), dtype=torch.int32,
                           device=device)

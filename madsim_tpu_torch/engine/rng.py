@@ -13,6 +13,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..ops.threefry import i64_to_u32, threefry2x32_i64, u32_to_i64
+from .lanes import on_device
 
 
 class DevRng(NamedTuple):
@@ -56,8 +57,8 @@ def next_u32(rng: DevRng) -> Tuple[torch.Tensor, DevRng]:
 def _u32_to_range(x: torch.Tensor, low, high) -> torch.Tensor:
     """Map u32 draw(s) to [low, high) int32 by the modulo method — the
     unsigned remainder of ``uint32(high - low)``, as the JAX twin."""
-    low = torch.as_tensor(low, dtype=torch.int32, device=x.device)
-    high = torch.as_tensor(high, dtype=torch.int32, device=x.device)
+    low = on_device(low, x.device, torch.int32)
+    high = on_device(high, x.device, torch.int32)
     width = (high.to(torch.int64) - low.to(torch.int64)) & 0xFFFFFFFF
     return low + (x % width).to(torch.int32)
 

@@ -1,11 +1,11 @@
-"""The fleet on one machine's device: leased seed ranges and crash-identical
-recovery — the port of ``madsim_tpu/fleet`` (docs/fleet.md).
+"""The fleet on one machine: leased seed ranges and crash-identical recovery
+— the port of ``madsim_tpu/fleet`` (docs/fleet.md).
 
 A coordinator splits the seed vector into contiguous ranges and leases them
 (with expiry) to workers; each worker sweeps its leases through a
 persistent :class:`~madsim_tpu_torch.parallel.sweep.SweepSession` on the
-engine's device (on CUDA, the hand-written step kernel, and under
-``search=`` the corpus fold kernel) and heartbeats progress; expired or
+engine's device or the fleet's mesh (on CUDA, the hand-written step kernel,
+and under ``search=`` the corpus fold kernel) and heartbeats progress; expired or
 released leases re-issue to surviving workers. Every range sweep is
 bit-deterministic from its seeds, so recovery is *replay*: a crashed
 worker's range re-executes identically elsewhere, a preempted worker's
@@ -17,7 +17,7 @@ fleet sweep under injected worker kills, lease expiries, duplicate
 completions, preemptions and torn checkpoints returns seed ids, bug flags,
 per-seed observations and metrics, and a coverage ledger bitwise those of
 a crash-free fleet, of a single-host ``sweep()`` over the same seeds, and of
-the JAX package's ``fleet_sweep`` on one device. The host protocol modules
+the JAX package's ``fleet_sweep`` on a mesh of the same size. The host protocol modules
 (lease, rpc, chaos, merge, coordinator, exchange) are copies of the JAX
 package's; the port imports nothing of it.
 

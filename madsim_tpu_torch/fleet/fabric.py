@@ -9,9 +9,11 @@ is exactly why the chaos matrix can be tier-1: a fabric execution is a
 pure function of (seeds, config, ChaosConfig), replayable like a seed.
 
 The inline fabric is not a toy: workers run REAL pipelined device
-sweeps over their leases (sharing one engine, on its device: on CUDA
-every lease launches the hand-written step kernel, and every guided
-lease the corpus fold kernel), the coordinator runs the REAL lease
+sweeps over their leases (sharing one engine and one mesh, the 2-D
+``multihost_mesh`` included: on CUDA every lease launches the
+hand-written step kernel, once per block of the split batch, and every
+guided refill the corpus fold kernel once), the coordinator runs the REAL
+lease
 protocol, and every failure mode (kill, expiry, re-issue, duplicate,
 preemption, torn checkpoint, RPC retry) takes the same code path a
 multiprocess fleet takes. ``spawn="process"`` (fleet/process.py) swaps
@@ -26,7 +28,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from ..obs import observatory as _obsy
-from ..parallel.sweep import SweepResult, _unported
+from ..parallel.sweep import SweepResult
 from .chaos import ChaosConfig, ChaosPolicy
 from .coordinator import Coordinator
 from .lease import split_ranges
@@ -183,8 +185,10 @@ def fleet_sweep(actor: Any, cfg, seeds, *,
     built, with pipe transports and real SIGTERM preemption
     (fleet/process.py) — the deployment shape, minus the determinism of
     the scheduler (results are still bitwise identical; schedules are
-    not). A ``mesh`` raises ``NotImplementedError`` naming its ROADMAP
-    item.
+    not). ``mesh`` (``parallel/mesh.py``) splits every worker's sweeps
+    over its devices, as ``sweep(mesh=...)`` does; by default they run on
+    the engine's device. The process fabric runs each worker on one
+    device, as in the JAX package.
 
     ``exchange``: an :class:`~madsim_tpu_torch.fleet.exchange.ExchangeConfig`
     — cross-range corpus exchange for guided fleets (requires
@@ -214,8 +218,6 @@ def fleet_sweep(actor: Any, cfg, seeds, *,
     """
     from ..engine.core import DeviceEngine
 
-    if mesh is not None:
-        raise _unported("fleet_sweep(mesh=...) over several devices", "12")
     seeds = np.asarray(seeds, np.uint64)
     n = int(seeds.shape[0])
     if n == 0:
@@ -292,14 +294,16 @@ def fleet_sweep(actor: Any, cfg, seeds, *,
             exch.resume(state_path)
     coordinator = Coordinator(seeds, range_size=range_size,
                               lease_ttl=lease_ttl, clock=clock, emit=emit,
-                              n_devices=1, exchange=exch)
+                              n_devices=(1 if mesh is None
+                                         else int(mesh.devices.size)),
+                              exchange=exch)
     transport = InlineTransport(coordinator, chaos=policy)
     if checkpoint_dir is not None:
         os.makedirs(checkpoint_dir, exist_ok=True)
     retry = retry or RetryPolicy()
     workers = [
         Worker(f"w{i}", eng, seeds, transport, clock, faults=faults,
-               retry=retry, chaos=policy, emit=emit,
+               mesh=mesh, retry=retry, chaos=policy, emit=emit,
                checkpoint_dir=checkpoint_dir,
                checkpoint_every_chunks=checkpoint_every_chunks,
                sweep_kwargs=sweep_kwargs, prefetch=prefetch)

@@ -2,7 +2,7 @@
 
 A worker is a thin loop around the pipelined ``sweep()``: one lease =
 one sweep over the leased seed slice, run to completion with the same
-engine and sweep knobs every other worker uses (that uniformity
+engine, mesh, and sweep knobs every other worker uses (that uniformity
 is what the merge layer's bitwise contract rides on). Heartbeats piggy-
 back on the sweep's own telemetry cadence — the ``observe=`` callback
 fires once per host scalar read, so lease liveness costs ZERO extra
@@ -94,7 +94,7 @@ class Worker:
     """
 
     def __init__(self, worker_id: str, engine, seeds, transport, clock,
-                 faults: Optional[np.ndarray] = None,
+                 faults: Optional[np.ndarray] = None, mesh=None,
                  retry: Optional[RetryPolicy] = None,
                  chaos=None, emit=None,
                  checkpoint_dir: Optional[str] = None,
@@ -105,6 +105,7 @@ class Worker:
         self.engine = engine
         self.seeds = np.asarray(seeds, np.uint64)
         self.faults = faults
+        self.mesh = mesh
         self.transport = transport
         self.clock = clock
         self.retry = retry or RetryPolicy()
@@ -206,7 +207,8 @@ class Worker:
             kw = {k: self.sweep_kwargs[k]
                   for k in SweepSession.GROUPABLE_KW
                   if k in self.sweep_kwargs}
-            self._session = SweepSession(engine=self.engine, **kw)
+            self._session = SweepSession(engine=self.engine,
+                                         mesh=self.mesh, **kw)
         return self._session
 
     def _groupable(self, leases: List[Dict[str, Any]]) -> bool:

@@ -73,36 +73,62 @@ def ledger_zeros(n_buckets: int, device=None
             torch.full((n_buckets,), -1, dtype=torch.int32, device=device))
 
 
-def _identity(x):
-    return x
-
-
-def fold_retired(hits, first_seen, mb, fold_mask, idx,
-                 reduce_sum=_identity, reduce_min=_identity):
-    """Fold the masked worlds' behavior signatures into the ledger.
-
-    ``fold_mask`` (W,) bool selects the worlds, ``idx`` (W,) their seed
-    ids. Masked-out worlds scatter into a dump row past the K buckets, so
-    the fold has no branch. ``reduce_sum``/``reduce_min`` reduce the
-    per-device bucket vectors over devices; on one device they are the
-    identity. Returns the new ``(hits, first_seen)``.
-    """
-    k = hits.shape[0]
-    bucket = behavior_signature(mb) % k
-    slot = torch.where(fold_mask, bucket, torch.full_like(bucket, k))
-    add = torch.zeros((k + 1,), dtype=torch.int32, device=hits.device)
+def fold_terms(n_buckets: int, mb, fold_mask, idx):
+    """One shard's share of a fold: ``(add, cand)``, the (K,) count of its
+    masked worlds a bucket and the least seed id a bucket (``_NO_SEED``
+    where none fell there), on the shard's device. Masked-out worlds
+    scatter into a dump row past the K buckets, so the fold has no
+    branch."""
+    bucket = behavior_signature(mb) % n_buckets
+    slot = torch.where(fold_mask, bucket, torch.full_like(bucket, n_buckets))
+    add = torch.zeros((n_buckets + 1,), dtype=torch.int32,
+                      device=slot.device)
     add.scatter_add_(0, slot, torch.ones_like(slot, dtype=torch.int32))
-    add = reduce_sum(add[:k])
-    cand = torch.full((k + 1,), _NO_SEED, dtype=torch.int32,
-                      device=hits.device)
+    cand = torch.full((n_buckets + 1,), _NO_SEED, dtype=torch.int32,
+                      device=slot.device)
     cand.scatter_reduce_(0, slot, idx.to(torch.int32), "amin")
-    cand = reduce_min(cand[:k])
+    return add[:n_buckets], cand[:n_buckets]
+
+
+def _merge(hits, first_seen, add, cand):
+    """The ledger after a fold whose reduced terms are ``add``/``cand``."""
     # first_seen is a minimum seed id, not a temporal first: the fold order
     # cannot change it.
     best = torch.minimum(torch.where(first_seen >= 0, first_seen,
                                      _NO_SEED), cand)
     first_seen = torch.where(best < _NO_SEED, best, -1).to(torch.int32)
     return hits + add, first_seen
+
+
+def fold_shards(hits, first_seen, parts):
+    """Fold the masked worlds' behavior signatures into the ledger, over a
+    batch held whole or split into shards: ``parts`` holds one ``(mb,
+    fold_mask, idx)`` per shard, each on its own device (``fold_mask``
+    (W,) bool selects the worlds, ``idx`` (W,) their seed ids). Each
+    shard's terms (:func:`fold_terms`) are computed where it lies and
+    reduced onto the ledger's device, the counts by a sum and the seed ids
+    by a minimum: the JAX sweep's ``_cov_reducers``. The minimum is taken
+    over the candidates, where an empty bucket reads ``_NO_SEED``, never
+    over ledgers, whose ``-1`` for an empty bucket would win it. The
+    ledger equals one fold over the whole batch: counts and minima do not
+    depend on the order they are taken in. Returns the new ``(hits,
+    first_seen)``."""
+    add = cand = None
+    for part in parts:
+        a, c = fold_terms(hits.shape[0], *part)
+        a, c = a.to(hits.device), c.to(hits.device)
+        add = a if add is None else add + a
+        cand = c if cand is None else torch.minimum(cand, c)
+    return _merge(hits, first_seen, add, cand)
+
+
+def fold_retired(hits, first_seen, mb, fold_mask, idx):
+    """:func:`fold_shards` over a batch held whole."""
+    return fold_shards(hits, first_seen, [(mb, fold_mask, idx)])
+
+
+#: JAX's name for the fold of a batch held whole (the fused hunt's).
+fold_retired_local = fold_retired
 
 
 def distinct_count(hits: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
-"""Seed sweeps on one device: the bug hunt's three loops.
+"""Seed sweeps: the bug hunt's three loops, on one device or split over a
+mesh of them.
 
-The PyTorch counterpart of ``madsim_tpu/parallel/sweep.py`` on one device.
-``sweep`` initialises one world per seed and steps the batch in chunks of
+The PyTorch counterpart of ``madsim_tpu/parallel/sweep.py``. ``sweep``
+initialises one world per seed and steps the batch in chunks of
 ``chunk_steps`` launches. Between chunks it decides whether to stop, to
 recycle retired slots with the next seeds (``recycle=True``) or to shrink
 the batch to the active worlds (``compact=True``, and the dry-cursor
@@ -27,8 +28,24 @@ device and pulled alone. Three loops make those decisions:
   flag it reads a chunk late (there is no conditional-node capture to
   branch on the device), so it waits on the device about once a chunk.
 
-Results are bitwise those of the JAX package's sweep on one device
-(``mesh=seed_mesh(n_devices=1)``) in the same loop, and every loop's
+With ``mesh=`` (``parallel/mesh.py``) the batch's world axis is split
+into one contiguous block per mesh device, as the JAX sweep shards it.
+Each block is stepped by launches of its own on its own device; after
+each chunk the active count and the bug flag are reduced over the blocks
+onto the mesh's lead device, where the loop's one pull reads them, so the
+pulls and flag reads do not grow with the mesh. The coverage fold runs per
+block and reduces its terms there too. What the JAX package keeps
+replicated, and the slot→seed index and per-slot schedules, the port keeps
+whole on the lead device: the refill and shrink epochs (compaction, the
+retiring tail's gathers, the search, the refill) gather the batch there,
+work on the whole world axis, and split it again. The mesh shapes the
+results as in the JAX package: the seeds are padded to a multiple of the
+mesh size (the padded worlds run repeats of the first seed and are sliced
+off), ``batch_worlds`` rounds up to one, and compaction halves only to
+mesh multiples. Without ``mesh`` the sweep runs on the engine's device.
+
+Results are bitwise those of the JAX package's sweep on the same mesh
+size (``mesh=seed_mesh(n_devices=k)``) in the same loop, and every loop's
 results equal the serial loop's (a fused sweep's ``world_utilization``
 aside: it never shrinks). Worlds are position-independent, so a recycled
 or compacted sweep gives every seed the trajectory of an independent
@@ -65,9 +82,6 @@ shrinks a failing seed's schedule (madsim_tpu_torch/triage).
 (madsim_tpu_torch/fleet): ``run`` is a sweep with its engine bound, and
 ``run_group`` advances several seed ranges as one standing batch whose
 slots later groups recycle.
-
-Not ported here: multi-device meshes, which raise ``NotImplementedError``
-naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -82,14 +96,23 @@ import torch
 
 from ..engine import checkpoint as ckpt
 from ..engine.convert import from_numpy, to_numpy
-from ..engine.core import DeviceEngine, EngineConfig, Lookahead, tree_map
+from ..engine.core import (
+    DeviceEngine,
+    EngineConfig,
+    Lookahead,
+    block_totals,
+    run_blocks,
+    split_like,
+    tree_map,
+    world_blocks,
+)
 from ..engine.queue import _wrap_i32
 from ..obs.blackbox import decode_ring, ring_depth, rings_from_observations
 from ..obs.coverage import (
     DEFAULT_BUCKETS,
     coverage_from_device,
     distinct_count,
-    fold_retired,
+    fold_shards,
     ledger_zeros,
 )
 from ..obs.metrics import aggregate_metrics, metrics_from_observations
@@ -100,6 +123,7 @@ from ..search.corpus import (
     normalize_schedule,
 )
 from ..search.generate import searcher
+from .mesh import Mesh, seed_mesh, shard_worlds
 
 
 def _to_host(tree):
@@ -122,63 +146,108 @@ def _fetch(tree):
     return _to_host(tree)
 
 
-def _unported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to madsim_tpu_torch yet (ROADMAP Queue A "
-        f"item {item})")
-
-
 # ---------------------------------------------------------------------------
-# Device helpers: the chunk runner, the coverage folds, compaction and the
-# retiring tail's observation gathers.
+# Device helpers: the chunk and superstep runners, the coverage folds,
+# compaction and the retiring tail's observation gathers.
 # ---------------------------------------------------------------------------
 
-def chunk_runner(eng: DeviceEngine, chunk_steps: int = 512,
-                 coverage: Optional[int] = None):
-    """The chunk body of the serial loop, the one-device analogue of the
-    JAX ``sharded_engine``: ``state → (state, any_bug, n_active)``, the
-    state stepped ``chunk_steps`` times in place and the two scalars left
-    on the device.
+def _engine_mesh(eng: DeviceEngine, mesh: Optional[Mesh]) -> Mesh:
+    """``mesh``, or the one-device mesh of the engine's device."""
+    return mesh if mesh is not None else seed_mesh([eng.device])
+
+
+def _fold_blocks(blocks, masks, hits, first, idx, n_real):
+    """Fold into the ledger each block's worlds that its mask selects and
+    that hold a real seed id (:func:`fold_shards`); ``idx`` is whole, on
+    the lead device."""
+    return fold_shards(hits, first, [
+        (b.metrics, m & (ib >= 0) & (ib < n_real), ib)
+        for b, m, ib in zip(blocks, masks, split_like(idx, blocks))])
+
+
+def sharded_engine(eng: DeviceEngine, mesh: Mesh, chunk_steps: int = 512,
+                   donate: bool = False, coverage: Optional[int] = None):
+    """The serial loop's chunk runner over a split batch (the JAX
+    ``sharded_engine``): ``state → (state, any_bug, n_active)``, every
+    block stepped ``chunk_steps`` times in place by its own launches on
+    its own device, and the two scalars reduced over the blocks onto the
+    mesh's lead device.
 
     With ``coverage`` (a bucket count) the runner is ``(state, hits,
     first_seen, idx, n_real) → (state, any_bug, n_active, hits,
     first_seen, distinct)``: after the chunk, the worlds whose active flag
     fell during it, and that hold a real seed id, fold their behavior
-    signatures into the ledger.
+    signatures into the ledger, block by block. ``mesh`` and ``donate``
+    are the JAX signature's and change nothing: the blocks are the
+    state's own, and the port always steps in place.
     """
     if coverage is None:
         def chunk(state):
-            state = eng.run_steps(state, chunk_steps)
-            return (state, state.bug.any(),
-                    state.active.sum(dtype=torch.int32))
+            blocks = world_blocks(state)
+            run_blocks(eng, blocks, chunk_steps)
+            return (state,) + block_totals(blocks)
+    else:
+        def chunk(state, hits, first, idx, n_real):
+            blocks = world_blocks(state)
+            act0 = [b.active.clone() for b in blocks]
+            run_blocks(eng, blocks, chunk_steps)
+            hits, first = _fold_blocks(
+                blocks, [a & ~b.active for a, b in zip(act0, blocks)],
+                hits, first, idx, n_real)
+            return ((state,) + block_totals(blocks)
+                    + (hits, first, distinct_count(hits)))
+    return chunk
 
-        return chunk
 
-    def chunk_cov(state, hits, first, idx, n_real):
-        act0 = state.active.clone()
-        state = eng.run_steps(state, chunk_steps)
-        mask = act0 & ~state.active & (idx >= 0) & (idx < n_real)
-        hits, first = fold_retired(hits, first, state.metrics, mask, idx)
-        return (state, state.bug.any(), state.active.sum(dtype=torch.int32),
-                hits, first, distinct_count(hits))
+def sharded_superstep(eng: DeviceEngine, mesh: Mesh, chunk_steps: int,
+                      k_max: int, donate: bool = False,
+                      min_one: bool = False,
+                      coverage: Optional[int] = None):
+    """The superstep runner over a split batch (the JAX
+    ``sharded_superstep``): ``(state, stop_threshold, stop_on_bug,
+    k_chunks) → (state, any_bug, n_active, k_done, hist)``, or with
+    ``coverage`` ``(state, hits, first_seen, idx, n_real, stop_threshold,
+    stop_on_bug, k_chunks) → (state, any_bug, n_active, k_done, hist,
+    hits, first_seen, cov_hist)``. :meth:`DeviceEngine.superstep` runs
+    it: the blocks step apart, and the gate is decided on the lead device
+    from the reduced scalars, a copy of it gating each block's launches.
+    ``mesh`` and ``donate`` change nothing, as in
+    :func:`sharded_engine`."""
+    if coverage is None:
+        def sstep(state, stop_threshold, stop_on_bug, k_chunks):
+            return eng.superstep(state, stop_threshold, stop_on_bug,
+                                 k_chunks, chunk_steps=chunk_steps,
+                                 k_max=k_max, min_one=min_one)
+    else:
+        def sstep(state, hits, first, idx, n_real, stop_threshold,
+                  stop_on_bug, k_chunks):
+            (state, any_bug, n_active, k_done, hist, (hits, first),
+             cov_hist) = eng.superstep(
+                state, stop_threshold, stop_on_bug, k_chunks,
+                chunk_steps=chunk_steps, k_max=k_max, min_one=min_one,
+                cov=(hits, first, idx, n_real))
+            return (state, any_bug, n_active, k_done, hist, hits, first,
+                    cov_hist)
+    return sstep
 
-    return chunk_cov
 
-
-def _cov_endfolder(state, hits, first, idx, n_real: int,
-                   fold_active: bool):
+def _fold_end(state, hits, first, idx, n_real, fold_active):
     """The boundary coverage fold: the worlds whose active flag equals
-    ``fold_active`` (True at sweep end: the worlds still live at exit)
-    fold into the ledger."""
-    mask = (state.active == fold_active) & (idx >= 0) & (idx < n_real)
-    return fold_retired(hits, first, state.metrics, mask, idx)
+    ``fold_active`` fold into the ledger (False on resume: the worlds
+    frozen before the snapshot; True at sweep end: the worlds still live
+    at exit), block by block. Returns ``(hits, first)``."""
+    blocks = world_blocks(state)
+    return _fold_blocks(blocks, [b.active == fold_active for b in blocks],
+                        hits, first, idx, n_real)
 
 
-def _compact_bucket(n_active: int, w_cur: int) -> int:
+def _compact_bucket(n_active: int, w_cur: int, n_dev: int) -> int:
     """Largest power-of-two shrink of ``w_cur`` that still holds every
-    active world; ``w_cur`` when no halving is possible."""
+    active world and stays a multiple of the mesh; ``w_cur`` when no
+    halving is possible."""
     w = w_cur
-    while w % 2 == 0 and w // 2 >= max(n_active, 1):
+    # w//2 % n_dev == 0 already implies the w//2 >= n_dev floor.
+    while w % 2 == 0 and w // 2 >= max(n_active, 1) and w // 2 % n_dev == 0:
         w //= 2
     return w
 
@@ -206,7 +275,8 @@ def _permute_worlds(tree, perm: torch.Tensor):
 
 
 def _compactor(state, idx, new_w: Optional[int] = None, extra=()):
-    """Compaction: the stable active-first permutation
+    """Compaction of a batch held whole (an epoch gathers a split batch
+    first): the stable active-first permutation
     (``torch.sort(stable=True)`` of the frozen flag) applied to the state,
     the slot→seed index and the ``extra`` per-slot trees (a guided sweep's
     schedules and lineage lanes); with ``new_w`` also the split into the
@@ -408,12 +478,13 @@ def _to_host_aux(aux):
 
 class TriageContext(NamedTuple):
     """What :meth:`SweepResult.minimize` and ``triage.triage`` need to
-    re-execute a sweep's worlds: the engine and the ``faults=`` argument,
-    or under ``search=`` the materialized per-seed ``(n, F, 4)``
-    schedules each world ran. None on a reconstructed result."""
+    re-execute a sweep's worlds: the engine, the ``faults=`` argument (or
+    under ``search=`` the materialized per-seed ``(n, F, 4)`` schedules
+    each world ran) and the mesh. None on a reconstructed result."""
 
     engine: Any
     faults: Optional[np.ndarray]
+    mesh: Any = None
 
 
 @dataclasses.dataclass
@@ -455,8 +526,8 @@ class SweepResult:
         ``seed`` defaults to the first failing seed; ``kw`` forwards to
         :func:`madsim_tpu_torch.triage.minimize` (``pipeline``,
         ``weaken``, ``tighten``, ``chunk_steps``, ``max_steps``, ...).
-        Re-uses this sweep's engine, on its device, and the schedule the
-        seed ran: the shared one, its own row of per-world schedules, or
+        Re-uses this sweep's engine and mesh, and the schedule the seed
+        ran: the shared one, its own row of per-world schedules, or
         the child a guided sweep made for it. Returns a
         :class:`~madsim_tpu_torch.triage.MinimizeResult`."""
         from ..triage import TriageError
@@ -482,7 +553,7 @@ class SweepResult:
                 faults = faults[int(rows[0])]
         eng = self.triage_ctx.engine
         return _minimize(eng.actor, eng.cfg, int(seed), faults,
-                         engine=eng, **kw)
+                         engine=eng, mesh=self.triage_ctx.mesh, **kw)
 
     @property
     def metrics(self) -> Optional[Dict[str, Any]]:
@@ -667,11 +738,13 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
     ``profile_dir``: capture dispatches ``profile_window=(start, stop)``
     with ``torch.profiler`` and write a Chrome trace there. Neither
     changes the results, the ``_fetch`` calls, the flag reads or the
-    launches. A ``mesh`` raises ``NotImplementedError`` naming its
-    ROADMAP item.
+    launches.
+
+    ``mesh`` (``parallel/mesh.py``: :func:`seed_mesh`,
+    :func:`multihost_mesh`) splits the world axis over its devices (the
+    module docstring); by default the sweep runs on the engine's device.
+    ``SweepResult.n_devices`` is the mesh size.
     """
-    if mesh is not None:
-        raise _unported("sweep(mesh=...) over several devices", "12")
     if superstep_max < 1:
         raise ValueError("superstep_max must be >= 1")
     if fused and checkpoint_path is not None:
@@ -690,7 +763,9 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
             "straggler tail expensive, and every result surface is "
             "shrink-invariant — drop compact (or run fused=False)")
     eng = engine if engine is not None else DeviceEngine(actor, cfg)
-    dev = eng.device
+    mesh = _engine_mesh(eng, mesh)
+    n_dev = mesh.size
+    dev = mesh.lead                    # where the sweep keeps whole tensors
     seeds = np.asarray(seeds, np.uint64)
     n = seeds.shape[0]
 
@@ -739,13 +814,20 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
         raise ValueError("search_lin_base must be >= 0")
     lineage_on = bool(search_on and getattr(search, "lineage", False))
 
-    # Batch width: plain sweeps hold every seed at once; recycled sweeps
-    # hold batch_worlds slots and stream the rest. (On one device no
-    # padding of the seed-id space is needed: the width never exceeds n.)
+    # Batch width: a multiple of the mesh. Plain sweeps hold every seed at
+    # once; recycled sweeps hold batch_worlds slots and stream the rest.
+    full_w = n + ((-n) % n_dev)
     if recycle and batch_worlds is not None:
-        w0 = min(max(1, int(batch_worlds)), n)
+        w0 = min(max(1, int(batch_worlds)), max(n, 1))
+        w0 += (-w0) % n_dev
+        w0 = min(w0, full_w)
     else:
-        w0 = n
+        w0 = full_w
+    # The seed-id space padded to the batch width: the padded worlds run
+    # repeats of the first seed, and their results are sliced off.
+    n_ids = max(n, w0)
+    seeds_p = (np.concatenate([seeds, seeds[:1].repeat(n_ids - n)])
+               if n_ids > n else seeds)
 
     faults_p = faults
     per_world_faults = False
@@ -768,6 +850,10 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
                     f"per seed: got leading dim {faults_p.shape[0]} but "
                     f"len(seeds)={n}")
             per_world_faults = True
+            if n_ids > n:
+                faults_p = np.concatenate(
+                    [faults_p, faults_p[:1].repeat(n_ids - n, axis=0)],
+                    axis=0)
         else:
             raise ValueError(
                 f"faults must be (F, 4) or (n_seeds, F, 4); got "
@@ -780,16 +866,16 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
         return faults_p[ids] if per_world_faults else faults_p
 
     # The schedule's fingerprint rides the result: a seed alone does not
-    # pin a trajectory when schedules vary.
+    # pin a trajectory when schedules vary. Both hashes are of the padded
+    # inputs, as in the JAX package.
     faults_key = (np.ascontiguousarray(faults_p).tobytes()
                   if faults_p is not None else b"none")
     faults_sha256 = hashlib.sha256(faults_key).hexdigest()
     # The seeds and the schedule ride a checkpoint: a resume under others
-    # would attribute results to inputs that never produced them. (The
-    # JAX package hashes its seeds padded to the mesh; on one device the
-    # padded vector is the seeds themselves.)
-    seeds_meta = {"seeds_sha256": hashlib.sha256(seeds.tobytes()).hexdigest(),
-                  "faults_sha256": faults_sha256}
+    # would attribute results to inputs that never produced them.
+    seeds_meta = {
+        "seeds_sha256": hashlib.sha256(seeds_p.tobytes()).hexdigest(),
+        "faults_sha256": faults_sha256}
 
     resumed = False
     resume_aux: Dict[str, np.ndarray] = {}
@@ -818,13 +904,15 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
                 f"checkpoint {checkpoint_path!r} was written by a "
                 "recycled sweep: pass recycle=True (and the original "
                 "batch_worlds) to resume it")
-        elif w_file != n:
+        elif w_file != n_ids:
             raise ckpt.CheckpointError(
                 f"checkpoint holds {w_file} worlds, "
-                f"sweep expects {n} (seeds + mesh padding)")
+                f"sweep expects {n_ids} (seeds + mesh padding)")
+        state = shard_worlds(state, mesh)
         resumed = True
     else:
-        state = eng.init(seeds[:w0], faults=batch_faults(np.arange(w0)))
+        state = shard_worlds(
+            eng.init(seeds_p[:w0], faults=batch_faults(np.arange(w0))), mesh)
     # A shrunken batch could not resume into the full-shape contract.
     compact = compact and checkpoint_path is None
     submitted_chunks = -1              # chunks at the writer's last submit
@@ -984,8 +1072,8 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
             # The worlds frozen before the snapshot never fall inactive in
             # this call: fold them now. The ledger (counts and minima) is
             # fold-order invariant, so it ends as an unbroken run's.
-            cov_hits, cov_first = _cov_endfolder(state, cov_hits, cov_first,
-                                                 idx, n, False)
+            cov_hits, cov_first = _fold_end(state, cov_hits, cov_first,
+                                            idx, n, False)
 
     def emit_point(n_act: int, bug_seen: bool, depth: int) -> None:
         """One ``madsim.sweep.telemetry/1`` record per host read of the
@@ -1129,12 +1217,14 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
             corpus, op_tab
         extra = ((slot_sched,) + (tuple(slot_lin) if lineage_on else ())
                  if search_on else ())
-        state, idx, *extra = _compactor(state, idx, extra=extra)
+        # The epoch works on the whole world axis, gathered on the lead
+        # device, and splits the batch again at its end.
+        whole, idx, *extra = _compactor(state.gather(), idx, extra=extra)
         reordered = True
         tail_len = w_cur - n_act
         rows = min(_pow2_at_least(tail_len), _pow2_at_least(w_cur))
-        obs_t, idx_t = _tail_observer(eng, state, idx, n_act, rows)
-        take = min(tail_len, n - cursor)
+        obs_t, idx_t = _tail_observer(eng, whole, idx, n_act, rows)
+        take = min(tail_len, n_ids - cursor)
         repl = np.full(w_cur, -1, np.int32)
         repl[n_act:n_act + take] = np.arange(
             cursor, cursor + take, dtype=np.int32)
@@ -1154,7 +1244,7 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
                 slot_lin = type(slot_lin)(*extra[1:])
                 lin_t = tuple(tail_g[1:])
                 children, child_lin, corpus, op_tab, stats_t = gen_fn(
-                    state, slot_sched, idx, corpus, n_act, new_ids, mask_d,
+                    whole, slot_sched, idx, corpus, n_act, new_ids, mask_d,
                     slot_lin, op_tab, search_lin_base)
                 op_t = op_tab
                 slot_lin = type(slot_lin)(*(
@@ -1162,14 +1252,15 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
                     for c, s in zip(child_lin, slot_lin)))
             else:
                 children, corpus, stats_t = gen_fn(
-                    state, slot_sched, idx, corpus, n_act, new_ids)
-            state = eng.refill(state, mask, seeds[fill_ids],
+                    whole, slot_sched, idx, corpus, n_act, new_ids)
+            whole = eng.refill(whole, mask, seeds_p[fill_ids],
                                faults=children)
             slot_sched = torch.where(mask_d[:, None, None], children,
                                      slot_sched)
         else:
-            state = eng.refill(state, mask, seeds[fill_ids],
+            whole = eng.refill(whole, mask, seeds_p[fill_ids],
                                faults=batch_faults(fill_ids))
+        state = shard_worlds(whole, mesh)
         tail = torch.from_numpy(np.arange(w_cur) >= n_act).to(dev)
         idx = torch.where(tail, torch.from_numpy(repl).to(dev), idx)
         return obs_t, idx_t, tail_len, sched_t, stats_t, lin_t, op_t
@@ -1181,8 +1272,9 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
         nonlocal state, idx, reordered, w_cur, slot_sched, slot_lin
         extra = ((slot_sched,) + (tuple(slot_lin) if lineage_on else ())
                  if search_on else ())
-        (state, idx, *live_x), (frozen, fidx, *frozen_x) = _compactor(
-            state, idx, new_w, extra=extra)
+        (live, idx, *live_x), (frozen, fidx, *frozen_x) = _compactor(
+            state.gather(), idx, new_w, extra=extra)
+        state = shard_worlds(live, mesh)
         reordered = True
         tail_len = w_cur - new_w
         w_cur = new_w
@@ -1259,7 +1351,8 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
     if fused:
         try:
             fused_out = _fused_hunt(
-                eng, state, idx, seeds, faults_p, per_world_faults, search,
+                eng, mesh, state, idx, seeds_p, n, faults_p,
+                per_world_faults, search,
                 lineage_on, cov_k if cov_on else None, cov_hits, cov_first,
                 slot_sched, corpus, slot_lin, op_tab, recycle=recycle,
                 chunk_steps=chunk_steps, c_max=c_max,
@@ -1295,10 +1388,11 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
                     turns the dry-cursor shrink off (a shrunken snapshot
                     could not resume), so the tail then runs at full
                     width."""
-                    if recycle and cursor < n:
+                    if recycle and cursor < n_ids:
                         return w_cur // 2
                     if (compact or (recycle and writer is None)) \
-                            and w_cur % 2 == 0:
+                            and w_cur % 2 == 0 \
+                            and (w_cur // 2) % n_dev == 0:
                         return w_cur // 2
                     return 0
 
@@ -1321,20 +1415,23 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
                         k = 1
                     min_one = epoch_fresh
                     epoch_fresh = False
+                    runner = sharded_superstep(
+                        eng, mesh, chunk_steps, superstep_max,
+                        min_one=min_one,
+                        coverage=cov_k if cov_on else None)
                     t0 = perf_counter()
                     prof.before_dispatch()
                     with prof.annotate("madsim:superstep"):
-                        out = eng.superstep(
-                            state, threshold(), bool(stop_on_first_bug), k,
-                            chunk_steps=chunk_steps, k_max=superstep_max,
-                            min_one=min_one, cov=(cov_hits, cov_first, idx, n)
-                            if cov_on else None)
-                    if cov_on:
-                        (state, any_bug, n_active, k_done, hist,
-                         (cov_hits, cov_first), cov_h) = out
-                    else:
-                        state, any_bug, n_active, k_done, hist = out
-                        cov_h = None
+                        if cov_on:
+                            (state, any_bug, n_active, k_done, hist,
+                             cov_hits, cov_first, cov_h) = runner(
+                                state, cov_hits, cov_first, idx, n,
+                                threshold(), bool(stop_on_first_bug), k)
+                        else:
+                            state, any_bug, n_active, k_done, hist = runner(
+                                state, threshold(), bool(stop_on_first_bug),
+                                k)
+                            cov_h = None
                     # The state changes in place and the next superstep is
                     # queued before this one is read: where this one could
                     # cross a checkpoint mark, copy its output (and the
@@ -1345,7 +1442,7 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
                     if writer is not None and checkpoint_every_chunks and \
                             (chunks + reserve + k) \
                             // checkpoint_every_chunks > ckpt_mark:
-                        snap = writer.snapshot(state)
+                        snap = writer.snapshot(state.gather())
                         if cov_on:
                             snap_cov = _copy_tree((cov_hits, cov_first))
                     perf["dispatch_s"] += perf_counter() - t0
@@ -1413,7 +1510,7 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
                         submitted_chunks = chunks
                         ckpt_mark = chunks // checkpoint_every_chunks
                     if prev.epoch == epoch and not stop:
-                        more_seeds = cursor < n
+                        more_seeds = cursor < n_ids
                         if n_act == 0 and not more_seeds:
                             stop = True
                         elif stop_on_first_bug and bool(bug_h):
@@ -1423,7 +1520,7 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
                             epoch += 1
                             epoch_fresh = True
                         else:
-                            new_w = _compact_bucket(n_act, w_cur)
+                            new_w = _compact_bucket(n_act, w_cur, n_dev)
                             # The dry-cursor shrink only without a writer.
                             if (compact or (recycle and not more_seeds
                                             and writer is None)) \
@@ -1442,8 +1539,8 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
                     fetch_retire(pending_retires.pop(0))
             else:
                 # -- the serial per-chunk loop -----------------------------
-                runner = chunk_runner(eng, chunk_steps,
-                                      cov_k if cov_on else None)
+                runner = sharded_engine(eng, mesh, chunk_steps,
+                                        coverage=cov_k if cov_on else None)
                 while steps < max_steps:
                     t0 = perf_counter()
                     prof.before_dispatch()
@@ -1464,7 +1561,7 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
                             chunks % checkpoint_every_chunks == 0:
                         # The copy is queued now; the pull and the write
                         # overlap the next chunks.
-                        writer.submit(state, ckpt_aux(
+                        writer.submit(state.gather(), ckpt_aux(
                             (cov_hits, cov_first) if cov_on else None))
                         submitted_chunks = chunks
                     t0 = perf_counter()
@@ -1483,7 +1580,7 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
                     t0 = perf_counter()
                     n_active_hist.append(n_act)
                     n_active_chunk.append(chunks - 1)
-                    more_seeds = cursor < n
+                    more_seeds = cursor < n_ids
                     if n_act == 0 and not more_seeds:
                         perf["host_decision_s"] += perf_counter() - t0
                         break
@@ -1495,7 +1592,7 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
                         perf["host_decision_s"] += perf_counter() - t0
                         fetch_retire(handles)
                         continue
-                    new_w = _compact_bucket(n_act, w_cur)
+                    new_w = _compact_bucket(n_act, w_cur, n_dev)
                     if (compact or (recycle and not more_seeds
                                     and writer is None)) and new_w < w_cur:
                         handles = do_shrink(new_w)
@@ -1505,7 +1602,7 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
                         perf["host_decision_s"] += perf_counter() - t0
             if writer is not None and submitted_chunks != chunks:
                 # The final state is always durable.
-                writer.submit(state, ckpt_aux(
+                writer.submit(state.gather(), ckpt_aux(
                     (cov_hits, cov_first) if cov_on else None))
             if writer is not None:
                 writer.flush_and_close()
@@ -1517,8 +1614,8 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
 
     if cov_on:
         # End-of-sweep fold: worlds still live at exit count too.
-        cov_hits, cov_first = _cov_endfolder(state, cov_hits, cov_first,
-                                             idx, n, True)
+        cov_hits, cov_first = _fold_end(state, cov_hits, cov_first, idx,
+                                        n, True)
 
     sched_per_seed = lin_per_seed = corpus_h = op_tab_h = None
     cov_hits_h = cov_first_h = None
@@ -1535,15 +1632,15 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
         perf["retire_fetches"] += 1
         if cov_on:
             cov_hits_h, cov_first_h = (np.asarray(x) for x in cov_pack_h)
-        obs = {k: np.asarray(v)[:n] for k, v in bufs_h.items()}
+        obs = {k: np.asarray(v)[:n_ids] for k, v in bufs_h.items()}
         live_world_steps += int(np.asarray(obs["steps"]).sum())
         if search_on:
-            sched_per_seed = np.asarray(sched_b_h, np.int32)[:n]
+            sched_per_seed = np.asarray(sched_b_h, np.int32)[:n_ids]
         if lineage_on:
-            lin_per_seed = tuple(np.asarray(a, np.int32)[:n]
+            lin_per_seed = tuple(np.asarray(a, np.int32)[:n_ids]
                                  for a in lin_b_h)
     else:
-        obs_live = eng.observe(state)
+        obs_live = eng.observe(state.gather())
         sched_live_h = lin_live_h = None
         if cov_on and search_on:
             # The search's per-slot state rides the final ledger pull.
@@ -1566,20 +1663,20 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
         # seed order: after a reorder or retirement, or when a recycled
         # sweep stopped before its first refill (seeds never admitted read
         # zero).
-        if reordered or retired_rows or w0 < n:
+        if reordered or retired_rows or w0 < n_ids:
             rows = np.concatenate(retired_rows + [idx_h[live_keep]])
             obs = {}
             for k, v_live in obs_live.items():
                 v_live = np.asarray(v_live)[live_keep]
                 merged = np.concatenate(retired.get(k, []) + [v_live],
                                         axis=0)
-                out = np.zeros((n,) + merged.shape[1:], merged.dtype)
+                out = np.zeros((n_ids,) + merged.shape[1:], merged.dtype)
                 out[rows] = merged
                 obs[k] = out
             if search_on:
                 merged_s = np.concatenate(
                     retired_sched + [sched_live_h[live_keep]], axis=0)
-                sched_per_seed = np.full((n,) + merged_s.shape[1:], -1,
+                sched_per_seed = np.full((n_ids,) + merged_s.shape[1:], -1,
                                          np.int32)
                 sched_per_seed[:, :, 1:] = 0     # canonical disabled rows
                 sched_per_seed[rows] = merged_s
@@ -1590,7 +1687,7 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
                     merged_l = np.concatenate(
                         [t[i] for t in retired_lin]
                         + [np.asarray(lin_live_h[i])[live_keep]], axis=0)
-                    out = np.full((n,), dflt, np.int32)
+                    out = np.full((n_ids,), dflt, np.int32)
                     out[rows] = np.asarray(merged_l, np.int32)
                     lanes_out.append(out)
                 lin_per_seed = tuple(lanes_out)
@@ -1601,6 +1698,12 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
             if lin_live_h is not None:
                 lin_per_seed = tuple(np.asarray(a, np.int32)
                                      for a in lin_live_h)
+    # The padded worlds' rows go.
+    obs = {k: v[:n] for k, v in obs.items()}
+    if sched_per_seed is not None:
+        sched_per_seed = sched_per_seed[:n]
+    if lin_per_seed is not None:
+        lin_per_seed = tuple(a[:n] for a in lin_per_seed)
     util = (live_world_steps / issued_slot_steps if issued_slot_steps
             else 0.0)
     loop_stats = {
@@ -1640,13 +1743,15 @@ def sweep(actor: Any, cfg: EngineConfig, seeds,
         triage_faults = sched_per_seed
     result = SweepResult(
         seeds=seeds, bug=obs["bug"], observations=obs, steps_run=steps,
-        n_devices=1, n_active_history=np.asarray(n_active_hist, np.int64),
+        n_devices=n_dev,
+        n_active_history=np.asarray(n_active_hist, np.int64),
         world_utilization=util,
         n_active_chunks=np.asarray(n_active_chunk, np.int64),
         loop_stats=loop_stats,
         faults_sha256=faults_sha256 if faults is not None else None,
         coverage=coverage, search=search_report,
-        triage_ctx=TriageContext(engine=eng, faults=triage_faults))
+        triage_ctx=TriageContext(engine=eng, faults=triage_faults,
+                                 mesh=mesh))
     if emit_telemetry is not None:
         final = {
             "schema": "madsim.sweep.telemetry/2",
@@ -1760,8 +1865,18 @@ def _put_rows(buf: torch.Tensor, rows: torch.Tensor,
     return buf
 
 
-def _fused_hunt(eng: DeviceEngine, state, idx, seeds: np.ndarray,
-                faults_p, per_world_faults: bool, scfg, lineage_on: bool,
+def _upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host array on ``dev``; to a CUDA device through pinned memory,
+    so the copy does not wait for the stream to drain."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if dev.type != "cuda":
+        return t.clone()
+    return t.pin_memory().to(dev, non_blocking=True)
+
+
+def _fused_hunt(eng: DeviceEngine, mesh: Mesh, state, idx,
+                seeds: np.ndarray, n_real: int, faults_p,
+                per_world_faults: bool, scfg, lineage_on: bool,
                 cov_k: Optional[int], cov_hits, cov_first, sched, corpus,
                 lin, op_tab, *, recycle: bool, chunk_steps: int, c_max: int,
                 stop_on_first_bug: bool, lin_base: int, perf: dict,
@@ -1792,6 +1907,15 @@ def _fused_hunt(eng: DeviceEngine, state, idx, seeds: np.ndarray,
     per mega-dispatch (``_fetch``) and pulls the per-seed buffers once, at
     the end (the caller's pull).
 
+    On a mesh the chunks step each block of the split batch by its own
+    launches, gated by a copy of the gate word on its device, and the
+    scalars and the coverage fold reduce over the blocks onto the lead
+    device; the epoch body gathers the batch there, works on the whole
+    world axis and splits it again (the JAX program is one GSPMD program
+    over the whole axis). ``seeds`` is the seed-id space padded to the
+    mesh; ``n_real`` of them are real (the coverage fold takes only
+    those).
+
     There is no dry-cursor shrink: the tail runs at full width, so
     ``world_utilization`` is the one result that differs from the serial
     loop's. ``prof`` (obs/observatory.py ``ProfilerWindow``) wraps each
@@ -1802,12 +1926,11 @@ def _fused_hunt(eng: DeviceEngine, state, idx, seeds: np.ndarray,
     ``last_fused_stats`` counts the chunks queued and the host's time
     queuing epoch bodies.
     """
-    from ..obs.coverage import distinct_count, fold_retired
     from ..obs.lineage import LineageLanes, lanes_buffer
 
-    dev = state.active.device
+    dev = mesh.lead
     cuda = dev.type == "cuda"
-    w = int(state.active.shape[0])
+    w = state.n_worlds
     n = int(seeds.shape[0])
     search_on = scfg is not None
     cov_on = cov_k is not None
@@ -1820,15 +1943,15 @@ def _fused_hunt(eng: DeviceEngine, state, idx, seeds: np.ndarray,
     hi = np.zeros(n_ids_b, np.uint32)
     lo[:n] = (seeds & np.uint64(0xFFFFFFFF)).astype(np.uint32)
     hi[:n] = (seeds >> np.uint64(32)).astype(np.uint32)
-    lo_d, hi_d = torch.from_numpy(lo).to(dev), torch.from_numpy(hi).to(dev)
+    lo_d, hi_d = _upload(lo, dev), _upload(hi, dev)
     ftab = None
     if not search_on and faults_p is not None:
         f = np.asarray(faults_p, np.int32)
         if per_world_faults and n_ids_b > n:
             f = np.concatenate([f, f[:1].repeat(n_ids_b - n, axis=0)])
-        ftab = torch.from_numpy(np.ascontiguousarray(f)).to(dev)
+        ftab = _upload(f, dev)
     dump = n_ids_b                     # the buffers' trailing dump row
-    obs0 = eng.observe_device(state)
+    obs0 = eng.observe_device(state.shards[0])
     bufs = {k: torch.zeros((n_ids_b + 1,) + tuple(v.shape[1:]),
                            dtype=v.dtype, device=dev)
             for k, v in obs0.items()}
@@ -1838,38 +1961,42 @@ def _fused_hunt(eng: DeviceEngine, state, idx, seeds: np.ndarray,
         f_rows = int(sched.shape[1])
         sb = np.full((n_ids_b + 1, f_rows, 4), -1, np.int32)
         sb[:, :, 1:] = 0               # canonical disabled rows
-        sched_buf = torch.from_numpy(sb).to(dev)
+        sched_buf = _upload(sb, dev)
         gen_fn = searcher(eng, scfg, w, f_rows)
         stats = tuple(torch.zeros((), dtype=i32, device=dev)
                       for _ in range(5 if lineage_on else 2))
     if lineage_on:
         lin_buf = lanes_buffer(n_ids_b, dev)
     rows_r = torch.arange(w, dtype=i32, device=dev)
-    cursor = torch.tensor(w, dtype=i32, device=dev)
+    cursor = torch.full((), w, dtype=i32, device=dev)
     epochs = torch.zeros((), dtype=i32, device=dev)
-    n_t = torch.tensor(n, dtype=i32, device=dev)
+    n_t = torch.full((), n, dtype=i32, device=dev)
+    n_real_t = torch.full((), n_real, dtype=i32, device=dev)
     no_more = torch.zeros((), dtype=torch.bool, device=dev)
 
     def more_seeds():
         return cursor < n_t if recycle else no_more
 
     def epoch(trigger, n_act):
-        """The epoch body, every write masked by ``trigger``."""
+        """The epoch body, every write masked by ``trigger``, over the
+        whole world axis (the batch gathered on the lead device and split
+        again at the end)."""
         nonlocal state, idx, cursor, epochs, sched, lin, corpus, op_tab, \
             stats
-        order = torch.sort((~state.active).to(i32), stable=True).indices
+        whole = state.gather()
+        order = torch.sort((~whole.active).to(i32), stable=True).indices
         perm = torch.where(trigger, order, rows_r.to(order.dtype))
-        group = [state, idx] + ([sched] if search_on else []) \
+        group = [whole, idx] + ([sched] if search_on else []) \
             + ([lin] if lineage_on else [])
         group = [_permute_worlds(t, perm) for t in group]
-        state, idx = group[0], group[1]
+        whole, idx = group[0], group[1]
         if search_on:
             sched = group[2]
         if lineage_on:
             lin = group[3]
         tail = (rows_r >= n_act) & (idx >= 0) & trigger
         tgt = torch.where(tail, idx, dump).to(torch.int64)
-        obs = eng.observe_device(state)
+        obs = eng.observe_device(whole)
         for key, buf in bufs.items():
             _put_rows(buf, tgt, obs[key])
         take = torch.minimum(w - n_act, n_t - cursor)
@@ -1884,13 +2011,13 @@ def _fused_hunt(eng: DeviceEngine, state, idx, seeds: np.ndarray,
                 for b, v in zip(lin_buf, lin):
                     _put_rows(b, tgt, v)
                 children, child_lin, corpus, op_tab, new_stats = gen_fn(
-                    state, sched, idx, corpus, n_act, fill_ids, fill, lin,
+                    whole, sched, idx, corpus, n_act, fill_ids, fill, lin,
                     op_tab, lin_base, gate=trigger)
                 lin = LineageLanes(*(torch.where(fill, c, o)
                                      for c, o in zip(child_lin, lin)))
             else:
                 children, corpus, new_stats = gen_fn(
-                    state, sched, idx, corpus, n_act, fill_ids,
+                    whole, sched, idx, corpus, n_act, fill_ids,
                     gate=trigger)
             stats = tuple(torch.where(trigger, a, b)
                           for a, b in zip(new_stats, stats))
@@ -1902,8 +2029,9 @@ def _fused_hunt(eng: DeviceEngine, state, idx, seeds: np.ndarray,
             f_new = ftab.index_select(0, fill_ids)
         else:
             f_new = ftab.expand((w,) + tuple(ftab.shape))
-        eng.refill_traced(state, fill, _take(lo_d, fill_ids),
+        eng.refill_traced(whole, fill, _take(lo_d, fill_ids),
                           _take(hi_d, fill_ids), f_new)
+        state = shard_worlds(whole, mesh)
         idx = torch.where(trigger & (rows_r >= n_act), repl, idx)
         cursor = cursor + torch.where(trigger, take, 0).to(i32)
         epochs = epochs + trigger.to(i32)
@@ -1922,8 +2050,7 @@ def _fused_hunt(eng: DeviceEngine, state, idx, seeds: np.ndarray,
         t0 = perf_counter()
         prof.before_dispatch()
         with prof.annotate("madsim:fused_hunt"):
-            any_bug = state.bug.any()
-            n_act = state.active.sum(dtype=i32)
+            any_bug, n_act = block_totals(state.shards)
             # The pass-through property: a dispatch against a finished hunt
             # runs no chunk. ``done`` closes the gate for good (the hunt's
             # stop, or k chunks run); ``pending`` is an epoch the trigger
@@ -1943,18 +2070,19 @@ def _fused_hunt(eng: DeviceEngine, state, idx, seeds: np.ndarray,
             finished = k == 0
             while not finished:
                 ran = ~(done | pending)
-                act0 = state.active.clone() if cov_on else None
-                eng.run_steps(state, chunk_steps, gate=(~ran).to(i32))
-                any_bug = state.bug.any()
-                n_act = state.active.sum(dtype=i32)
+                blocks = state.shards
+                act0 = ([b.active.clone() for b in blocks] if cov_on
+                        else None)
+                run_blocks(eng, blocks, chunk_steps, (~ran).to(i32))
+                any_bug, n_act = block_totals(blocks)
                 last_bug = torch.where(ran, any_bug, last_bug)
                 last_n = torch.where(ran, n_act, last_n)
                 pos = k_done.clamp(max=k_bucket - 1).reshape(1).to(torch.int64)
                 hist.index_put_((pos,), torch.where(ran, n_act, hist[pos]))
                 if cov_on:
-                    fmask = act0 & ~state.active & (idx >= 0) & (idx < n_t)
-                    cov_hits, cov_first = fold_retired(
-                        cov_hits, cov_first, state.metrics, fmask, idx)
+                    cov_hits, cov_first = _fold_blocks(
+                        blocks, [a & ~b.active for a, b in zip(act0, blocks)],
+                        cov_hits, cov_first, idx, n_real_t)
                     cov_hist.index_put_((pos,), torch.where(
                         ran, distinct_count(cov_hits), cov_hist[pos]))
                 k_done = k_done + ran.to(i32)
@@ -1973,7 +2101,7 @@ def _fused_hunt(eng: DeviceEngine, state, idx, seeds: np.ndarray,
                 for flag_at, flags in ahead.read():
                     if flags & 2 and flag_at > epoch_at:
                         t_ep = perf_counter()
-                        epoch(pending, state.active.sum(dtype=i32))
+                        epoch(pending, block_totals(state.shards)[1])
                         pending = torch.zeros_like(pending)
                         epoch_at = ahead.pushed - 1
                         epoch_s += perf_counter() - t_ep
@@ -1982,7 +2110,7 @@ def _fused_hunt(eng: DeviceEngine, state, idx, seeds: np.ndarray,
             # The live slots' rows are parked at the end of each dispatch; a
             # later dispatch overwrites them.
             live_tgt = torch.where(idx >= 0, idx, dump).to(torch.int64)
-            obs = eng.observe_device(state)
+            obs = eng.observe_device(state.gather())
             for key, buf in bufs.items():
                 _put_rows(buf, live_tgt, obs[key])
             if search_on:
@@ -2029,7 +2157,7 @@ def _fused_hunt(eng: DeviceEngine, state, idx, seeds: np.ndarray,
 # ---------------------------------------------------------------------------
 
 class SweepSession:
-    """A persistent sweep session: the JAX ``SweepSession`` on one device.
+    """A persistent sweep session: the JAX ``SweepSession``.
 
     A fleet worker holds one session across its leases, so the engine, the
     chunk and superstep geometry and the standing batch are set up once:
@@ -2055,8 +2183,10 @@ class SweepSession:
     the ``observe`` callback) drops the standing batch: launches may still
     be queued on it, and the next group installs fresh.
 
-    A ``mesh`` raises ``NotImplementedError`` naming its ROADMAP item. Not
-    thread-safe: one session per worker.
+    ``mesh`` splits the standing batch as :func:`sweep` splits its own
+    (by default the engine's device alone); each group is padded to a
+    multiple of the mesh size with repeats of its first seed, as the JAX
+    session pads it. Not thread-safe: one session per worker.
     """
 
     #: sweep() keyword arguments run_group understands; a lease whose sweep
@@ -2069,9 +2199,6 @@ class SweepSession:
                  mesh: Optional[Any] = None, chunk_steps: int = 512,
                  max_steps: int = 1_000_000, superstep_max: int = 16,
                  coverage_buckets: Optional[int] = None):
-        if mesh is not None:
-            raise _unported("SweepSession(mesh=...) over several devices",
-                            "12")
         if engine is None:
             if cfg is None:
                 raise ValueError(
@@ -2081,6 +2208,7 @@ class SweepSession:
         if superstep_max < 1:
             raise ValueError("superstep_max must be >= 1")
         self.engine = engine
+        self.mesh = _engine_mesh(engine, mesh)
         self.chunk_steps = int(chunk_steps)
         self.max_steps = int(max_steps)
         self.superstep_max = int(superstep_max)
@@ -2108,16 +2236,20 @@ class SweepSession:
         if not first:
             self.reuse_hits += 1
         return sweep(None, self.engine.cfg, seeds, faults=faults,
-                     engine=self.engine, **kw)
+                     engine=self.engine, mesh=self.mesh, **kw)
 
-    @staticmethod
-    def _part_sha256(faults: Optional[np.ndarray]) -> Optional[str]:
-        """The solo sweep's ``faults_sha256`` of one range (on one device
-        the schedule is hashed unpadded)."""
+    def _part_sha256(self, faults: Optional[np.ndarray]) -> Optional[str]:
+        """The solo sweep's ``faults_sha256`` of one range: per-world
+        schedules padded to the mesh with repeats of row 0, as
+        :func:`sweep` pads them."""
         if faults is None:
             return None
-        fp = np.ascontiguousarray(np.asarray(faults, np.int32))
-        return hashlib.sha256(fp.tobytes()).hexdigest()
+        fp = np.asarray(faults, np.int32)
+        if fp.ndim == 3:
+            pad = (-fp.shape[0]) % self.mesh.size
+            if pad:
+                fp = np.concatenate([fp, fp[:1].repeat(pad, axis=0)], axis=0)
+        return hashlib.sha256(np.ascontiguousarray(fp).tobytes()).hexdigest()
 
     def run_group(self, parts: List[Dict[str, Any]],
                   observe: Any = None) -> List[SweepResult]:
@@ -2133,8 +2265,9 @@ class SweepSession:
 
         if not parts:
             raise ValueError("run_group needs at least one range")
-        eng = self.engine
-        dev = eng.device
+        eng, mesh = self.engine, self.mesh
+        n_dev = mesh.size
+        dev = mesh.lead
         chunk_steps, superstep_max = self.chunk_steps, self.superstep_max
         cov_on = bool(eng.cfg.metrics)
         cov_k = (int(self.coverage_buckets) if self.coverage_buckets
@@ -2169,8 +2302,11 @@ class SweepSession:
         form = forms.pop()
         n_list = [int(s.shape[0]) for s in seeds_list]
         offs = np.concatenate([[0], np.cumsum(n_list)]).astype(int)
-        w = int(offs[-1])
+        n_tot = int(offs[-1])
+        w = n_tot + ((-n_tot) % n_dev)
         seeds_c = np.concatenate(seeds_list)
+        if w > n_tot:  # the mesh's padding: dummy worlds, sliced off
+            seeds_c = np.concatenate([seeds_c, seeds_c[:1].repeat(w - n_tot)])
         if form is None:
             faults_init = None
         elif form == 2:
@@ -2182,16 +2318,22 @@ class SweepSession:
                         "across grouped ranges")
         else:
             faults_init = np.concatenate(faults_list, axis=0)
+            if w > n_tot:
+                faults_init = np.concatenate(
+                    [faults_init, faults_init[:1].repeat(w - n_tot, axis=0)],
+                    axis=0)
 
         # -- install: recycle the standing slots, else a fresh init --------
         reused = self._slot_state is not None and self._slot_w == w
         if reused:
             prev, self._slot_state = self._slot_state, None
-            state = eng.refill(prev, np.ones(w, bool), seeds_c,
-                               faults=faults_init)
+            state = shard_worlds(
+                eng.refill(prev.gather(), np.ones(w, bool), seeds_c,
+                           faults=faults_init), mesh)
         else:
             self._slot_state = None
-            state = eng.init(seeds_c, faults=faults_init)
+            state = shard_worlds(eng.init(seeds_c, faults=faults_init),
+                                 mesh)
         first = self._runs == 0
         self._runs += 1
         self.reuse_hits += len(parts) - (1 if first else 0)
@@ -2217,10 +2359,11 @@ class SweepSession:
                 k = 1
             min_one = epoch_fresh
             epoch_fresh = False
+            runner = sharded_superstep(eng, mesh, chunk_steps,
+                                       superstep_max, min_one=min_one)
             t0 = perf_counter()
-            state, any_bug, n_active, k_done, hist = eng.superstep(
-                state, 0, False, k, chunk_steps=chunk_steps,
-                k_max=superstep_max, min_one=min_one)
+            state, any_bug, n_active, k_done, hist = runner(
+                state, 0, False, k)
             perf["dispatch_s"] += perf_counter() - t0
             perf["dispatches"] += 1
             inflight = _Flight(any_bug, n_active, k_done, hist, k, w, 0)
@@ -2257,8 +2400,8 @@ class SweepSession:
                         "batch_worlds": int(w),
                         "n_active": int(n_act),
                         "occupancy": round(n_act / w, 4) if w else 0.0,
-                        "seeds_total": int(w),
-                        "seeds_done": int(max(w - n_act, 0)),
+                        "seeds_total": int(n_tot),
+                        "seeds_done": int(max(n_tot - n_act, 0)),
                         "bug_seen": bool(bug_h),
                         "session_group": len(parts),
                         "dispatch_depth": 1 if inflight is not None else 0,
@@ -2290,20 +2433,19 @@ class SweepSession:
                 idx_np[offs[i]:offs[i + 1]] = np.arange(n_i, dtype=np.int32)
                 idx_r = torch.from_numpy(idx_np).to(dev)
                 hits, first_seen = ledger_zeros(cov_k, dev)
-                hits, first_seen = _cov_endfolder(state, hits, first_seen,
-                                                  idx_r, n_i, False)
-                hits, first_seen = _cov_endfolder(state, hits, first_seen,
-                                                  idx_r, n_i, True)
+                for fold_active in (False, True):
+                    hits, first_seen = _fold_end(state, hits, first_seen,
+                                                 idx_r, n_i, fold_active)
                 ledgers.append((hits, first_seen))
             ledgers_h = _fetch(ledgers)
-        obs_all = eng.observe(state)
+        obs_all = eng.observe(state.gather())
 
         self._slot_state = state
         self._slot_w = w
         self._k_warm = k_cur
 
         issued = w * chunk_steps * chunks
-        live_steps = int(np.asarray(obs_all["steps"]).sum())
+        live_steps = int(np.asarray(obs_all["steps"])[:n_tot].sum())
         loop_stats_base = {
             "pipelined": True,
             "session": True,
@@ -2334,11 +2476,12 @@ class SweepSession:
                 coverage = coverage_from_device(cov_k, hits_h, first_h, [])
             results.append(SweepResult(
                 seeds=s, bug=obs["bug"], observations=obs,
-                steps_run=chunks * chunk_steps, n_devices=1,
+                steps_run=chunks * chunk_steps, n_devices=n_dev,
                 world_utilization=live_steps / issued if issued else 0.0,
                 loop_stats=dict(loop_stats_base),
                 faults_sha256=self._part_sha256(f), coverage=coverage,
-                triage_ctx=TriageContext(engine=eng, faults=f)))
+                triage_ctx=TriageContext(engine=eng, faults=f,
+                                         mesh=mesh)))
         if close_telemetry is not None:
             close_telemetry()
         return results

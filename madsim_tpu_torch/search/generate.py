@@ -1,7 +1,7 @@
 """The search generator: harvest the retiring worlds, then mutate.
 
-The PyTorch counterpart of ``madsim_tpu/search/generate.py`` (one device,
-no mesh). At every refill of a guided ``sweep(recycle=True, search=...)``
+The PyTorch counterpart of ``madsim_tpu/search/generate.py``. At every
+refill of a guided ``sweep(recycle=True, search=...)``
 the generator
 
 1. **harvests**: the behavior signature (``obs/coverage.behavior_signature``)
@@ -18,8 +18,12 @@ callables' counterparts over tensors; :func:`searcher` caches them per
 engine. Their fold is
 :func:`~madsim_tpu_torch.search.corpus.harvest_fold`: on CUDA one launch
 of the hand-written fold kernel (``csrc/corpus_fold.cu``), on the CPU its
-plain version. Every sweep loop runs them on the engine's device at each
-refill (the fused hunt inside its device loop, behind a gate).
+plain version. Every sweep loop runs them at each refill (the fused hunt
+inside its device loop, behind a gate) over the whole world axis: on a
+mesh the refill epoch gathers the split batch on the mesh's lead device,
+where the corpus, the lineage tables and the operator table are kept, so
+a refill is one fold launch whatever the mesh, and the children, made for
+every slot, are split with the refilled batch.
 """
 from __future__ import annotations
 
@@ -106,7 +110,8 @@ def searcher(eng, scfg: SearchConfig, w: int, f_rows: int):
     """The harvest and generate step for this engine, batch width and
     schedule height (cached on the engine):
     :func:`generate_body_lineage` where ``scfg.lineage``, else
-    :func:`generate_body`."""
+    :func:`generate_body`. On a mesh it runs on the whole world axis, on
+    the mesh's lead device."""
     cache = eng.__dict__.setdefault("_searcher_cache", {})
     key = (w, f_rows, scfg)
     if key not in cache:

@@ -39,6 +39,7 @@ from ..engine.core import (
     FAULT_UNCLOG_LINK,
     FAULT_UNCLOG_NODE,
 )
+from ..engine.lanes import const_table
 from .config import SearchConfig
 from .corpus import CorpusState, pick_filled
 from .rng import lanes_u32, pct, stream_key
@@ -58,7 +59,7 @@ def _i32(x: torch.Tensor) -> torch.Tensor:
 def _flip_op(op: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """The op flip: another member of the row's class (uniform over the
     others), the identity for SET_* rows."""
-    lv = torch.tensor(_LIVENESS, dtype=torch.int32, device=op.device)
+    lv = const_table(tuple(_LIVENESS), torch.int32, op.device)
     is_lv = ((op == FAULT_KILL) | (op == FAULT_RESTART)
              | (op == FAULT_PAUSE) | (op == FAULT_RESUME))
     lv_pos = (_i32(op == FAULT_RESTART) * 1 + _i32(op == FAULT_PAUSE) * 2
@@ -154,8 +155,8 @@ def make_children(scfg: SearchConfig, ecfg, corpus: CorpusState,
     # Canonical disabled rows, whichever operator disabled them.
     disabled = child[..., 0] < 0
     child = torch.where(disabled[..., None],
-                        torch.tensor([-1, 0, 0, 0], dtype=torch.int32,
-                                     device=child.device), child)
+                        const_table((-1, 0, 0, 0), torch.int32,
+                                    child.device), child)
     if not lineage:
         return child
     from ..obs.lineage import LineageLanes, pack_ops

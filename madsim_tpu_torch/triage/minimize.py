@@ -236,7 +236,7 @@ def minimize_rows(sched0: np.ndarray,
 
 
 def minimize(actor: Any, cfg: Any, seed: int, faults,
-             *, engine: Any = None,
+             *, engine: Any = None, mesh: Any = None,
              chunk_steps: int = 64, max_steps: int = 20_000,
              pipeline: bool = True, weaken: bool = True,
              tighten: bool = False, max_rounds: int = 128
@@ -249,13 +249,14 @@ def minimize(actor: Any, cfg: Any, seed: int, faults,
     schedule), in the pipelined loop or, with ``pipeline=False``, the
     serial one; the round's winner is the cheapest still-failing
     candidate under the deterministic :func:`~.shrink.schedule_cost`
-    order. Candidate batches are padded to power-of-two world counts
-    (replicating candidate 0, whose verdict is sliced off), as in the
-    JAX package.
+    order. Candidate batches are padded to power-of-two world counts, and
+    to at least the mesh size (replicating candidate 0, whose verdict is
+    sliced off), as in the JAX package.
 
     ``engine`` (optional) reuses an existing ``DeviceEngine`` for
-    ``(actor, cfg)``, and the sweeps run on its device; without it a new
-    engine runs on the card. ``pipeline`` selects the sweep loop and does
+    ``(actor, cfg)``; without it a new engine runs on the card. ``mesh``
+    (``parallel/mesh.py``) splits each round's sweep over its devices; by
+    default the sweeps run on the engine's device. ``pipeline`` selects the sweep loop and does
     not change the result. ``weaken`` enables the severity-weakening
     phase; ``tighten`` opts into fire-time halving (it rewrites row
     times, so the minimized rows are no longer a subset of the
@@ -267,16 +268,18 @@ def minimize(actor: Any, cfg: Any, seed: int, faults,
     from ..parallel.sweep import _pow2_at_least, sweep
 
     eng = engine if engine is not None else DeviceEngine(actor, cfg)
+    n_dev = 1 if mesh is None else int(mesh.devices.size)
     sched0 = as_schedule(faults)
 
     def evaluate(cands: List[np.ndarray]) -> np.ndarray:
         c = len(cands)
-        w = _pow2_at_least(c)
+        w = max(_pow2_at_least(c), n_dev)
         arr = np.stack(list(cands) + [cands[0]] * (w - c)) \
             .astype(np.int32, copy=False)
         res = sweep(None, eng.cfg, np.full(w, seed, np.uint64),
-                    faults=arr, engine=eng, chunk_steps=chunk_steps,
-                    max_steps=max_steps, pipeline=pipeline)
+                    faults=arr, engine=eng, mesh=mesh,
+                    chunk_steps=chunk_steps, max_steps=max_steps,
+                    pipeline=pipeline)
         return np.asarray(res.bug[:c], bool)
 
     final, stats = minimize_rows(sched0, evaluate, weaken=weaken,

@@ -272,6 +272,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "madsim_tpu_torch.obs.metrics, madsim_tpu_torch.obs.blackbox, "
             "madsim_tpu_torch.obs.coverage, "
             "madsim_tpu_torch.parallel, madsim_tpu_torch.parallel.sweep, "
+            "madsim_tpu_torch.parallel.mesh, "
             "madsim_tpu_torch.actorc, "
             "madsim_tpu_torch.actorc.families.tpc, "
             "madsim_tpu_torch.actorc.families.pb, "
@@ -291,6 +292,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "madsim_tpu_torch.obs.observatory, "
             "madsim_tpu_torch.obs.bundle, madsim_tpu_torch.obs.timeline, "
             "madsim_tpu_torch.analysis, madsim_tpu_torch.analysis.speclint, "
+            "madsim_tpu_torch.analysis.tracelint, "
+            "madsim_tpu_torch.analysis.budgets, "
             "madsim_tpu_torch.actorc.host, "
             "madsim_tpu_torch.actorc.conformance, "
             "madsim_tpu_torch.engine.conformance, "
@@ -319,18 +322,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 # name belongs to what stays outside the port (ROADMAP, Queue A's preface:
 # analysis passes 1-2, host-test bundles).
 UNPORTED_EXPORTS = {
-    "parallel": {"seed_mesh": "item 12",
-                 "multihost_mesh": "item 12", "shard_worlds": "item 12",
-                 "world_spec": "item 12", "world_sharding": "item 12",
-                 "sharded_engine": "item 12"},
     "obs": {"write_test_bundle": "host runtime"},
     "bridge": {name: "host runtime" for name in (
         "sweep", "sweep_traced", "sweep_pooled", "Outcome", "BridgeRuntime",
         "BridgeNetSim", "BridgeTime", "BridgePoolError", "SliceDriver")},
-    "analysis": {"main_trace": "item 12", "run_lint": "host runtime",
+    "analysis": {"run_lint": "host runtime",
                  "run_escape_pass": "host runtime",
                  "run_parity_pass": "host runtime",
-                 "scan_source": "host runtime", "Allowlist": "host runtime"},
+                 "scan_source": "host runtime"},
 }
 PORT_SUBPACKAGES = ("actorc", "analysis", "bridge", "engine", "fleet", "obs",
                     "ops", "parallel", "search", "triage")

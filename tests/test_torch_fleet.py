@@ -14,7 +14,7 @@ telemetry streams equal JAX's less the host's wall-clock fields (the
 heartbeat numbering that chaos keys on is the sweep's telemetry cadence,
 one record per scalar read, the same in both packages); the chaotic
 fleet's digest is ``golden.GOLDEN_FLEET_RAFT``; the coalesced control
-plane's RPC bound; a mesh raises. The pb and tpc matrices are in
+plane's RPC bound; the fleet on a 2-D mesh. The pb and tpc matrices are in
 tests/test_torch_fleet_families.py; the session, preemption, torn
 checkpoint, telemetry and stall cases in
 tests/test_torch_fleet_session.py; the multiprocess leg (marked slow,
@@ -322,17 +322,38 @@ def test_merged_result_refuses_minimize(raft_fleets):
         res.minimize()
 
 
-def test_fleet_refuses_a_mesh(raft_eng):
-    """JAX's DCN×ICI leg (test_fleet_composes_with_multihost_mesh): the
-    port runs on one device, and a mesh raises naming ROADMAP item 12, in
-    the fleet and in the session, as ``sweep(mesh=...)`` does."""
-    from madsim_tpu_torch.parallel import SweepSession
+def test_fleet_composes_with_multihost_mesh(raft_eng, raft_single):
+    """The DCN×ICI leg (JAX's test of the same name): every worker sweeps
+    its leases on a 2-D multihost mesh (here 2 hosts × 2 blocks of the
+    CPU: each block is stepped apart, so the CPU pays per block) under
+    chaos, and the merged result equals the single-host reference and
+    JAX's fleet on its own (2, 2) mesh under the same chaos,
+    ``faults_sha256`` included."""
+    import jax
 
-    with pytest.raises(NotImplementedError, match="item 12"):
-        fleet_sweep(None, raft_eng.cfg, RAFT_SEEDS, engine=raft_eng,
-                    mesh=MESH1, n_workers=2, range_size=16, **SWEEP_KW)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        SweepSession(engine=raft_eng, mesh=MESH1, **SWEEP_KW)
+    from madsim_tpu.parallel.mesh import multihost_mesh as jmultihost
+    from madsim_tpu_torch.parallel.mesh import multihost_mesh
+
+    mesh2d = multihost_mesh([torch.device("cpu")] * 4, n_hosts=2)
+    assert mesh2d.devices.shape == (2, 2)
+    assert mesh2d.axis_names == ("dcn", "worlds")
+    chaos = ChaosConfig(seed=5, kill_at=(("w1", 3),), restart_after=1)
+    fleet = fleet_sweep(None, raft_eng.cfg, RAFT_SEEDS, engine=raft_eng,
+                        mesh=mesh2d, n_workers=2, range_size=16,
+                        chaos=chaos, **SWEEP_KW)
+    assert_contract_equal(raft_single, fleet)
+    assert fleet.loop_stats["fleet"]["kills"] == 1
+    assert fleet.n_devices == 4
+    je = J.DeviceEngine(J.RaftActor(J.RaftDeviceConfig(**RK)),
+                        J.EngineConfig(**CK))
+    jmesh = jmultihost(jax.devices()[:4], n_hosts=2)
+    assert jmesh.devices.shape == (2, 2)
+    jres = jfleet.fleet_sweep(None, je.cfg, RAFT_SEEDS, engine=je,
+                              mesh=jmesh, n_workers=2, range_size=16,
+                              chaos=jchaos(chaos), **SWEEP_KW)
+    assert_contract_equal(jres, fleet)
+    assert fleet.faults_sha256 == jres.faults_sha256
+    assert fleet.n_devices == jres.n_devices
 
 
 def test_fleet_control_rpcs_bounded_per_lease(raft_single, raft_fleets):

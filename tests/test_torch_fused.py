@@ -162,10 +162,14 @@ def test_fused_refusals(off_engines):
         tsweep.sweep(None, te.cfg, SEEDS, engine=te, fused=True,
                      checkpoint_path="x.npz")
     # The observatory runs in the fused loop
-    # (tests/test_torch_observatory.py); a mesh does not.
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tsweep.sweep(None, te.cfg, SEEDS, engine=te, fused=True,
-                     mesh=object())
+    # (tests/test_torch_observatory.py), and so does a mesh (tests/
+    # test_torch_mesh.py holds it to JAX's): a 2-way split of the CPU.
+    from madsim_tpu_torch.parallel import seed_mesh as tseed_mesh
+
+    res = tsweep.sweep(None, te.cfg, SEEDS, engine=te, fused=True,
+                       chunk_steps=64, max_steps=64,
+                       mesh=tseed_mesh([torch.device("cpu")] * 2))
+    assert res.n_devices == 2 and res.loop_stats["chunks"] == 1
 
 
 def test_fused_zero_step_budget_runs_no_chunks(off_engines):

@@ -104,7 +104,7 @@ def assert_results_equal(jr, tr):
         assert tr.observations[k].dtype == v.dtype, k
         np.testing.assert_array_equal(tr.observations[k], v, err_msg=k)
     assert tr.steps_run == jr.steps_run
-    assert tr.n_devices == jr.n_devices == 1
+    assert tr.n_devices == jr.n_devices
     for f in ("n_active_history", "n_active_chunks"):
         a, b = getattr(tr, f), getattr(jr, f)
         assert a.dtype == b.dtype, f
@@ -227,14 +227,24 @@ def test_unported_knobs_raise_naming_their_roadmap_item(off_engines):
     _je, te = off_engines
     # The pipelined and fused loops are ported (tests/test_torch_pipeline.py
     # and tests/test_torch_fused.py), checkpoints
-    # (tests/test_torch_sweep_resume.py) and the observatory
-    # (tests/test_torch_observatory.py); a mesh still raises, in every
-    # loop.
+    # (tests/test_torch_sweep_resume.py), the observatory
+    # (tests/test_torch_observatory.py) and meshes (tests/
+    # test_torch_mesh.py): a one-device mesh of the engine's device is the
+    # default, in every loop, and the default mesh needs a CUDA device.
+    from madsim_tpu_torch.parallel import mesh as tmesh
+
+    one = tmesh.seed_mesh([torch.device("cpu")])
     for loop in (dict(pipeline=False), dict(pipeline=True),
                  dict(fused=True)):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            tsweep_mod.sweep(None, te.cfg, SEEDS, engine=te, mesh=object(),
-                             **loop)
+        kw = dict(chunk_steps=64, max_steps=128, faults=FAULTS, **loop)
+        a = tsweep_mod.sweep(None, te.cfg, SEEDS, engine=te, mesh=one, **kw)
+        b = tsweep_mod.sweep(None, te.cfg, SEEDS, engine=te, **kw)
+        assert a.n_devices == b.n_devices == 1
+        for k, v in b.observations.items():
+            np.testing.assert_array_equal(a.observations[k], v, err_msg=k)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match=r"devices=\[torch.device"):
+            tmesh.seed_mesh()
     # The fused loop refuses a checkpoint with JAX's error.
     with pytest.raises(ValueError, match="fused=True cannot checkpoint"):
         tsweep_mod.sweep(None, te.cfg, SEEDS, engine=te, fused=True,
